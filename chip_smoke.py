@@ -1,0 +1,442 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's chunk detection path once on one NVIDIA card.
+
+Run from the repository root, on a machine with a CUDA device and nvcc:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; without CUDA it exits 1 and prints no
+result):
+  0. environment: the card, its power limit, versions;
+  1. build the CUDA kernels from ``tpu3dsis_torch/csrc``;
+  2. each kernel against its plain PyTorch version at main-path shapes;
+  3. the main path: ``Detector`` with the trained geometry weights
+     (``tests/fixtures/tiling_parity_params.npz``) on 32 synthetic 96x48x96
+     chunks, in float32 and bfloat16, through ``build_inference_fn``; both
+     kernels' launch counters must rise;
+  4. the card against the CPU on one chunk (float32, TF32 off), and bfloat16
+     against float32 under the decision-stability contract of
+     ``tests/test_bf16_stability.py``;
+  5. timing: chunks/s at batch 32, per-stage ms, kernels against plain.
+
+The last three lines are the kernels' JSON, the card's name and power limit
+as ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from tpu3dsis_torch import Detector, _build, build_inference_fn, load_jax_params, scannet_chunk_config
+from tpu3dsis_torch.geometry.boxes import nms_overlap
+from tpu3dsis_torch.models.detector import device_anchors
+from tpu3dsis_torch.models.rpn import select_proposals
+from tpu3dsis_torch.ops import nms
+from tpu3dsis_torch.ops import roi_pool3d as rp
+
+SHAPE = (96, 48, 96)
+BATCH = 32
+TRAINED = "tests/fixtures/tiling_parity_params.npz"
+CARD = ""  # "<name>, <power limit>" from nvidia-smi, set in main()
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"FAILED: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_name_and_power_limit() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return res.stdout.strip().splitlines()[0].strip()
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Median device time of fn() in ms, CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# --- synthetic chunks (tools/tiling_parity_check.py:30-57, encoded inline) --
+
+
+def _add_object(sdf, boxes, rng, kind):
+    if kind == "sofa":
+        sx, sy, sz = 53, rng.randint(18, 23), rng.randint(20, 25)
+        if rng.rand() < 0.5:
+            sx, sz = sz, sx
+    elif kind == "chair":
+        sx, sy, sz = rng.randint(10, 15), rng.randint(9, 14), rng.randint(10, 15)
+    else:
+        sx, sy, sz = rng.randint(16, 22), rng.randint(4, 7), rng.randint(16, 22)
+    lo, hi = (2, 2, 2), (94, 46, 94)
+    for _ in range(50):
+        x0 = rng.randint(lo[0], max(hi[0] - sx, lo[0] + 1))
+        y0 = rng.randint(lo[1], max(hi[1] - sy, lo[1] + 1))
+        z0 = rng.randint(lo[2], max(hi[2] - sz, lo[2] + 1))
+        x1, y1, z1 = x0 + sx, y0 + sy, z0 + sz
+        if np.any(sdf[x0:x1, y0:y1, z0:z1] < 1.0):
+            continue  # overlap: retry
+        sdf[x0:x1, y0:y1, z0:z1] = 0.3
+        sdf[x0 + 1:x1 - 1, y0 + 1:y1 - 1, z0 + 1:z1 - 1] = -2.0
+        boxes.append([x0, y0, z0, x1, y1, z1])
+        return
+
+
+def make_chunks(rng, n):
+    """n chunks (n, 96, 48, 96, 2) encoded as io/dataset.py:41 encode_tsdf
+    (TRUNCATED 3, no flip, no log), and each chunk's object boxes."""
+    scenes, gts = [], []
+    for _ in range(n):
+        sdf = np.full(SHAPE, 8.0, np.float32)
+        boxes = []
+        for kind in ("sofa", "chair", "chair", "table"):
+            _add_object(sdf, boxes, rng, kind)
+        scenes.append(np.stack([np.abs(np.clip(sdf, -3.0, 3.0)), (sdf > -1).astype(np.float32)], -1))
+        gts.append(np.asarray(boxes, np.float32))
+    return np.stack(scenes).astype(np.float32), gts
+
+
+def iou(a, b):
+    """(N, 6) x (K, 6) plain-extent IoU (tpu3dsis/geometry/boxes.py:105)."""
+    lo = np.maximum(a[:, None, :3], b[None, :, :3])
+    hi = np.minimum(a[:, None, 3:], b[None, :, 3:])
+    inter = np.clip(hi - lo, 0, None).prod(-1)
+    va = (a[:, 3:] - a[:, :3]).prod(-1)
+    vb = (b[:, 3:] - b[:, :3]).prod(-1)
+    return inter / (va[:, None] + vb[None, :] - inter)
+
+
+def detections(out, i, class_thresh=0.3, stitch_thresh=0.25):
+    """Chunk i's detections as ``SceneInference.detect`` reports them
+    (tpu3dsis/infer/tiling.py:907-960): valid, non-degenerate, not
+    background, conf above CLASS_THRESH (0.3 in tools/tiling_parity_check.py),
+    then class-aware greedy NMS at IoU 0.25 (+1 extents) by confidence."""
+    o = {k: (v.float() if v.is_floating_point() else v)[i].cpu().numpy() for k, v in out.items()}
+    keep = o["valid"] & ~o["degenerate"] & (o["cls_pred"] > 0) & (o["pred_conf"] > class_thresh)
+    box, cls, conf = o["pred_box"][keep], o["cls_pred"][keep], o["pred_conf"][keep]
+    ov = nms_overlap(torch.from_numpy(box), torch.from_numpy(box)).numpy()
+    suppressed = np.zeros(len(box), bool)
+    kept = []
+    for j in np.argsort(-conf, kind="stable"):
+        if not suppressed[j]:
+            kept.append(j)
+            suppressed |= (cls == cls[j]) & (ov[j] > stitch_thresh)
+    return box[kept], cls[kept], conf[kept]
+
+
+# --- phase 2 ------------------------------------------------------------------
+
+
+def kernel_inputs(dev, rng, batch=BATCH, rois_per_chunk=200, boxes_per_chunk=400):
+    """Main-path shapes: two (batch, 24, 12, 24, 128) level maps, 200 rois
+    per chunk on a mix of levels (some past the volume, so clamped and empty
+    bins, some on its borders), and 400 score-ordered boxes per chunk."""
+    feats = torch.randn((2, batch, 24, 12, 24, 128), generator=torch.Generator().manual_seed(0))
+    m = batch * rois_per_chunk
+    lo = rng.uniform(-8, 90, (m, 3)) * [1, 0.5, 1]
+    hi = lo + rng.uniform(0.5, 60, (m, 3))
+    rois = np.concatenate([lo, hi], 1)
+    inside = rng.rand(m) < 0.7
+    rois[inside] = np.clip(rois[inside], 0, [96, 48, 96, 96, 48, 96])
+    rois[::17, :3] = 0  # on the near borders
+    rois[5::17, 3:] = [96, 48, 96]  # on the far borders
+    k1 = dict(
+        rois=torch.from_numpy(rois.astype(np.float32)).to(dev),
+        batch_idx=torch.arange(batch, dtype=torch.int32).repeat_interleave(rois_per_chunk).to(dev),
+        level_idx=torch.from_numpy(rng.randint(0, 2, m).astype(np.int32)).to(dev),
+        scales=[0.25, 0.25],
+        pooled=4,
+    )
+    blo = rng.uniform(0, 90, (batch, boxes_per_chunk, 3)) * [1, 0.5, 1]
+    boxes = np.concatenate([blo, blo + rng.uniform(2, 50, (batch, boxes_per_chunk, 3))], -1)
+    k2 = dict(
+        boxes=torch.from_numpy(boxes.astype(np.float32)).to(dev),
+        valid=torch.from_numpy(rng.rand(batch, boxes_per_chunk) > 0.1).to(dev),
+    )
+    return feats.to(dev), k1, k2
+
+
+def phase_kernels(dev, rng, batch=BATCH):
+    feats, k1, k2 = kernel_inputs(dev, rng, batch)
+    res = {"roi_pool3d_cuda": {"err": 0.0}, "nms3d_cuda": {"err": 0.0}}
+    for dt in (torch.float32, torch.bfloat16):
+        f = feats.to(dt)
+        got = rp.roi_pool3d_cuda(f, **k1)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = rp.roi_pool3d_plain(f, **k1)
+        end.record()
+        end.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        name = str(dt).split(".")[-1]
+        res["roi_pool3d_cuda"][f"plain_ms_{name}"] = start.elapsed_time(end)
+        res["roi_pool3d_cuda"]["err"] = max(res["roi_pool3d_cuda"]["err"], err)
+        n_empty = int((want == 0).flatten(1).all(1).sum())
+        log(f"[2] K1 roi_pool3d {name} {tuple(got.shape)}: max_abs_err={err} "
+            f"exact={torch.equal(got, want)} all-zero rois={n_empty} [{CARD}]")
+        check(torch.equal(got, want), f"K1 {name} differs from its plain version")
+    for thresh in (0.1, 0.5):
+        got = nms.nms3d_cuda(k2["boxes"], thresh, k2["valid"])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = nms.nms_mask_plain(k2["boxes"], thresh, k2["valid"])
+        end.record()
+        end.synchronize()
+        err = float((got.int() - want.int()).abs().max())
+        res["nms3d_cuda"]["err"] = max(res["nms3d_cuda"]["err"], err)
+        res["nms3d_cuda"][f"plain_ms_{thresh}"] = start.elapsed_time(end)
+        log(f"[2] K2 nms3d thresh={thresh} {tuple(got.shape)}: kept={int(got.sum())} "
+            f"mismatches={int((got != want).sum())} [{CARD}]")
+        check(torch.equal(got, want), f"K2 at {thresh} differs from its plain version")
+    return res, (feats, k1, k2)
+
+
+# --- phases 3 and 4 -------------------------------------------------------------
+
+
+def load_detectors(dev):
+    cfg32 = scannet_chunk_config()
+    cfg16 = cfg32.replace(TPU_COMPUTE_DTYPE="bfloat16")
+    det32 = load_jax_params(Detector(cfg32, device=dev), TRAINED)
+    det16 = load_jax_params(Detector(cfg16, device=dev), TRAINED)
+    return (cfg32, det32), (cfg16, det16)
+
+
+def phase_main_path(dev, scenes, gts, dets, batches=3):
+    (cfg32, det32), (cfg16, det16) = dets
+    infer32 = build_inference_fn(det32, cfg32, SHAPE)
+    infer16 = build_inference_fn(det16, cfg16, SHAPE)
+    x = torch.from_numpy(scenes).to(dev)
+    rp.roi_pool3d_cuda.launches = 0
+    nms.nms3d_cuda.launches = 0
+    outs = {}
+    for name, infer in (("float32", infer32), ("bfloat16", infer16)):
+        for _ in range(batches):
+            outs[name] = infer(x)
+    torch.cuda.synchronize()
+    launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches}
+    log(f"[3] main path: {2 * batches} batches of {len(scenes)} chunks; kernel launches {launches}")
+    for name, out in outs.items():
+        for k, v in out.items():
+            check(v.shape[0] == len(scenes), f"{name} {k} has no batch dimension")
+            if v.is_floating_point():
+                check(bool(torch.isfinite(v).all()), f"{name} {k} is not finite")
+        n_valid = out["valid"].sum(1).cpu().numpy()
+        conf, recalls = [], []
+        for i, gt in enumerate(gts):
+            box, _, c = detections(out, i)
+            confident = box[c >= 0.5]
+            conf.append(len(confident))
+            recalls.append((iou(gt, confident).max(1) >= 0.25).mean() if len(confident) else 0.0)
+        n = len(scenes)
+        log(f"[3] {name}: valid proposals per chunk min={n_valid.min()} mean={n_valid.mean():.1f}; "
+            f"confident (conf>=0.5) detections per chunk mean={np.mean(conf):.2f}; "
+            f"object recall at IoU 0.25 = {np.mean(recalls):.3f}")
+        check((n_valid > 0).sum() >= 0.9 * n, f"{name}: too many chunks without proposals")
+        check((np.asarray(conf) > 0).sum() >= 0.9 * n, f"{name}: too many chunks without confident detections")
+        check(np.mean(recalls) >= 0.5, f"{name}: object recall below 0.5")
+    for k, v in launches.items():
+        check(v > 0, f"{k} was not launched on the main path")
+    return outs, launches
+
+
+def _match_rows(a_rois, a_lvl, b_rois, b_lvl, tol):
+    """One-to-one match of valid rois, order-free (a swap of two near-tied
+    scores reorders proposals without changing the set). Returns pairs."""
+    used = np.zeros(len(b_rois), bool)
+    pairs = []
+    for i in range(len(a_rois)):
+        d = np.abs(b_rois - a_rois[i]).max(1)
+        d[used | (b_lvl != a_lvl[i])] = np.inf
+        j = int(np.argmin(d)) if len(d) else -1
+        check(j >= 0 and d[j] <= tol, f"roi {a_rois[i]} has no counterpart within {tol} voxels")
+        used[j] = True
+        pairs.append((i, j))
+    return pairs
+
+
+def phase_card_vs_cpu(scene, dets, cpu_det, outs):
+    cfg32, det32 = dets[0]
+    card = {k: v.cpu() for k, v in build_inference_fn(det32, cfg32, SHAPE)(torch.from_numpy(scene)).items()}
+    cpu = build_inference_fn(cpu_det, cfg32, SHAPE)(torch.from_numpy(scene))
+    vc, vp = card["valid"].numpy(), cpu["valid"].numpy()
+    check(np.array_equal(vc, vp), f"valid differs: {vc.sum()} on the card, {vp.sum()} on the CPU")
+    rc, rpu = card["rois"].numpy()[vc], cpu["rois"].numpy()[vp]
+    lc, lp = card["level_inds"].numpy()[vc], cpu["level_inds"].numpy()[vp]
+    in_order = np.array_equal(lc, lp) and np.abs(rc - rpu).max(initial=0) <= 1e-3
+    pairs = _match_rows(rc, lc, rpu, lp, 1e-3)
+    ic, ip = (np.array([p[k] for p in pairs], int) for k in (0, 1))
+    errs = {}
+    # float32 both sides, TF32 off: only the conv sum order differs
+    for key, tol in (("rois", 1e-3), ("cls_prob", 1e-4), ("pred_box", 1e-3), ("pred_conf", 1e-4)):
+        d = np.abs(card[key].numpy()[vc][ic] - cpu[key].numpy()[vp][ip]).max(initial=0)
+        errs[key] = float(d)
+        check(d <= tol, f"card vs CPU {key} differs by {d} > {tol}")
+    log(f"[4] card vs CPU, one chunk, float32, TF32 off: {int(vc.sum())} valid proposals, "
+        f"same order={in_order}, max abs diff {errs} [{CARD}]")
+
+    # bfloat16 against float32 on the card: the contract of
+    # test_bf16_stability.py:53-88, over the batch as one scene (its slack,
+    # n // 8, is sized for a scene of ~24 objects; a single chunk of 4 has
+    # none to give, and the JAX package's own bf16 chunk path already turns
+    # one split sofa into one whole on these chunks)
+    worst = 0.0
+    matched = n_hi = n_hi16 = 0
+    for i in range(len(outs["float32"]["valid"])):
+        b32, c32, p32 = detections(outs["float32"], i)
+        b16, c16, p16 = detections(outs["bfloat16"], i)
+        hi32, hi16 = p32 >= 0.9, p16 >= 0.9
+        a, b = b32[hi32], b16[hi16]
+        n_hi += len(a)
+        n_hi16 += len(b)
+        if not (len(a) and len(b)):
+            continue
+        ov = iou(a, b)
+        used = np.zeros(len(b), bool)
+        for r in range(len(a)):
+            row = np.where(used, -1.0, ov[r])
+            j = int(np.argmax(row))
+            if row[j] >= 0.5:
+                used[j] = True
+                matched += 1
+                check(c32[hi32][r] == c16[hi16][j], f"chunk {i}: class flipped in bf16")
+                worst = max(worst, abs(float(p32[hi32][r]) - float(p16[hi16][j])))
+    slack = max(1, n_hi // 8)
+    check(matched >= n_hi - slack, f"only {matched}/{n_hi} confident detections matched in bf16")
+    check(n_hi16 - matched <= slack, f"bf16 added {n_hi16 - matched} unmatched confident detections")
+    check(worst <= 0.1, f"bf16 confidence drift {worst} > 0.1")
+    log(f"[4] bf16 vs float32 decision stability over {len(outs['float32']['valid'])} chunks: "
+        f"{matched}/{n_hi} confident float32 detections matched at IoU 0.5 with the same class "
+        f"({n_hi16} confident in bf16, slack {slack}), max conf drift {worst:.4f} [{CARD}]")
+
+
+# --- phase 5 --------------------------------------------------------------------
+
+
+def phase_timing(dev, scenes, dets, kernel_data, iters=10):
+    feats_k, k1, k2 = kernel_data
+    x = torch.from_numpy(scenes).to(dev)
+    for cfg, det in dets:
+        name = cfg.TPU_COMPUTE_DTYPE
+        infer = build_inference_fn(det, cfg, SHAPE)
+        ms = cuda_ms(lambda: infer(x), iters, warmup=3)
+        anchors = device_anchors(det, SHAPE)
+        t = cfg.TEST
+        with torch.inference_mode():
+            feats = det.features(x)
+            rpn = det.rpn_forward(feats)
+            prop = select_proposals(rpn, anchors, SHAPE, t.RPN_PRE_NMS_TOP_N, t.RPN_POST_NMS_TOP_N, t.RPN_NMS_THRESH)
+            levels = [feats[1], feats[2]]
+            pool = rp.roi_pool3d_multilevel(levels, prop["rois"], prop["level_inds"], 4, [0.25, 0.25])
+            pool5 = pool.reshape(-1, *pool.shape[2:])
+
+            def classifier():
+                fc7 = det.classify(pool5)
+                return det.classifier_cls_score_net(fc7), det.classifier_bbox_pred_net(fc7)
+
+            stages = {
+                "backbone": cuda_ms(lambda: det.features(x), iters),
+                "rpn_heads": cuda_ms(lambda: det.rpn_forward(feats), iters),
+                "proposals_incl_nms": cuda_ms(lambda: select_proposals(
+                    rpn, anchors, SHAPE, t.RPN_PRE_NMS_TOP_N, t.RPN_POST_NMS_TOP_N, t.RPN_NMS_THRESH), iters),
+                "nms_k2": cuda_ms(lambda: nms.nms3d_cuda(k2["boxes"], t.RPN_NMS_THRESH, k2["valid"]), iters),
+                "roi_pool_incl_stack": cuda_ms(lambda: rp.roi_pool3d_multilevel(
+                    levels, prop["rois"], prop["level_inds"], 4, [0.25, 0.25]), iters),
+                "classifier_mlp": cuda_ms(classifier, iters),
+            }
+        log(f"[5] {name} batch {len(scenes)}: {ms:.3f} ms/batch = {len(scenes) * 1000.0 / ms:.1f} chunks/s "
+            f"(median of {iters}, TF32 off) [{CARD}]")
+        log(f"[5] {name} per-stage ms: " + json.dumps({k: round(v, 4) for k, v in stages.items()}) + f" [{CARD}]")
+    kernels = {}
+    for dt in (torch.float32, torch.bfloat16):
+        f = feats_k.to(dt)
+        kernels[f"k1_{str(dt).split('.')[-1]}"] = cuda_ms(lambda: rp.roi_pool3d_cuda(f, **k1), 20)
+    for thresh in (0.1, 0.5):
+        kernels[f"k2_{thresh}"] = cuda_ms(lambda: nms.nms3d_cuda(k2["boxes"], thresh, k2["valid"]), 50)
+    kernels["k2_plain_0.1"] = cuda_ms(lambda: nms.nms_mask_plain(k2["boxes"], 0.1, k2["valid"]), 3, warmup=1)
+    log("[5] kernel ms at main-path shapes (K1: 6400 rois on 2x32x24x12x24x128; K2: 32x400 boxes): "
+        + json.dumps({k: round(v, 4) for k, v in kernels.items()}) + f" [{CARD}]")
+    return kernels
+
+
+def main() -> int:
+    global CARD
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card", file=sys.stderr)
+        return 1
+    t_start = time.time()
+    CARD = card_name_and_power_limit()
+    dev = torch.device("cuda:0")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    found = {m: importlib.util.find_spec(m) is not None for m in ("jax", "yaml", "PIL")}
+    log(f"[0] {torch.cuda.get_device_name(0)} | nvidia-smi: {CARD} | torch {torch.__version__} "
+        f"CUDA {torch.version.cuda} | python {sys.version.split()[0]} | importable (not needed): {found}")
+
+    t0 = time.time()
+    path, build_log = _build.build()
+    _build.load_library()
+    log(f"[1] kernels built in {time.time() - t0:.1f} s -> {path.name}")
+    for line in build_log.splitlines():
+        if "registers" in line or "spill" in line or "error" in line:
+            log(f"[1]   {line.strip()}")
+
+    rng = np.random.RandomState(0)
+    kernel_res, kernel_data = phase_kernels(dev, rng)
+
+    scenes, gts = make_chunks(np.random.RandomState(1), BATCH)
+    dets = load_detectors(dev)
+    outs, launches = phase_main_path(dev, scenes, gts, dets)
+
+    cpu_det = load_jax_params(Detector(scannet_chunk_config(), device="cpu"), TRAINED)
+    phase_card_vs_cpu(scenes[:1], dets, cpu_det, outs)
+
+    kernels = phase_timing(dev, scenes, dets, kernel_data)
+
+    k1, k2 = kernel_res["roi_pool3d_cuda"], kernel_res["nms3d_cuda"]
+    # K1 at the bench's compute dtype, bf16 (both dtypes are on the [2] and [5] lines)
+    record = {"kernels": [
+        {"name": "roi_pool3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/roi_pool3d.cu",
+         "replaces": "tpu3dsis/ops/roi_pool3d_pallas.py:85", "launches": launches["roi_pool3d_cuda"],
+         "max_abs_err": k1["err"], "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"]},
+        {"name": "nms3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
+         "replaces": "tpu3dsis/ops/nms.py:86", "launches": launches["nms3d_cuda"],
+         "max_abs_err": k2["err"], "ms": kernels["k2_0.1"], "plain_ms": kernels["k2_plain_0.1"]},
+    ]}
+    log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
+    print(json.dumps(record))
+    print(CARD)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

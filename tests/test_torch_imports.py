@@ -1,0 +1,66 @@
+"""The port's path imports no JAX, YAML or PIL; its kernels on the card."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_TINY_FORWARD = """
+import sys
+import numpy as np
+import torch
+import tpu3dsis_torch as tt
+
+cfg = tt.scannet_chunk_config()
+det = tt.Detector(cfg).init_params(torch.Generator().manual_seed(0))
+scene = np.random.RandomState(0).randn(1, 16, 16, 16, 2).astype(np.float32)
+out = tt.build_inference_fn(det, cfg, (16, 16, 16))(torch.from_numpy(scene))
+assert out["valid"].shape == (200,) and torch.isfinite(out["pred_box"]).all()
+print(" ".join(m for m in ("jax", "jaxlib", "yaml", "PIL") if m in sys.modules))
+"""
+
+
+def test_port_imports_no_jax_yaml_or_pil():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", _TINY_FORWARD], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "", f"imported: {res.stdout.strip()}"
+
+
+@pytest.mark.gpu
+def test_kernels_match_plain_versions_on_the_card():
+    """K1 and K2 against their plain versions, on CUDA tensors (run on a
+    machine with an NVIDIA card and nvcc: ``python -m pytest -m gpu``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu3dsis_torch.ops import nms, roi_pool3d as rp
+
+    dev = torch.device("cuda")
+    rng = np.random.RandomState(0)
+    feats = torch.from_numpy(rng.randn(2, 3, 24, 12, 24, 128).astype(np.float32)).to(dev)
+    lo = rng.uniform(-10, 90, (300, 3))
+    rois = torch.from_numpy(np.concatenate([lo, lo + rng.uniform(0, 60, (300, 3))], 1).astype(np.float32)).to(dev)
+    bidx = torch.from_numpy(rng.randint(0, 3, 300).astype(np.int32)).to(dev)
+    lidx = torch.from_numpy(rng.randint(0, 2, 300).astype(np.int32)).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        f = feats.to(dt)
+        got = rp.roi_pool3d_cuda(f, rois, bidx, lidx, [0.25, 0.25], 4)
+        want = rp.roi_pool3d_plain(f, rois, bidx, lidx, [0.25, 0.25], 4)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+    lo = rng.uniform(0, 60, (4, 400, 3))
+    boxes = torch.from_numpy(np.concatenate([lo, lo + rng.uniform(1, 20, (4, 400, 3))], -1).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(rng.rand(4, 400) > 0.1).to(dev)
+    for thresh in (0.1, 0.5):
+        got = nms.nms3d_cuda(boxes, thresh, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(got, nms.nms_mask_plain(boxes, thresh, valid))
