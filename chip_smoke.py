@@ -8,16 +8,21 @@ Run from the repository root, on a machine with a CUDA device and nvcc:
 Phases (any failure exits non-zero; without CUDA it exits 1 and prints no
 result):
   0. environment: the card, its power limit, versions;
-  1. build the CUDA kernels from ``tpu3dsis_torch/csrc``;
-  2. each kernel against its plain PyTorch version at main-path shapes;
+  1. build the CUDA kernels from ``tpu3dsis_torch/csrc``, one nvcc per source,
+     all in parallel;
+  2. each kernel against its plain PyTorch version, exactly (``torch.equal``):
+     K1 at main-path shapes with the level maps passed separately, on levels
+     of two spatial shapes, and with NaN voxels; K2 at N = 400 and 1024, and
+     at a negative threshold;
   3. the main path: ``Detector`` with the trained geometry weights
      (``tests/fixtures/tiling_parity_params.npz``) on 32 synthetic 96x48x96
      chunks, in float32 and bfloat16, through ``build_inference_fn``; both
-     kernels' launch counters must rise;
+     kernels' launch counters must rise, and each call must be one launch;
   4. the card against the CPU on one chunk (float32, TF32 off), and bfloat16
      against float32 under the decision-stability contract of
      ``tests/test_bf16_stability.py``;
-  5. timing: chunks/s at batch 32, per-stage ms, kernels against plain.
+  5. timing: chunks/s at batch 32, per-stage ms, each kernel against its
+     plain version and its bound, and a profile of the bf16 batch.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
@@ -31,6 +36,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -46,6 +52,11 @@ SHAPE = (96, 48, 96)
 BATCH = 32
 TRAINED = "tests/fixtures/tiling_parity_params.npz"
 CARD = ""  # "<name>, <power limit>" from nvidia-smi, set in main()
+CLOCK_MHZ = 0.0  # the card's highest SM clock from nvidia-smi, set in main()
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, float32 FLOP/s
+# outside the tensor cores (the kernels' compares and IoUs run there)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
 
 
 def check(cond, msg: str) -> None:
@@ -57,16 +68,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_name_and_power_limit() -> str:
+def nvidia_smi(query: str) -> str:
     res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return res.stdout.strip().splitlines()[0].strip()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Median device time of fn() in ms, CUDA events around each call."""
+    """Median time of fn() in ms, CUDA events around each call (the time
+    includes any gap while the host enqueues the call)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -79,6 +91,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Device time of one fn() in ms: `iters` calls queued behind a device
+    sleep, so the events see the kernels back to back and no host gap."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms: longer than enqueueing the calls
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 # --- synthetic chunks (tools/tiling_parity_check.py:30-57, encoded inline) --
@@ -149,73 +178,180 @@ def detections(out, i, class_thresh=0.3, stitch_thresh=0.25):
     return box[kept], cls[kept], conf[kept]
 
 
+# --- bounds: the least time the card could take for a kernel's work --------
+
+
+def k1_bound(feats, rois, batch_idx, level_idx, scales, pooled):
+    """K1's bound in ms and its bytes: each covered voxel of the level maps
+    read once (the voxels the rois' bins cover, a union over the batch), the
+    rois and indices read once, the (M, C, P^3) output written once, over
+    the HBM rate. Its compares (one per bin voxel and channel) take far
+    less at the float32 rate, so bytes bound it."""
+    r = rois.float().cpu().numpy()
+    lv, bi = level_idx.cpu().numpy(), batch_idx.cpu().numpy()
+    c, itemsize = feats[0].shape[-1], feats[0].element_size()
+    covered = 0
+    for level, (f, s) in enumerate(zip(feats, scales)):
+        ext = np.asarray(f.shape[1:4])
+        lo = np.floor(r[:, :3] * np.float32(s)).astype(np.int64)
+        hi = np.ceil(r[:, 3:] * np.float32(s)).astype(np.int64)
+        a = np.clip(lo, 0, ext)
+        e = np.clip(lo + np.maximum(hi - lo, 1), 0, ext)  # the union of the roi's bins
+        grid = np.zeros((f.shape[0], *ext), bool)
+        for i in np.flatnonzero((lv == level) & (bi >= 0) & (bi < f.shape[0])):
+            grid[bi[i], a[i, 0]:e[i, 0], a[i, 1]:e[i, 1], a[i, 2]:e[i, 2]] = True
+        covered += int(grid.sum())
+    m = len(r)
+    nbytes = covered * c * itemsize + m * (6 * 4 + 2 * 4) + m * c * pooled**3 * itemsize
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def k1_loaded_bytes(feats, rois, batch_idx, level_idx, scales, pooled):
+    """Bytes K1's loads ask of L1 and L2: each column of bins (px, py) loads
+    its x-bin by y-bin rectangle once for every z of its z-bins' union, 16
+    bytes of channels at a time, whatever of it L1 or L2 already holds."""
+    r = rois.float().cpu()
+    lv, bi = level_idx.cpu(), batch_idx.cpu()
+    c, itemsize = feats[0].shape[-1], feats[0].element_size()
+    voxels = 0
+    for level, (f, s) in enumerate(zip(feats, scales)):
+        sel = (lv == level) & (bi >= 0) & (bi < f.shape[0])
+        if not bool(sel.any()):
+            continue
+        s = torch.tensor(s, dtype=torch.float32)
+        lo = torch.floor(r[sel, :3] * s).to(torch.int32)
+        hi = torch.ceil(r[sel, 3:] * s).to(torch.int32)
+        ax = [rp._bin_bounds(lo[:, d], hi[:, d], pooled, e) for d, e in enumerate(f.shape[1:4])]
+        nx, ny = ((e - st).clamp(min=0).sum(1).long() for st, e in ax[:2])
+        nz = (ax[2][1][:, -1] - ax[2][0][:, 0]).clamp(min=0).long()
+        voxels += int((nx * ny * nz).sum())
+    return voxels * c * itemsize
+
+
+def k2_bound(boxes, valid):
+    """K2's bound in ms, its bound_by, and its latency floor in steps: the
+    boxes and valid flags read and the keep mask written once (bytes), or
+    the IoU tests of every valid pair i < j (21 float32 operations each
+    after each box's volume, 8) at the float32 rate (operations); the greedy
+    walk's N steps depend one on another besides."""
+    b, n = valid.shape
+    nv = valid.sum(1).double()
+    ops = float((nv * (nv - 1) / 2 * 21 + nv * 8).sum())
+    nbytes = b * n * (6 * 4 + 1 + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"), n
+
+
 # --- phase 2 ------------------------------------------------------------------
 
 
-def kernel_inputs(dev, rng, batch=BATCH, rois_per_chunk=200, boxes_per_chunk=400):
-    """Main-path shapes: two (batch, 24, 12, 24, 128) level maps, 200 rois
-    per chunk on a mix of levels (some past the volume, so clamped and empty
-    bins, some on its borders), and 400 score-ordered boxes per chunk."""
-    feats = torch.randn((2, batch, 24, 12, 24, 128), generator=torch.Generator().manual_seed(0))
-    m = batch * rois_per_chunk
+def _rois(rng, batch, per_chunk, extent=(96, 48, 96)):
+    """Rois on a mix of levels: some past the volume (clamped and empty
+    bins), some on its borders."""
+    m = batch * per_chunk
     lo = rng.uniform(-8, 90, (m, 3)) * [1, 0.5, 1]
     hi = lo + rng.uniform(0.5, 60, (m, 3))
     rois = np.concatenate([lo, hi], 1)
     inside = rng.rand(m) < 0.7
-    rois[inside] = np.clip(rois[inside], 0, [96, 48, 96, 96, 48, 96])
+    rois[inside] = np.clip(rois[inside], 0, [*extent, *extent])
     rois[::17, :3] = 0  # on the near borders
-    rois[5::17, 3:] = [96, 48, 96]  # on the far borders
-    k1 = dict(
-        rois=torch.from_numpy(rois.astype(np.float32)).to(dev),
-        batch_idx=torch.arange(batch, dtype=torch.int32).repeat_interleave(rois_per_chunk).to(dev),
-        level_idx=torch.from_numpy(rng.randint(0, 2, m).astype(np.int32)).to(dev),
-        scales=[0.25, 0.25],
-        pooled=4,
+    rois[5::17, 3:] = extent  # on the far borders
+    return dict(
+        rois=torch.from_numpy(rois.astype(np.float32)),
+        batch_idx=torch.arange(batch, dtype=torch.int32).repeat_interleave(per_chunk),
+        level_idx=torch.from_numpy(rng.randint(0, 2, m).astype(np.int32)),
     )
-    blo = rng.uniform(0, 90, (batch, boxes_per_chunk, 3)) * [1, 0.5, 1]
-    boxes = np.concatenate([blo, blo + rng.uniform(2, 50, (batch, boxes_per_chunk, 3))], -1)
-    k2 = dict(
-        boxes=torch.from_numpy(boxes.astype(np.float32)).to(dev),
-        valid=torch.from_numpy(rng.rand(batch, boxes_per_chunk) > 0.1).to(dev),
-    )
+
+
+def _boxes(rng, batch, n):
+    """n score-ordered boxes per chunk, about 10% invalid."""
+    lo = rng.uniform(0, 90, (batch, n, 3)) * [1, 0.5, 1]
+    boxes = np.concatenate([lo, lo + rng.uniform(2, 50, (batch, n, 3))], -1)
+    return dict(boxes=torch.from_numpy(boxes.astype(np.float32)), valid=torch.from_numpy(rng.rand(batch, n) > 0.1))
+
+
+def kernel_inputs(dev, rng, batch=BATCH, rois_per_chunk=200, boxes_per_chunk=400):
+    """Main-path shapes: two (batch, 24, 12, 24, 128) level maps, 200 rois
+    per chunk, and 400 score-ordered boxes per chunk."""
+    feats = torch.randn((2, batch, 24, 12, 24, 128), generator=torch.Generator().manual_seed(0))
+    k1 = {k: v.to(dev) for k, v in _rois(rng, batch, rois_per_chunk).items()}
+    k1.update(scales=[0.25, 0.25], pooled=4)
+    k2 = {k: v.to(dev) for k, v in _boxes(rng, batch, boxes_per_chunk).items()}
     return feats.to(dev), k1, k2
+
+
+def _k1_case(name, feats, k1, nan_ok=False):
+    """K1 against its plain version on one input; with NaN voxels, the NaN
+    positions first, then the rest exactly."""
+    got = rp.roi_pool3d_cuda(feats, **k1)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = rp.roi_pool3d_plain(feats, **k1)
+    end.record()
+    end.synchronize()
+    nan_got, nan_want = torch.isnan(got), torch.isnan(want)
+    check(torch.equal(nan_got, nan_want), f"K1 {name}: NaN at other outputs than its plain version")
+    check(nan_ok or not bool(nan_want.any()), f"K1 {name}: NaN in the output")
+    same = torch.equal(got.masked_fill(nan_got, 0), want.masked_fill(nan_want, 0))
+    err = float((got.float() - want.float()).abs().nan_to_num(0.0).max())
+    n_empty = int((want == 0).flatten(1).all(1).sum())
+    log(f"[2] K1 {name} {tuple(got.shape)}: exact={same} max_abs_err={err} NaN outputs={int(nan_want.sum())} "
+        f"all-zero rois={n_empty} plain {start.elapsed_time(end):.1f} ms [{CARD}]")
+    check(same, f"K1 {name} differs from its plain version")
+    return err, start.elapsed_time(end), int(nan_want.sum())
 
 
 def phase_kernels(dev, rng, batch=BATCH):
     feats, k1, k2 = kernel_inputs(dev, rng, batch)
     res = {"roi_pool3d_cuda": {"err": 0.0}, "nms3d_cuda": {"err": 0.0}}
+    r1 = res["roi_pool3d_cuda"]
+    # the two level maps of the main path, passed as two tensors
     for dt in (torch.float32, torch.bfloat16):
-        f = feats.to(dt)
-        got = rp.roi_pool3d_cuda(f, **k1)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = rp.roi_pool3d_plain(f, **k1)
-        end.record()
-        end.synchronize()
-        err = float((got.float() - want.float()).abs().max())
         name = str(dt).split(".")[-1]
-        res["roi_pool3d_cuda"][f"plain_ms_{name}"] = start.elapsed_time(end)
-        res["roi_pool3d_cuda"]["err"] = max(res["roi_pool3d_cuda"]["err"], err)
-        n_empty = int((want == 0).flatten(1).all(1).sum())
-        log(f"[2] K1 roi_pool3d {name} {tuple(got.shape)}: max_abs_err={err} "
-            f"exact={torch.equal(got, want)} all-zero rois={n_empty} [{CARD}]")
-        check(torch.equal(got, want), f"K1 {name} differs from its plain version")
-    for thresh in (0.1, 0.5):
-        got = nms.nms3d_cuda(k2["boxes"], thresh, k2["valid"])
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = nms.nms_mask_plain(k2["boxes"], thresh, k2["valid"])
-        end.record()
-        end.synchronize()
-        err = float((got.int() - want.int()).abs().max())
-        res["nms3d_cuda"]["err"] = max(res["nms3d_cuda"]["err"], err)
-        res["nms3d_cuda"][f"plain_ms_{thresh}"] = start.elapsed_time(end)
-        log(f"[2] K2 nms3d thresh={thresh} {tuple(got.shape)}: kept={int(got.sum())} "
-            f"mismatches={int((got != want).sum())} [{CARD}]")
-        check(torch.equal(got, want), f"K2 at {thresh} differs from its plain version")
-    return res, (feats, k1, k2)
+        err, plain_ms, _ = _k1_case(f"{name} main-path shapes", list(feats.to(dt).unbind(0)), k1)
+        r1["err"] = max(r1["err"], err)
+        r1[f"plain_ms_{name}"] = plain_ms
+    # two levels of different spatial shapes and strides
+    small = 8
+    g = torch.Generator().manual_seed(1)
+    shaped = [torch.randn((small, 24, 12, 24, 128), generator=g), torch.randn((small, 12, 6, 12, 128), generator=g)]
+    k1s = {k: v.to(dev) for k, v in _rois(rng, small, 200).items()}
+    k1s.update(scales=[0.25, 0.125], pooled=4)
+    for dt in (torch.float32, torch.bfloat16):
+        err, _, _ = _k1_case(f"{str(dt).split('.')[-1]} levels 24x12x24 + 12x6x12",
+                             [f.to(dev, dt) for f in shaped], k1s)
+        r1["err"] = max(r1["err"], err)
+    # NaN voxels: one channel of some voxels, every channel of one voxel
+    nanned = feats[:, :4].clone()
+    nanned[0, 0, 5, 3, 7, 11] = nanned[1, 1, 20, 9, 2, 100] = nanned[0, 2, 12, 6, 12, 64] = float("nan")
+    nanned[1, 3, 3, 1, 3, :] = float("nan")
+    k1n = {k: v.to(dev) for k, v in _rois(rng, 4, 200).items()}
+    k1n.update(scales=[0.25, 0.25], pooled=4)
+    for dt in (torch.float32, torch.bfloat16):
+        _, _, n_nan = _k1_case(f"{str(dt).split('.')[-1]} with NaN voxels", list(nanned.to(dt).unbind(0)), k1n,
+                               nan_ok=True)
+        check(n_nan > 0, "K1 NaN case: no roi covers a NaN voxel")
+
+    r2 = res["nms3d_cuda"]
+    cases = {400: k2, 1024: {k: v.to(dev) for k, v in _boxes(rng, batch, 1024).items()}}
+    for n, boxes in cases.items():
+        # a negative thresh sends non-overlapping pairs down K2's division path
+        for thresh in (0.1, 0.5, -0.5) if n == 400 else (0.1, 0.5):
+            got = nms.nms3d_cuda(boxes["boxes"], thresh, boxes["valid"])
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = nms.nms_mask_plain(boxes["boxes"], thresh, boxes["valid"])
+            end.record()
+            end.synchronize()
+            err = float((got.int() - want.int()).abs().max())
+            r2["err"] = max(r2["err"], err)
+            r2[f"plain_ms_{n}_{thresh}"] = start.elapsed_time(end)
+            log(f"[2] K2 nms3d N={n} thresh={thresh} {tuple(got.shape)}: kept={int(got.sum())} "
+                f"mismatches={int((got != want).sum())} plain {start.elapsed_time(end):.1f} ms [{CARD}]")
+            check(torch.equal(got, want), f"K2 at N={n}, {thresh} differs from its plain version")
+    return res, (feats, k1, cases)
 
 
 # --- phases 3 and 4 -------------------------------------------------------------
@@ -229,6 +365,11 @@ def load_detectors(dev):
     return (cfg32, det32), (cfg16, det16)
 
 
+def device_launches():
+    lib = _build.load_library()
+    return {"roi_pool3d_cuda": lib.tpu3dsis_roi_pool3d_launches(), "nms3d_cuda": lib.tpu3dsis_nms3d_launches()}
+
+
 def phase_main_path(dev, scenes, gts, dets, batches=3):
     (cfg32, det32), (cfg16, det16) = dets
     infer32 = build_inference_fn(det32, cfg32, SHAPE)
@@ -236,13 +377,17 @@ def phase_main_path(dev, scenes, gts, dets, batches=3):
     x = torch.from_numpy(scenes).to(dev)
     rp.roi_pool3d_cuda.launches = 0
     nms.nms3d_cuda.launches = 0
+    before = device_launches()
     outs = {}
     for name, infer in (("float32", infer32), ("bfloat16", infer16)):
         for _ in range(batches):
             outs[name] = infer(x)
     torch.cuda.synchronize()
     launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches}
-    log(f"[3] main path: {2 * batches} batches of {len(scenes)} chunks; kernel launches {launches}")
+    kernel_launches = {k: v - before[k] for k, v in device_launches().items()}
+    per_batch = {k: v / (2 * batches) for k, v in kernel_launches.items()}
+    log(f"[3] main path: {2 * batches} batches of {len(scenes)} chunks; wrapper calls {launches}, "
+        f"kernel launches {kernel_launches}, launches per batch {per_batch}")
     for name, out in outs.items():
         for k, v in out.items():
             check(v.shape[0] == len(scenes), f"{name} {k} has no batch dimension")
@@ -264,7 +409,8 @@ def phase_main_path(dev, scenes, gts, dets, batches=3):
         check(np.mean(recalls) >= 0.5, f"{name}: object recall below 0.5")
     for k, v in launches.items():
         check(v > 0, f"{k} was not launched on the main path")
-    return outs, launches
+        check(kernel_launches[k] == v, f"{k}: {kernel_launches[k]} kernel launches for {v} calls, not one each")
+    return outs, launches, per_batch
 
 
 def _match_rows(a_rois, a_lvl, b_rois, b_lvl, tol):
@@ -340,9 +486,55 @@ def phase_card_vs_cpu(scene, dets, cpu_det, outs):
 # --- phase 5 --------------------------------------------------------------------
 
 
+def main_path_rois(feats, prop):
+    """K1's arguments on the main path: the two level maps and the batch's
+    proposals, as ``roi_pool3d_multilevel`` passes them."""
+    b, r = prop["rois"].shape[:2]
+    dev = prop["rois"].device
+    return [feats[1], feats[2]], dict(
+        rois=prop["rois"].reshape(-1, 6).float().contiguous(),
+        batch_idx=torch.arange(b, dtype=torch.int32, device=dev).repeat_interleave(r),
+        level_idx=(prop["level_inds"].reshape(-1).to(torch.int32) - 1).contiguous(),
+        scales=[0.25, 0.25], pooled=4)
+
+
+def main_path_kernel_inputs(cfg, det, x):
+    """(level maps, K1 arguments) of one batch on the main path."""
+    t = cfg.TEST
+    with torch.inference_mode():
+        feats = det.features(x)
+        prop = select_proposals(det.rpn_forward(feats), device_anchors(det, SHAPE), SHAPE, t.RPN_PRE_NMS_TOP_N,
+                                t.RPN_POST_NMS_TOP_N, t.RPN_NMS_THRESH)
+    return main_path_rois(feats, prop)
+
+
+def profile_batch(infer, x, batches=3):
+    """Device time per batch by kernel name, and the device's idle share,
+    from torch.profiler over `batches` batches after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    infer(x)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(batches):
+            infer(x)
+        end.record()
+        end.synchronize()
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / batches
+    busy = sum(by_name.values())
+    window = start.elapsed_time(end) / batches
+    return busy, window, sorted(by_name.items(), key=lambda kv: -kv[1])
+
+
 def phase_timing(dev, scenes, dets, kernel_data, iters=10):
-    feats_k, k1, k2 = kernel_data
+    feats_k, k1, k2_cases = kernel_data
     x = torch.from_numpy(scenes).to(dev)
+    kernels = {}
     for cfg, det in dets:
         name = cfg.TPU_COMPUTE_DTYPE
         infer = build_inference_fn(det, cfg, SHAPE)
@@ -353,7 +545,7 @@ def phase_timing(dev, scenes, dets, kernel_data, iters=10):
             feats = det.features(x)
             rpn = det.rpn_forward(feats)
             prop = select_proposals(rpn, anchors, SHAPE, t.RPN_PRE_NMS_TOP_N, t.RPN_POST_NMS_TOP_N, t.RPN_NMS_THRESH)
-            levels = [feats[1], feats[2]]
+            levels, own = main_path_rois(feats, prop)
             pool = rp.roi_pool3d_multilevel(levels, prop["rois"], prop["level_inds"], 4, [0.25, 0.25])
             pool5 = pool.reshape(-1, *pool.shape[2:])
 
@@ -366,46 +558,77 @@ def phase_timing(dev, scenes, dets, kernel_data, iters=10):
                 "rpn_heads": cuda_ms(lambda: det.rpn_forward(feats), iters),
                 "proposals_incl_nms": cuda_ms(lambda: select_proposals(
                     rpn, anchors, SHAPE, t.RPN_PRE_NMS_TOP_N, t.RPN_POST_NMS_TOP_N, t.RPN_NMS_THRESH), iters),
-                "nms_k2": cuda_ms(lambda: nms.nms3d_cuda(k2["boxes"], t.RPN_NMS_THRESH, k2["valid"]), iters),
-                "roi_pool_incl_stack": cuda_ms(lambda: rp.roi_pool3d_multilevel(
+                "roi_pool": cuda_ms(lambda: rp.roi_pool3d_multilevel(
                     levels, prop["rois"], prop["level_inds"], 4, [0.25, 0.25]), iters),
                 "classifier_mlp": cuda_ms(classifier, iters),
             }
+            bound, nbytes = k1_bound(levels, **own)
+            k1_own = device_ms(lambda: rp.roi_pool3d_cuda(levels, **own), 20)
+            loaded = k1_loaded_bytes(levels, **own)
         log(f"[5] {name} batch {len(scenes)}: {ms:.3f} ms/batch = {len(scenes) * 1000.0 / ms:.1f} chunks/s "
             f"(median of {iters}, TF32 off) [{CARD}]")
         log(f"[5] {name} per-stage ms: " + json.dumps({k: round(v, 4) for k, v in stages.items()}) + f" [{CARD}]")
-    kernels = {}
+        log(f"[5] {name} roi_pool stage on the main path's rois: {stages['roi_pool']:.4f} ms; K1 alone "
+            f"{k1_own:.4f} ms device time, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 TB/s), "
+            f"{bound / k1_own:.3f} of it; its loads ask {loaded / 1e9:.3f} GB of L1/L2, "
+            f"{loaded / k1_own / 1e9:.2f} TB/s [{CARD}]")
+        kernels[f"k1_{name}_main_path_rois"] = k1_own
+        if name == "bfloat16":
+            busy, window, top = profile_batch(infer, x)
+            log(f"[5] {name} profile: device busy {busy:.3f} ms per batch of a {window:.3f} ms window, idle share "
+                f"{1 - busy / window:.3f}; top kernels (ms per batch): "
+                + json.dumps({k[:60]: round(v, 4) for k, v in top[:12]}) + f" [{CARD}]")
+
     for dt in (torch.float32, torch.bfloat16):
-        f = feats_k.to(dt)
-        kernels[f"k1_{str(dt).split('.')[-1]}"] = cuda_ms(lambda: rp.roi_pool3d_cuda(f, **k1), 20)
-    for thresh in (0.1, 0.5):
-        kernels[f"k2_{thresh}"] = cuda_ms(lambda: nms.nms3d_cuda(k2["boxes"], thresh, k2["valid"]), 50)
-    kernels["k2_plain_0.1"] = cuda_ms(lambda: nms.nms_mask_plain(k2["boxes"], 0.1, k2["valid"]), 3, warmup=1)
-    log("[5] kernel ms at main-path shapes (K1: 6400 rois on 2x32x24x12x24x128; K2: 32x400 boxes): "
-        + json.dumps({k: round(v, 4) for k, v in kernels.items()}) + f" [{CARD}]")
+        name = str(dt).split(".")[-1]
+        f = list(feats_k.to(dt).unbind(0))
+        kernels[f"k1_{name}"] = device_ms(lambda: rp.roi_pool3d_cuda(f, **k1), 20)
+        kernels[f"k1_{name}_bound"] = k1_bound(f, **k1)[0]
+        kernels[f"k1_{name}_load_tb_per_s"] = k1_loaded_bytes(f, **k1) / kernels[f"k1_{name}"] / 1e9
+    for n, boxes in k2_cases.items():
+        for thresh in (0.1, 0.5):
+            kernels[f"k2_{n}_{thresh}"] = device_ms(lambda: nms.nms3d_cuda(boxes["boxes"], thresh, boxes["valid"]), 50)
+        kernels[f"k2_{n}_0.1_events_per_call"] = cuda_ms(
+            lambda: nms.nms3d_cuda(boxes["boxes"], 0.1, boxes["valid"]), 50)
+        bound, bound_by, steps = k2_bound(boxes["boxes"], boxes["valid"])
+        kernels[f"k2_{n}_bound"] = bound
+        kernels[f"k2_{n}_bound_by"] = bound_by
+        # N dependent steps of the walk, each at least 4 dependent integer
+        # operations of 4 cycles, at the card's highest SM clock
+        kernels[f"k2_{n}_latency_floor"] = steps * 16 / (CLOCK_MHZ * 1e3) if CLOCK_MHZ else "not measured"
+    kernels["k2_plain_0.1"] = cuda_ms(lambda: nms.nms_mask_plain(k2_cases[400]["boxes"], 0.1, k2_cases[400]["valid"]),
+                                      3, warmup=1)
+    log("[5] kernel ms at main-path shapes (K1: phase 2's 6400 rois, and the main path's own, on 2x32x24x12x24x128; "
+        "K2: 32x400 and 32x1024 boxes), device time of calls queued back to back, bounds from these inputs: "
+        + json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in kernels.items()}) + f" [{CARD}]")
     return kernels
 
 
 def main() -> int:
-    global CARD
+    global CARD, CLOCK_MHZ
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card", file=sys.stderr)
         return 1
     t_start = time.time()
-    CARD = card_name_and_power_limit()
+    CARD = nvidia_smi("name,power.limit")
+    try:
+        CLOCK_MHZ = float(nvidia_smi("clocks.max.sm").split()[0])
+    except (ValueError, IndexError):
+        CLOCK_MHZ = 0.0  # not reported: the K2 latency floor is then not measured
     dev = torch.device("cuda:0")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     found = {m: importlib.util.find_spec(m) is not None for m in ("jax", "yaml", "PIL")}
-    log(f"[0] {torch.cuda.get_device_name(0)} | nvidia-smi: {CARD} | torch {torch.__version__} "
-        f"CUDA {torch.version.cuda} | python {sys.version.split()[0]} | importable (not needed): {found}")
+    log(f"[0] {torch.cuda.get_device_name(0)} | nvidia-smi: {CARD}, max SM clock {CLOCK_MHZ:.0f} MHz | "
+        f"torch {torch.__version__} CUDA {torch.version.cuda} | python {sys.version.split()[0]} | "
+        f"importable (not needed): {found}")
 
     t0 = time.time()
-    path, build_log = _build.build()
+    paths, build_log = _build.build()
     _build.load_library()
-    log(f"[1] kernels built in {time.time() - t0:.1f} s -> {path.name}")
+    log(f"[1] kernels built in {time.time() - t0:.1f} s -> {', '.join(p.name for p in paths)}")
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             log(f"[1]   {line.strip()}")
 
     rng = np.random.RandomState(0)
@@ -413,7 +636,7 @@ def main() -> int:
 
     scenes, gts = make_chunks(np.random.RandomState(1), BATCH)
     dets = load_detectors(dev)
-    outs, launches = phase_main_path(dev, scenes, gts, dets)
+    outs, launches, per_batch = phase_main_path(dev, scenes, gts, dets)
 
     cpu_det = load_jax_params(Detector(scannet_chunk_config(), device="cpu"), TRAINED)
     phase_card_vs_cpu(scenes[:1], dets, cpu_det, outs)
@@ -421,14 +644,19 @@ def main() -> int:
     kernels = phase_timing(dev, scenes, dets, kernel_data)
 
     k1, k2 = kernel_res["roi_pool3d_cuda"], kernel_res["nms3d_cuda"]
-    # K1 at the bench's compute dtype, bf16 (both dtypes are on the [2] and [5] lines)
+    # K1 at the bench's compute dtype, bf16, and K2 at N = 400, thresh 0.1
+    # (both dtypes and the other cases are on the [2] and [5] lines)
     record = {"kernels": [
         {"name": "roi_pool3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/roi_pool3d.cu",
          "replaces": "tpu3dsis/ops/roi_pool3d_pallas.py:85", "launches": launches["roi_pool3d_cuda"],
-         "max_abs_err": k1["err"], "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"]},
+         "launches_per_batch": per_batch["roi_pool3d_cuda"], "max_abs_err": k1["err"],
+         "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"],
+         "bound_ms": kernels["k1_bfloat16_bound"], "bound_by": "bytes", "library_ms": None},
         {"name": "nms3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
          "replaces": "tpu3dsis/ops/nms.py:86", "launches": launches["nms3d_cuda"],
-         "max_abs_err": k2["err"], "ms": kernels["k2_0.1"], "plain_ms": kernels["k2_plain_0.1"]},
+         "launches_per_batch": per_batch["nms3d_cuda"], "max_abs_err": k2["err"],
+         "ms": kernels["k2_400_0.1"], "plain_ms": kernels["k2_plain_0.1"],
+         "bound_ms": kernels["k2_400_bound"], "bound_by": kernels["k2_400_bound_by"], "library_ms": None},
     ]}
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps(record))

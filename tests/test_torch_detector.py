@@ -2,9 +2,10 @@
 
 (a) backbone and RPN heads, (b) the whole inference function on a batch,
 (c) the full-width chunk against the pinned golden stages of
-``tests/fixtures/full_net_golden.npz`` (no reference checkout needed), and
-(d) config reading and strict weight loading. Weights always come from the
-JAX package through ``load_jax_params``.
+``tests/fixtures/full_net_golden.npz`` (no reference checkout needed), (d)
+config reading and strict weight loading, the port's weight conversion
+against the JAX package's, and the card as the default device. Weights
+always come from the JAX package through ``load_jax_params``.
 """
 
 import jax
@@ -16,7 +17,9 @@ import torch
 from tpu3dsis.config import cfg_from_file
 from tpu3dsis.models import Detector as JaxDetector
 from tpu3dsis.models import build_inference_fn as jax_build_inference_fn
+from tpu3dsis.train.checkpoint import params_to_torch_state_dict as jax_params_to_torch_state_dict
 from tpu3dsis_torch import Detector, DetectorConfig, build_inference_fn, load_jax_params, scannet_chunk_config
+from tpu3dsis_torch.checkpoint import params_to_torch_state_dict
 
 SMALL = (32, 16, 32)
 GOLDEN = "tests/fixtures/full_net_golden.npz"
@@ -44,7 +47,7 @@ def _pair(cfg, key):
     """JAX detector + params, and the port's detector holding the same weights."""
     jdet = JaxDetector(cfg, anchor_dir="experiments/anchors")
     params = jdet.init_params(jax.random.PRNGKey(key))
-    tdet = Detector(DetectorConfig.from_cfg(cfg))
+    tdet = Detector(DetectorConfig.from_cfg(cfg), device="cpu")
     # the port has no mask head yet; the detection path never reads it
     load_jax_params(tdet, {k: np.asarray(v) for k, v in params.items() if not k.startswith("mask_backbone.")})
     return jdet, params, tdet
@@ -121,7 +124,7 @@ def test_config_and_strict_loading_of_trained_weights():
     from __graft_entry__ import _scannet_cfg
 
     assert DetectorConfig.from_cfg(_scannet_cfg()) == scannet_chunk_config()
-    det = Detector(scannet_chunk_config())
+    det = Detector(scannet_chunk_config(), device="cpu")
     trained = np.load(TRAINED)
     assert set(det.state_dict()) == set(trained.files)
     load_jax_params(det, TRAINED)
@@ -132,3 +135,25 @@ def test_config_and_strict_loading_of_trained_weights():
     )
     with pytest.raises(RuntimeError):  # strict: a missing key is an error
         load_jax_params(det, {k: trained[k] for k in trained.files if k != "classifier.0.bias"})
+
+
+def test_weight_conversion_matches_jax_package():
+    """The port's own copy of the layout conversion == the JAX package's,
+    key for key and array for array, on the trained fixture."""
+    with np.load(TRAINED) as data:
+        params = {k: data[k] for k in data.files}
+    got = params_to_torch_state_dict(params)
+    want = jax_params_to_torch_state_dict(params)
+    assert list(got) == list(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype and got[k].shape == v.shape, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_detector_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Detector(scannet_chunk_config())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Detector(scannet_chunk_config(), device="cuda:0")
+    assert Detector(scannet_chunk_config(), device="cpu").device.type == "cpu"

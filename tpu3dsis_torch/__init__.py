@@ -3,7 +3,8 @@
 The JAX package ``tpu3dsis`` is the reference; this package follows it module
 for module. It imports ``torch`` and never ``jax``. The hand-written CUDA
 kernels (``csrc/``) are built at first use (``_build.py``). So far it covers
-geometry-only chunk detection: ``Detector`` and ``build_inference_fn``.
+geometry-only chunk detection: ``Detector`` and ``build_inference_fn``, on
+the CUDA card unless the caller asks for the CPU (``device="cpu"``).
 """
 
 from tpu3dsis_torch.checkpoint import load_jax_params

@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels at first use and bind them with ctypes.
 
 The sources under ``csrc/`` have a plain C interface (no PyTorch headers), so
-``nvcc`` builds them in seconds into one shared library. The library goes to
-``tpu3dsis_torch/_build/``, named by a hash of the sources and flags, so an
-edit to a source triggers a rebuild and an unchanged tree reuses the library.
-A missing ``nvcc`` or a failed build raises: there is no fallback.
+``nvcc`` builds each in seconds into a shared library of its own, all sources
+at once in parallel. The libraries go to ``tpu3dsis_torch/_build/``, each
+named by a hash of its source and the flags, so an edit to a source rebuilds
+that library and an unchanged tree reuses it. A missing ``nvcc`` or a failed
+build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import os
 import subprocess
 import tempfile
 from pathlib import Path
+from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = (_PKG / "csrc" / "roi_pool3d.cu", _PKG / "csrc" / "nms3d.cu")
@@ -30,6 +32,16 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
+# every exported function: (argtypes, restype)
+_SIGNATURES = {
+    "tpu3dsis_roi_pool3d": ([_I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P], _I),
+    "tpu3dsis_roi_pool3d_smem": ([_I, _I, _I], _LL),
+    "tpu3dsis_roi_pool3d_launches": ([], _LL),
+    "tpu3dsis_nms3d": ([_P, _P, _I, _I, _F, _P, _P], _I),
+    "tpu3dsis_nms3d_smem": ([_I], _LL),
+    "tpu3dsis_nms3d_launches": ([], _LL),
+}
 
 
 def _nvcc() -> str:
@@ -43,55 +55,64 @@ def _nvcc() -> str:
     return nvcc
 
 
-def _library_path() -> Path:
+def _library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libtpu3dsis_kernels_{h.hexdigest()[:16]}.so"
+    h.update(src.name.encode())
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, str]:
-    """Compile the kernels if the library for these sources is missing.
+def build() -> tuple[list[Path], str]:
+    """Compile every source whose library is missing, all in parallel.
 
-    Returns (library path, compiler log; empty when the library existed).
-    Writes to a temporary name and renames, so concurrent builds are safe.
+    Returns (library paths, compiler logs; empty for libraries that existed).
+    Each build writes to a temporary name and renames, so concurrent builds
+    are safe.
     """
-    path = _library_path()
-    if path.exists():
-        return path, ""
+    paths = [_library_path(src) for src in SOURCES]
+    todo = [(src, path) for src, path in zip(SOURCES, paths) if not path.exists()]
+    if not todo:
+        return paths, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
+    jobs = []
     try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"kernel build failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, path)
+        for src, path in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((cmd, proc, tmp, path))
+        logs = []
+        for cmd, proc, tmp, path in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"kernel build failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+            os.replace(tmp, path)
+            logs.append(out)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path, res.stdout + res.stderr
+        for _, proc, tmp, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return paths, "".join(logs)
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """The kernels' library, built if needed, with every signature declared."""
-    path, _ = build()
-    lib = ctypes.CDLL(str(path))
-    lib.tpu3dsis_roi_pool3d.argtypes = [
-        _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I, _F, _F, _F, _I, _P, _P,
-    ]
-    lib.tpu3dsis_roi_pool3d.restype = _I
-    lib.tpu3dsis_nms3d.argtypes = [_P, _P, _I, _I, _F, _P, _P, _P]
-    lib.tpu3dsis_nms3d.restype = _I
-    lib.tpu3dsis_nms3d_scan_smem.argtypes = [_I]
-    lib.tpu3dsis_nms3d_scan_smem.restype = ctypes.c_longlong
-    return lib
+def load_library() -> SimpleNamespace:
+    """The kernels' exported functions, built if needed, every signature
+    declared, as attributes of one namespace."""
+    paths, _ = build()
+    libs = [ctypes.CDLL(str(p)) for p in paths]
+    fns = {}
+    for name, (argtypes, restype) in _SIGNATURES.items():
+        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
+        fn.argtypes = argtypes
+        fn.restype = restype
+        fns[name] = fn
+    return SimpleNamespace(libraries=libs, **fns)
 
 
 def check(err: int, what: str) -> None:

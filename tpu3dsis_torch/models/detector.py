@@ -28,14 +28,18 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
     """Geometry-only ScanNet detector.
 
     Parameters live in ``cfg.TPU_COMPUTE_DTYPE`` (float32 or bfloat16) on
-    ``device``; the 5-D conv weights and the volumes run in
-    ``torch.channels_last_3d``, so a level map's channels-last view, which
-    the RoI pool reads, costs no copy.
+    ``device``, the CUDA card unless the caller passes ``device="cpu"``;
+    without a CUDA device the default raises rather than falling back. The
+    5-D conv weights and the volumes run in ``torch.channels_last_3d``, so a
+    level map's channels-last view, which the RoI pool reads, costs no copy.
     """
 
     def __init__(self, cfg: DetectorConfig, anchor_dir: str = "experiments/anchors",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         nn.Module.__init__(self)
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Detector runs on a CUDA device, and none is present; pass device='cpu' for the CPU")
         if cfg.NET != "ScanNet_Backbone":
             raise NotImplementedError(f"the port has only ScanNet_Backbone, not {cfg.NET}")
         if not cfg.USE_RPN or cfg.NUM_ANCHORS_LEVEL3:

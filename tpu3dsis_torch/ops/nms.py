@@ -15,7 +15,7 @@ import torch
 from tpu3dsis_torch import _build
 from tpu3dsis_torch.geometry.boxes import nms_overlap
 
-_TILE = 64
+_MAX_BOXES = 64 * 32  # K2's walk keeps one 64-bit word per lane of a warp
 
 
 def nms_mask_plain(boxes: torch.Tensor, thresh: float, valid: torch.Tensor | None = None):
@@ -49,18 +49,19 @@ def nms3d_cuda(boxes: torch.Tensor, thresh: float, valid: torch.Tensor | None = 
     if valid.shape != boxes.shape[:-1] or valid.dtype != torch.bool or valid.device != boxes.device:
         raise ValueError("valid must be a bool tensor of boxes.shape[:-1] on the same device")
     lib = _build.load_library()
-    if lib.tpu3dsis_nms3d_scan_smem(n) > torch.cuda.get_device_properties(boxes.device).shared_memory_per_block_optin:
-        raise ValueError(f"nms3d_cuda: N={n} boxes do not fit the scan's shared memory")
+    if n > _MAX_BOXES or lib.tpu3dsis_nms3d_smem(n) > torch.cuda.get_device_properties(
+            boxes.device).shared_memory_per_block_optin:
+        raise ValueError(f"nms3d_cuda: N={n} boxes and their bitmask do not fit one block's shared memory")
     b = math.prod(lead)
     boxes = boxes.reshape(b, n, 6).contiguous()
     valid = valid.reshape(b, n).contiguous()
-    mask = torch.empty((b, n, -(-n // _TILE)), dtype=torch.int64, device=boxes.device)
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    if b * n == 0:
+        return keep.reshape(*lead, n)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tpu3dsis_nms3d(
-            boxes.data_ptr(), valid.data_ptr(), b, n, float(thresh),
-            mask.data_ptr(), keep.data_ptr(), stream,
+            boxes.data_ptr(), valid.data_ptr(), b, n, float(thresh), keep.data_ptr(), stream,
         )
     _build.check(err, "nms3d_cuda")
     nms3d_cuda.launches += 1
