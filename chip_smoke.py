@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's chunk detection path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's chunk and whole-scene paths on one NVIDIA card.
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
@@ -22,7 +22,17 @@ result):
      against float32 under the decision-stability contract of
      ``tests/test_bf16_stability.py``;
   5. timing: chunks/s at batch 32, per-stage ms, each kernel against its
-     plain version and its bound, and a profile of the bf16 batch.
+     plain version and its bound, and a profile of the bf16 batch;
+  6. the scene path: ``SceneInference.infer`` with the trained detector and
+     the trained mask head (``mask_backbone.*`` of
+     ``tests/fixtures/color_loop_params.npz``) on 240x48x240 scenes of 24
+     objects (25 tiles each), as ``bench.py::bench_masked_scene`` runs it: K2's
+     class-aware mode against its plain version; 4 scenes in float32 and
+     bfloat16, each served by the fused path, with the kernels' launches
+     counted; the card against the CPU on a 144x48x144 scene; bfloat16
+     against float32; masked scenes/min over a prefetched stream of 8,
+     ``device_seconds``, per-stage ms, K2 class-aware against its plain
+     version and its bound, and a profile of one bf16 scene.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
@@ -41,7 +51,8 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from tpu3dsis_torch import Detector, _build, build_inference_fn, load_jax_params, scannet_chunk_config
+from tpu3dsis_torch import (Detector, SceneInference, _build, build_inference_fn, load_jax_params,
+                            scannet_chunk_config, scannet_scene_config)
 from tpu3dsis_torch.geometry.boxes import nms_overlap
 from tpu3dsis_torch.models.detector import device_anchors
 from tpu3dsis_torch.models.rpn import select_proposals
@@ -51,6 +62,9 @@ from tpu3dsis_torch.ops import roi_pool3d as rp
 SHAPE = (96, 48, 96)
 BATCH = 32
 TRAINED = "tests/fixtures/tiling_parity_params.npz"
+MASK_HEAD = "tests/fixtures/color_loop_params.npz"  # its mask_backbone.* keys: the trained mask FCN
+SCENE_EXTENT = (240, 48, 240)
+SCENE_SMALL = (144, 48, 144)  # the card-vs-CPU scene, to bound the CPU's time
 CARD = ""  # "<name>, <power limit>" from nvidia-smi, set in main()
 CLOCK_MHZ = 0.0  # the card's highest SM clock from nvidia-smi, set in main()
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, float32 FLOP/s
@@ -113,7 +127,7 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
 # --- synthetic chunks (tools/tiling_parity_check.py:30-57, encoded inline) --
 
 
-def _add_object(sdf, boxes, rng, kind):
+def _add_object(sdf, boxes, rng, kind, lo=(2, 2, 2), hi=(94, 46, 94)):
     if kind == "sofa":
         sx, sy, sz = 53, rng.randint(18, 23), rng.randint(20, 25)
         if rng.rand() < 0.5:
@@ -122,7 +136,6 @@ def _add_object(sdf, boxes, rng, kind):
         sx, sy, sz = rng.randint(10, 15), rng.randint(9, 14), rng.randint(10, 15)
     else:
         sx, sy, sz = rng.randint(16, 22), rng.randint(4, 7), rng.randint(16, 22)
-    lo, hi = (2, 2, 2), (94, 46, 94)
     for _ in range(50):
         x0 = rng.randint(lo[0], max(hi[0] - sx, lo[0] + 1))
         y0 = rng.randint(lo[1], max(hi[1] - sy, lo[1] + 1))
@@ -145,9 +158,26 @@ def make_chunks(rng, n):
         boxes = []
         for kind in ("sofa", "chair", "chair", "table"):
             _add_object(sdf, boxes, rng, kind)
-        scenes.append(np.stack([np.abs(np.clip(sdf, -3.0, 3.0)), (sdf > -1).astype(np.float32)], -1))
+        scenes.append(encode_tsdf(sdf))
         gts.append(np.asarray(boxes, np.float32))
     return np.stack(scenes).astype(np.float32), gts
+
+
+def encode_tsdf(sdf):
+    """io/dataset.py:41 encode_tsdf with TRUNCATED 3, no flip, no log."""
+    return np.stack([np.abs(np.clip(sdf, -3.0, 3.0)), (sdf > -1).astype(np.float32)], -1).astype(np.float32)
+
+
+def make_scene(rng, extent=SCENE_EXTENT, n_objects=24):
+    """A scene as tools/tiling_parity_check.py:89 make_scene draws it (about a
+    third 53-voxel sofas), encoded; and its object boxes."""
+    sdf = np.full(extent, 8.0, np.float32)
+    boxes = []
+    kinds = ["sofa"] * (n_objects // 3)
+    kinds += ["chair", "table"] * ((n_objects - len(kinds)) // 2 + 1)
+    for kind in kinds[:n_objects]:
+        _add_object(sdf, boxes, rng, kind, (2, 2, 2), tuple(e - 2 for e in extent))
+    return encode_tsdf(sdf), np.asarray(boxes, np.float32)
 
 
 def iou(a, b):
@@ -228,16 +258,22 @@ def k1_loaded_bytes(feats, rois, batch_idx, level_idx, scales, pooled):
     return voxels * c * itemsize
 
 
-def k2_bound(boxes, valid):
+def k2_bound(boxes, valid, classes=None):
     """K2's bound in ms, its bound_by, and its latency floor in steps: the
-    boxes and valid flags read and the keep mask written once (bytes), or
-    the IoU tests of every valid pair i < j (21 float32 operations each
-    after each box's volume, 8) at the float32 rate (operations); the greedy
-    walk's N steps depend one on another besides."""
+    boxes and valid flags (and classes) read and the keep mask written once
+    (bytes), or the IoU tests of every valid pair i < j (of one class, when
+    class-aware: the others need none) at 21 float32 operations each, after
+    each box's volume, 8, at the float32 rate (operations); the greedy walk's
+    N steps depend one on another besides."""
     b, n = valid.shape
     nv = valid.sum(1).double()
-    ops = float((nv * (nv - 1) / 2 * 21 + nv * 8).sum())
-    nbytes = b * n * (6 * 4 + 1 + 1)
+    if classes is None:
+        pairs = nv * (nv - 1) / 2
+    else:
+        same = (classes[:, :, None] == classes[:, None, :]) & valid[:, :, None] & valid[:, None, :]
+        pairs = (same.sum((1, 2)).double() - nv) / 2
+    ops = float((pairs * 21 + nv * 8).sum())
+    nbytes = b * n * (6 * 4 + 1 + 1 + (4 if classes is not None else 0))
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"), n
 
@@ -525,7 +561,7 @@ def profile_batch(infer, x, batches=3):
     by_name = defaultdict(float)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / batches
+            by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / batches
     busy = sum(by_name.values())
     window = start.elapsed_time(end) / batches
     return busy, window, sorted(by_name.items(), key=lambda kv: -kv[1])
@@ -577,7 +613,7 @@ def phase_timing(dev, scenes, dets, kernel_data, iters=10):
             busy, window, top = profile_batch(infer, x)
             log(f"[5] {name} profile: device busy {busy:.3f} ms per batch of a {window:.3f} ms window, idle share "
                 f"{1 - busy / window:.3f}; top kernels (ms per batch): "
-                + json.dumps({k[:60]: round(v, 4) for k, v in top[:12]}) + f" [{CARD}]")
+                + json.dumps({k: round(v, 4) for k, v in top[:12]}) + f" [{CARD}]")
 
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
@@ -602,6 +638,303 @@ def phase_timing(dev, scenes, dets, kernel_data, iters=10):
         "K2: 32x400 and 32x1024 boxes), device time of calls queued back to back, bounds from these inputs: "
         + json.dumps({k: (round(v, 5) if isinstance(v, float) else v) for k, v in kernels.items()}) + f" [{CARD}]")
     return kernels
+
+
+# --- phase 6: the scene path -------------------------------------------------------
+
+
+def scene_params():
+    """The trained detector and the trained mask head, as one JAX param dict."""
+    with np.load(TRAINED) as d:
+        params = {k: d[k] for k in d.files}
+    with np.load(MASK_HEAD) as d:
+        params.update({k: d[k] for k in d.files if k.startswith("mask_backbone.")})
+    return params
+
+
+def scene_inference(dev, dtype, params):
+    cfg = scannet_scene_config().replace(TPU_COMPUTE_DTYPE=dtype)
+    return SceneInference(load_jax_params(Detector(cfg, device=dev), params), cfg)
+
+
+def stitch_inputs(si, scene):
+    """K2's class-aware arguments as the fused path gives them on `scene`:
+    (1, P) boxes, valid flags and classes, P = min(TPU_FUSED_PRE_NMS, tiles
+    x RPN_POST_NMS_TOP_N) = 800 here (tiling.py's top-P)."""
+    with torch.inference_mode():
+        data, scene_dev = si._device_scene(scene)
+        origins = si._origins(data.shape[:3])
+        cand = si._candidates(si._tile_outputs(scene_dev, origins), origins)
+        return cand["boxes"][None], cand["valid"][None], cand["classes"][None]
+
+
+def _k2_class_aware_case(name, boxes, valid, classes, thresh):
+    got = nms.nms3d_cuda(boxes, thresh, valid, classes)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = nms.nms_mask_plain(boxes, thresh, valid, classes)
+    end.record()
+    end.synchronize()
+    agnostic = nms.nms_mask_plain(boxes, thresh, valid)
+    log(f"[6] K2 class-aware {name} {tuple(got.shape)} thresh {thresh}: kept={int(got.sum())} "
+        f"(class-agnostic would keep {int(agnostic.sum())}) of {int(valid.sum())} valid, "
+        f"mismatches={int((got != want).sum())}, plain {start.elapsed_time(end):.1f} ms [{CARD}]")
+    check(torch.equal(got, want), f"K2 class-aware {name} differs from its plain version")
+    return float((got.int() - want.int()).abs().max()), start.elapsed_time(end)
+
+
+def mask_agreement(box_a, mask_a, box_b, mask_b):
+    """Share of voxels that differ between two boxes' masks, over their
+    overlap in scene coords (None without overlap)."""
+    ra, rb = np.round(box_a).astype(int), np.round(box_b).astype(int)
+    lo, hi = np.maximum(ra[:3], rb[:3]), np.minimum(ra[3:], rb[3:])
+    if np.any(hi <= lo):
+        return None
+    a = mask_a[tuple(slice(l - o, h - o) for l, h, o in zip(lo, hi, ra[:3]))]
+    b = mask_b[tuple(slice(l - o, h - o) for l, h, o in zip(lo, hi, rb[:3]))]
+    return float((a != b).mean())
+
+
+def match_detections(a, b, iou_thresh=0.5):
+    """Greedy one-to-one IoU match of detection dicts a -> b (plain extents)."""
+    if not (len(a["pred_box"]) and len(b["pred_box"])):
+        return []
+    ov = iou(a["pred_box"], b["pred_box"])
+    used = np.zeros(len(b["pred_box"]), bool)
+    pairs = []
+    for r in range(len(a["pred_box"])):
+        row = np.where(used, -1.0, ov[r])
+        j = int(np.argmax(row))
+        if row[j] >= iou_thresh:
+            used[j] = True
+            pairs.append((r, j))
+    return pairs
+
+
+def phase_scene(dev, params, n_scenes=4):
+    sis = {dt: scene_inference(dev, dt, params) for dt in ("float32", "bfloat16")}
+    scenes, gts = zip(*[make_scene(np.random.RandomState(7 + i)) for i in range(n_scenes)])
+    res = {"err": 0.0}
+
+    # K2 class-aware against its plain version: the stitch's own input, and
+    # score-ordered synthetic boxes of 18 classes at (1, 1024) and (4, 1024)
+    rng = np.random.RandomState(3)
+    cases = {"stitch input of scene 0": stitch_inputs(sis["float32"], scenes[0])}
+    for b in (1, 4):
+        bx = _boxes(rng, b, 1024)
+        cases[f"synthetic {b}x1024"] = (bx["boxes"].to(dev), bx["valid"].to(dev),
+                                        torch.from_numpy(rng.randint(1, 19, (b, 1024)).astype(np.int32)).to(dev))
+    for name, (boxes, valid, classes) in cases.items():
+        err, _ = _k2_class_aware_case(name, boxes, valid, classes, 0.25)
+        res["err"] = max(res["err"], err)
+    res["stitch_input"] = cases["stitch input of scene 0"]
+    res["synthetic_1x1024"] = cases["synthetic 1x1024"]
+
+    # the path: every count set to 0 just before, read just after
+    rp.roi_pool3d_cuda.launches = 0
+    nms.nms3d_cuda.launches = 0
+    nms.nms3d_cuda.class_aware_launches = 0
+    before = device_launches()
+    outs = {}
+    for dt, si in sis.items():
+        outs[dt] = []
+        for s in scenes:
+            det, masks = si.infer(s)
+            check(si.last_fused, f"{dt}: a scene fell back to the host-planned path")
+            outs[dt].append((det, masks))
+    torch.cuda.synchronize()
+    launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
+                "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches}
+    kernel_launches = {k: v - before[k] for k, v in device_launches().items()}
+    runs = len(sis) * n_scenes
+    per_scene = {k: v / runs for k, v in launches.items()}
+    log(f"[6] scene path: {runs} scenes ({n_scenes} x float32, bfloat16) of {SCENE_EXTENT}, 25 tiles each, all "
+        f"served by the fused path; wrapper calls {launches}, kernel launches {kernel_launches}, per scene {per_scene}")
+    for k in ("roi_pool3d_cuda", "nms3d_cuda"):
+        check(launches[k] > 0, f"{k} was not launched on the scene path")
+        check(kernel_launches[k] == launches[k], f"{k}: {kernel_launches[k]} kernel launches for {launches[k]} calls")
+    check(launches["nms3d_cuda_class_aware"] == runs, "the class-aware K2 did not launch once per scene")
+
+    for dt, per in outs.items():
+        n_det, n_vox, recalls = [], [], []
+        for (det, masks), gt in zip(per, gts):
+            check(len(det["pred_box"]) > 0, f"{dt}: a scene without detections")
+            check(np.isfinite(det["pred_box"]).all() and np.isfinite(det["pred_conf"]).all(), f"{dt}: not finite")
+            check(len(masks) == len(det["pred_box"]), f"{dt}: one mask per detection")
+            for box, m in zip(det["pred_box"], masks):
+                r = np.round(box).astype(int)
+                check(m.shape == tuple(r[3:] - r[:3]) and m.dtype == np.uint8, f"{dt}: mask shape {m.shape}")
+            n_det.append(len(masks))
+            n_vox.append(int(sum(m.sum() for m in masks)))
+            confident = det["pred_box"][det["pred_conf"] >= 0.5]
+            recalls.append((iou(gt, confident).max(1) >= 0.25).mean() if len(confident) else 0.0)
+        fill = [float(m.mean()) for det, masks in per for m in masks if m.size]
+        log(f"[6] {dt}: detections per scene {n_det}, mask voxels per scene {n_vox}, mean mask fill "
+            f"{np.mean(fill):.3f}, object recall at IoU 0.25 (conf >= 0.5) {np.mean(recalls):.3f}")
+        check(min(n_vox) > 0, f"{dt}: a scene whose masks are all empty")
+        check(np.mean(recalls) >= 0.25, f"{dt}: object recall below 0.25")
+
+    # bfloat16 against float32, scene by scene: test_bf16_stability.py's
+    # contract on the detections; mask agreement on matched pairs is printed
+    flips, matched_all, n_hi_all, drift = [], 0, 0, 0.0
+    for (d32, m32), (d16, m16) in zip(outs["float32"], outs["bfloat16"]):
+        hi32, hi16 = d32["pred_conf"] >= 0.9, d16["pred_conf"] >= 0.9
+        a = {k: v[hi32] for k, v in d32.items()}
+        b = {k: v[hi16] for k, v in d16.items()}
+        pairs = match_detections(a, b)
+        n_hi = int(hi32.sum())
+        slack = max(1, n_hi // 8)
+        check(len(pairs) >= n_hi - slack, f"bf16 matched only {len(pairs)}/{n_hi} confident detections")
+        check(int(hi16.sum()) - len(pairs) <= slack, "bf16 added unmatched confident detections")
+        i32, i16 = np.nonzero(hi32)[0], np.nonzero(hi16)[0]
+        for i, j in pairs:
+            check(a["pred_class"][i] == b["pred_class"][j], "class flipped in bf16")
+            drift = max(drift, abs(float(a["pred_conf"][i]) - float(b["pred_conf"][j])))
+            f = mask_agreement(a["pred_box"][i], m32[i32[i]], b["pred_box"][j], m16[i16[j]])
+            if f is not None:
+                flips.append(f)
+        matched_all += len(pairs)
+        n_hi_all += n_hi
+    check(drift <= 0.1, f"bf16 confidence drift {drift} > 0.1")
+    log(f"[6] bf16 vs float32 over {n_scenes} scenes: {matched_all}/{n_hi_all} confident detections matched at "
+        f"IoU 0.5 with the same class, max conf drift {drift:.4f}; masks of matched pairs differ in "
+        f"{np.mean(flips):.4f} of their voxels on average (max {np.max(flips):.4f}; printed, not gated) [{CARD}]")
+    return sis, scenes, launches, per_scene, res
+
+
+def phase_scene_card_vs_cpu(sis, params):
+    """float32, TF32 off: the same detections (order-free, same class, boxes
+    within 1e-3 voxels, conf within 1e-4) and masks within 0.005 flips."""
+    scene, _ = make_scene(np.random.RandomState(11), SCENE_SMALL, n_objects=10)
+    card = sis["float32"].infer(scene)
+    cpu_si = scene_inference("cpu", "float32", params)
+    t0 = time.time()
+    cpu = cpu_si.infer(scene)
+    cpu_s = time.time() - t0
+    check(cpu_si.last_fused and sis["float32"].last_fused, "card or CPU fell back to the host-planned path")
+    (dc, mc), (dp, mp) = card, cpu
+    check(len(dc["pred_box"]) == len(dp["pred_box"]) > 0,
+          f"{len(dc['pred_box'])} detections on the card, {len(dp['pred_box'])} on the CPU")
+    used = np.zeros(len(dp["pred_box"]), bool)
+    worst_box = worst_conf = worst_flip = 0.0
+    for i in range(len(dc["pred_box"])):
+        d = np.abs(dp["pred_box"] - dc["pred_box"][i]).max(1)
+        d[used | (dp["pred_class"] != dc["pred_class"][i])] = np.inf
+        j = int(np.argmin(d))
+        check(d[j] <= 1e-3, f"card detection {dc['pred_box'][i]} has no CPU counterpart within 1e-3 voxels")
+        used[j] = True
+        worst_box = max(worst_box, float(d[j]))
+        worst_conf = max(worst_conf, abs(float(dc["pred_conf"][i]) - float(dp["pred_conf"][j])))
+        check(mc[i].shape == mp[j].shape, "mask shapes differ")
+        if mc[i].size:
+            worst_flip = max(worst_flip, float((mc[i] != mp[j]).mean()))
+    check(worst_conf <= 1e-4, f"card vs CPU conf differs by {worst_conf}")
+    check(worst_flip < 0.005, f"card vs CPU masks differ in {worst_flip} of a box's voxels")
+    log(f"[6] card vs CPU, one {SCENE_SMALL} scene, float32, TF32 off: {len(dc['pred_box'])} detections on both, "
+        f"max abs diff box {worst_box:.3g} voxels, conf {worst_conf:.3g}; worst mask flips {worst_flip:.4g} "
+        f"(CPU infer {cpu_s:.1f} s) [{CARD}]")
+
+
+def profile_scene(si, scene, runs=2):
+    """Device time per scene by kernel name, and the idle share, from
+    torch.profiler over `runs` infer() calls after a warm-up; the window is
+    the host clock around them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    si.infer(scene)
+    torch.cuda.synchronize()
+    # the card's activity only: tracing every host op slows the host's
+    # enqueue, which this path is bound by
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            si.infer(scene)
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3 / runs
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / runs
+    return sum(by_name.values()), window, sorted(by_name.items(), key=lambda kv: -kv[1])
+
+
+def k2_class_aware_timing(name, boxes, valid, classes, thresh=0.25):
+    """K2 class-aware: device time, plain version's time, bound and latency
+    floor (N dependent steps of 16 cycles at the highest SM clock)."""
+    k2 = device_ms(lambda: nms.nms3d_cuda(boxes, thresh, valid, classes), 50)
+    bound, bound_by, steps = k2_bound(boxes, valid, classes)
+    floor = f"{steps * 16 / (CLOCK_MHZ * 1e3):.5f} ms" if CLOCK_MHZ else "not measured"
+    plain = cuda_ms(lambda: nms.nms_mask_plain(boxes, thresh, valid, classes), 3, warmup=1)
+    log(f"[6] K2 class-aware on {name} {tuple(boxes.shape)} ({int(valid.sum())} valid): {k2:.5f} ms device time; "
+        f"plain {plain:.3f} ms; bound {bound:.6f} ms ({bound_by}); latency floor of {steps} dependent steps "
+        f"{floor} [{CARD}]")
+    return {"ms": k2, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by}
+
+
+def phase_scene_timing(sis, scenes, res, passes=3):
+    out = {}
+    for dt, si in sis.items():
+        # a stream of 8 distinct arrays (bench.py:195-204): scene i+1 uploads
+        # while scene i computes
+        def one_pass():
+            stream = [s.copy() for _ in range(2) for s in scenes]
+            t0 = time.perf_counter()
+            si.prefetch_scene(stream[0])
+            for j, s in enumerate(stream):
+                if j + 1 < len(stream):
+                    si.prefetch_scene(stream[j + 1])
+                det, masks = si.infer(s)
+                check(len(masks) == len(det["pred_box"]) and si.last_fused, "stream scene not served fused")
+            return (time.perf_counter() - t0) / len(stream)
+
+        times = sorted(one_pass() for _ in range(passes))
+        dev_s = si.device_seconds(scenes[0], iters=6)
+        with torch.inference_mode():
+            data, scene_dev = si._device_scene(scenes[0])
+            origins = si._origins(data.shape[:3])
+            tiles = si._tile_outputs(scene_dev, origins)
+            det = si._stitch(tiles, origins, scenes[0].shape[:3])
+            plans = si._plan_queues(det, scene_dev.shape[:3])
+
+            def fcn(name):
+                q = plans[name]
+                return si._window_masks(scene_dev, q["starts"], q["locals6"],
+                                        det["pred_class"][q["roi_idx"].long()], si._queue_canvas[name])
+
+            by_8 = SceneInference(si.det, si.cfg, tile_batch=8)  # the JAX package's tile batch
+            stages = {
+                "tiles": cuda_ms(lambda: si._tile_outputs(scene_dev, origins), 5),
+                "tiles_in_batches_of_8": cuda_ms(lambda: by_8._tile_outputs(scene_dev, origins), 5),
+                "stitch_nms": cuda_ms(lambda: si._stitch(tiles, origins, scenes[0].shape[:3]), 10),
+                "planning": cuda_ms(lambda: si._plan_queues(det, scene_dev.shape[:3]), 10),
+                "mask_fcn_small": cuda_ms(lambda: fcn("mask_small"), 5),
+                "mask_fcn_large": cuda_ms(lambda: fcn("mask_large"), 5),
+            }
+            from tpu3dsis_torch.infer.tiling import _to_host
+
+            host = _to_host(si._fused(scene_dev, origins, scenes[0].shape[:3]))
+            kv = host["det_valid"].astype(bool)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                si._paste(host, kv)
+            stages["host_paste"] = (time.perf_counter() - t0) * 1e3 / 5
+            n_windows = {k: int(host[k]["valid"].sum()) for k in ("mask_small", "mask_large")}
+        log(f"[6] {dt}: {60.0 / times[len(times) // 2]:.2f} masked scenes/min (median of {passes} passes of a "
+            f"prefetched stream of 8; per-scene s {[round(t, 4) for t in times]}), device_seconds {dev_s:.4f} s "
+            f"= {60.0 / dev_s:.1f} scenes/min device-bound; {int(kv.sum())} detections, valid windows {n_windows} "
+            f"of 64 small and 12 large slots [{CARD}]")
+        log(f"[6] {dt} per-stage ms: " + json.dumps({k: round(v, 4) for k, v in stages.items()}) + f" [{CARD}]")
+        out[dt] = {"scenes_per_min": 60.0 / times[len(times) // 2], "device_s": dev_s, "stages": stages}
+        if dt == "bfloat16":
+            busy, window, top = profile_scene(si, scenes[0])
+            log(f"[6] bfloat16 scene profile: device busy {busy:.3f} ms of a {window:.3f} ms window per scene, "
+                f"idle share {1 - busy / window:.3f}; top kernels (ms per scene): "
+                + json.dumps({k: round(v, 4) for k, v in top[:12]}) + f" [{CARD}]")
+
+    out["k2_class_aware"] = k2_class_aware_timing("the stitch's own input", *res["stitch_input"])
+    k2_class_aware_timing("synthetic boxes of 18 classes", *res["synthetic_1x1024"])
+    return out
 
 
 def main() -> int:
@@ -643,20 +976,34 @@ def main() -> int:
 
     kernels = phase_timing(dev, scenes, dets, kernel_data)
 
+    params = scene_params()
+    sis, scene_list, scene_launches, per_scene, k2c = phase_scene(dev, params)
+    phase_scene_card_vs_cpu(sis, params)
+    scene_t = phase_scene_timing(sis, scene_list, k2c)
+
     k1, k2 = kernel_res["roi_pool3d_cuda"], kernel_res["nms3d_cuda"]
     # K1 at the bench's compute dtype, bf16, and K2 at N = 400, thresh 0.1
     # (both dtypes and the other cases are on the [2] and [5] lines)
     record = {"kernels": [
         {"name": "roi_pool3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/roi_pool3d.cu",
          "replaces": "tpu3dsis/ops/roi_pool3d_pallas.py:85", "launches": launches["roi_pool3d_cuda"],
-         "launches_per_batch": per_batch["roi_pool3d_cuda"], "max_abs_err": k1["err"],
+         "launches_per_batch": per_batch["roi_pool3d_cuda"], "launches_scene_path": scene_launches["roi_pool3d_cuda"],
+         "launches_per_scene": per_scene["roi_pool3d_cuda"], "max_abs_err": k1["err"],
          "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"],
          "bound_ms": kernels["k1_bfloat16_bound"], "bound_by": "bytes", "library_ms": None},
         {"name": "nms3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
          "replaces": "tpu3dsis/ops/nms.py:86", "launches": launches["nms3d_cuda"],
-         "launches_per_batch": per_batch["nms3d_cuda"], "max_abs_err": k2["err"],
+         "launches_per_batch": per_batch["nms3d_cuda"], "launches_scene_path": scene_launches["nms3d_cuda"],
+         "launches_per_scene": per_scene["nms3d_cuda"], "max_abs_err": k2["err"],
          "ms": kernels["k2_400_0.1"], "plain_ms": kernels["k2_plain_0.1"],
          "bound_ms": kernels["k2_400_bound"], "bound_by": kernels["k2_400_bound_by"], "library_ms": None},
+        {"name": "nms3d_cuda (class-aware, scene stitch)", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
+         "replaces": "tpu3dsis/ops/nms.py:86 (classes=, tpu3dsis/infer/tiling.py:1306)",
+         "launches": scene_launches["nms3d_cuda_class_aware"],
+         "launches_per_scene": per_scene["nms3d_cuda_class_aware"], "max_abs_err": k2c["err"],
+         "ms": scene_t["k2_class_aware"]["ms"], "plain_ms": scene_t["k2_class_aware"]["plain_ms"],
+         "bound_ms": scene_t["k2_class_aware"]["bound_ms"], "bound_by": scene_t["k2_class_aware"]["bound_by"],
+         "library_ms": None},
     ]}
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps(record))

@@ -22,9 +22,18 @@ def test_bbox_transform_inv_per_class_blocks():
     deltas = (rng.randn(200, 19 * 6) * 0.3).astype(np.float32)  # K = 19 blocks
     want = np.asarray(jax_boxes.bbox_transform_inv(jnp.asarray(rois), jnp.asarray(deltas)))
     got = boxes.bbox_transform_inv(torch.from_numpy(rois), torch.from_numpy(deltas)).numpy()
-    # atol: one float32 ulp at the coordinate scale (~100 voxels); where
-    # pcx - 0.5 * pw cancels to near 0, an ulp of exp() is no longer relative
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-5)
+    # Each coordinate is pc -/+ 0.5 * pw with pw = exp(d) * w. XLA's exp and
+    # torch's may round apart by an ulp, which the sum carries as a few
+    # float32 ulps of its largest intermediate |pc| + 0.5 |pw| (not of the
+    # result, which can cancel to near 0): allow 4 such ulps per coordinate.
+    w = (rois[:, 3:] - rois[:, :3]).astype(np.float64)
+    d = deltas.reshape(200, 19, 6).astype(np.float64)
+    pc = d[..., :3] * w[:, None] + (rois[:, :3] + 0.5 * w)[:, None]
+    scale = np.abs(pc) + 0.5 * np.abs(np.exp(d[..., 3:]) * w[:, None])  # (200, K, 3)
+    scale = np.concatenate([scale[..., a % 3] for a in range(6)], axis=1)  # the output's [x0 (K), y0 (K), ...]
+    tol = 4 * np.spacing(scale.astype(np.float32))
+    assert got.shape == want.shape == tol.shape
+    assert (np.abs(got - want) <= tol).all(), float((np.abs(got - want) / tol).max())
 
 
 def test_clip_boxes():

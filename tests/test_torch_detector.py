@@ -48,8 +48,8 @@ def _pair(cfg, key):
     jdet = JaxDetector(cfg, anchor_dir="experiments/anchors")
     params = jdet.init_params(jax.random.PRNGKey(key))
     tdet = Detector(DetectorConfig.from_cfg(cfg), device="cpu")
-    # the port has no mask head yet; the detection path never reads it
-    load_jax_params(tdet, {k: np.asarray(v) for k, v in params.items() if not k.startswith("mask_backbone.")})
+    assert tdet.mask_backbone is not None
+    load_jax_params(tdet, {k: np.asarray(v) for k, v in params.items()})  # every param, mask head included
     return jdet, params, tdet
 
 
@@ -123,7 +123,9 @@ def test_full_width_chunk_matches_golden_stages():
 def test_config_and_strict_loading_of_trained_weights():
     from __graft_entry__ import _scannet_cfg
 
-    assert DetectorConfig.from_cfg(_scannet_cfg()) == scannet_chunk_config()
+    # chunk detection reads no mask head: scannet_chunk_config() leaves it
+    # out, so the geometry-only fixture loads strictly
+    assert DetectorConfig.from_cfg(_scannet_cfg()) == scannet_chunk_config().replace(USE_MASK=True)
     det = Detector(scannet_chunk_config(), device="cpu")
     trained = np.load(TRAINED)
     assert set(det.state_dict()) == set(trained.files)

@@ -22,6 +22,14 @@ det = tt.Detector(cfg, device="cpu").init_params(torch.Generator().manual_seed(0
 scene = np.random.RandomState(0).randn(1, 16, 16, 16, 2).astype(np.float32)
 out = tt.build_inference_fn(det, cfg, (16, 16, 16))(torch.from_numpy(scene))
 assert out["valid"].shape == (200,) and torch.isfinite(out["pred_box"]).all()
+# the scene path: tiles, class-aware stitch, window plans, mask FCN
+cfg = tt.scannet_scene_config().replace(
+    TPU_TILE_SIZE=(16, 16, 16), TPU_TILE_STRIDE=(12, 12, 12), TPU_MASK_INFER_CANVAS=(16, 16, 16),
+    TPU_MASK_INFER_CANVAS_SMALL=(8, 8, 8), TEST=tt.ProposalConfig(16, 4, 0.1), CLASS_THRESH=0.0)
+det = tt.Detector(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+si = tt.SceneInference(det, cfg)
+boxes, masks = si.infer(np.random.RandomState(1).randn(20, 16, 20, 2).astype(np.float32))
+assert si.last_fused and len(masks) == len(boxes["pred_box"]) > 0
 print(" ".join(m for m in sys.modules
                if m in ("jax", "jaxlib", "yaml", "PIL", "tpu3dsis") or m.startswith("tpu3dsis.")))
 """
@@ -76,7 +84,12 @@ def test_kernels_match_plain_versions_on_the_card():
         lo = rng.uniform(0, 60, (4, n, 3))
         boxes = torch.from_numpy(np.concatenate([lo, lo + rng.uniform(1, 20, (4, n, 3))], -1).astype(np.float32)).to(dev)
         valid = torch.from_numpy(rng.rand(4, n) > 0.1).to(dev)
+        classes = torch.from_numpy(rng.randint(1, 19, (4, n)).astype(np.int32)).to(dev)
         for thresh in (0.1, 0.5):
             got = nms.nms3d_cuda(boxes, thresh, valid)
             torch.cuda.synchronize()
             assert torch.equal(got, nms.nms_mask_plain(boxes, thresh, valid))
+        for thresh in (0.1, 0.25):  # class-aware, as the scene stitch runs it
+            got = nms.nms3d_cuda(boxes, thresh, valid, classes)
+            torch.cuda.synchronize()
+            assert torch.equal(got, nms.nms_mask_plain(boxes, thresh, valid, classes))

@@ -47,3 +47,25 @@ def test_batched_equals_per_sample_and_cpu_dispatch():
     assert nms.nms3d_cuda.launches == 0
     with pytest.raises(ValueError):
         nms.nms3d_cuda(torch.from_numpy(b), 0.1)
+
+
+@pytest.mark.parametrize("thresh", [0.1, 0.25])
+def test_class_aware_plain_matches_jax_nms_mask(thresh):
+    """The stitch NMS's class-aware mode: N = 300 over 4 classes (several of
+    the JAX version's 128-box tiles), invalid boxes inside and across tile
+    boundaries; suppression only within a class, IoU on the raw boxes."""
+    rng = np.random.RandomState(2)
+    b = _boxes(rng, 300, scale=30.0)
+    valid = rng.rand(300) > 0.15
+    valid[240:260] = False
+    classes = rng.randint(1, 5, 300).astype(np.int32)
+    want = np.asarray(jax_nms_mask(jnp.asarray(b), thresh, jnp.asarray(valid), classes=jnp.asarray(classes)))
+    got = nms.nms_mask(torch.from_numpy(b), thresh, torch.from_numpy(valid), classes=torch.from_numpy(classes))
+    np.testing.assert_array_equal(got.numpy(), want)
+    agnostic = nms.nms_mask_plain(torch.from_numpy(b), thresh, torch.from_numpy(valid)).numpy()
+    assert got.sum() > agnostic.sum()  # other classes no longer suppress
+    batched = nms.nms_mask_plain(torch.from_numpy(np.stack([b, b])), thresh, torch.from_numpy(np.stack([valid] * 2)),
+                                 torch.from_numpy(np.stack([classes, classes])))
+    np.testing.assert_array_equal(batched.numpy()[1], want)
+    with pytest.raises(ValueError):
+        nms.nms3d_cuda(torch.from_numpy(b), thresh, classes=torch.from_numpy(classes))

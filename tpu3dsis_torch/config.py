@@ -1,15 +1,21 @@
-"""The settings the geometry chunk detector reads, as a frozen dataclass.
+"""The settings the detector and the whole-scene path read, as a frozen dataclass.
 
 The JAX package's ``tpu3dsis.config`` parses YAML and holds every key of
-every flow; this module holds only the keys the port's detection path reads,
-under the same names, and imports no YAML. ``DetectorConfig.from_cfg`` reads
-them from a ``tpu3dsis`` ``Config`` (or anything with the same attributes).
+every flow; this module holds only the keys the port's detection and scene
+paths read, under the same names, and imports no YAML. The scene keys
+default to the JAX package's defaults (``tpu3dsis/config/config.py``).
+``DetectorConfig.from_cfg`` reads them from a ``tpu3dsis`` ``Config`` (or
+anything with the same attributes).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+
+
+def _ints(values) -> tuple:
+    return tuple(int(v) for v in values)
 
 
 @dataclass(frozen=True)
@@ -37,10 +43,27 @@ class DetectorConfig:
     TPU_COMPUTE_DTYPE: str  # "float32" or "bfloat16"
     USE_RPN: bool
     USE_CLASS: bool
+    # --- whole-scene inference (tpu3dsis/config/config.py:109-110, 201-219)
+    USE_MASK: bool = False
+    MASK_USE_IMAGES: bool = False
+    CLASS_THRESH: float = 0.9
+    MASK_THRESH: float = 0.5
+    TPU_TILE_SIZE: tuple = (96, 48, 96)
+    TPU_TILE_STRIDE: tuple = (43, 9, 43)
+    TPU_MASK_INFER_CANVAS: tuple = (64, 48, 64)
+    TPU_MASK_INFER_CANVAS_SMALL: tuple = (32, 32, 32)
+    TPU_STITCH_NMS_THRESH: float = 0.25
+    TPU_FUSED_PRE_NMS: int = 1024
+    TPU_FUSED_MAX_DETECTIONS: int = 64
+    TPU_FUSED_LARGE_WINDOWS: int = 12
+
+    def __post_init__(self):
+        if self.MASK_USE_IMAGES:
+            raise NotImplementedError("the port has no color stream yet (MASK_USE_IMAGES)")
 
     @classmethod
     def from_cfg(cls, cfg) -> "DetectorConfig":
-        """Read the detector's keys from a ``tpu3dsis`` ``Config``."""
+        """Read the detector's and the scene path's keys from a ``tpu3dsis`` ``Config``."""
         if getattr(cfg, "USE_IMAGES", False):
             raise NotImplementedError("the port has no color stream yet")
         test = cfg.TEST
@@ -63,6 +86,18 @@ class DetectorConfig:
             TPU_COMPUTE_DTYPE=str(cfg.TPU_COMPUTE_DTYPE),
             USE_RPN=bool(cfg.USE_RPN),
             USE_CLASS=bool(cfg.USE_CLASS),
+            USE_MASK=bool(cfg.USE_MASK),
+            MASK_USE_IMAGES=bool(cfg.MASK_USE_IMAGES),
+            CLASS_THRESH=float(cfg.CLASS_THRESH),
+            MASK_THRESH=float(cfg.MASK_THRESH),
+            TPU_TILE_SIZE=_ints(cfg.TPU_TILE_SIZE),
+            TPU_TILE_STRIDE=_ints(cfg.TPU_TILE_STRIDE),
+            TPU_MASK_INFER_CANVAS=_ints(cfg.TPU_MASK_INFER_CANVAS),
+            TPU_MASK_INFER_CANVAS_SMALL=_ints(cfg.TPU_MASK_INFER_CANVAS_SMALL),
+            TPU_STITCH_NMS_THRESH=float(cfg.TPU_STITCH_NMS_THRESH),
+            TPU_FUSED_PRE_NMS=int(cfg.TPU_FUSED_PRE_NMS),
+            TPU_FUSED_MAX_DETECTIONS=int(cfg.TPU_FUSED_MAX_DETECTIONS),
+            TPU_FUSED_LARGE_WINDOWS=int(cfg.TPU_FUSED_LARGE_WINDOWS),
         )
 
     def replace(self, **changes) -> "DetectorConfig":
@@ -71,7 +106,9 @@ class DetectorConfig:
 
 def scannet_chunk_config() -> DetectorConfig:
     """ScanNet geometry-only chunk detection: the values of
-    ``__graft_entry__._scannet_cfg()`` that the detector reads."""
+    ``__graft_entry__._scannet_cfg()`` that the detector reads, without the
+    mask head, which chunk detection never runs (so the geometry-only
+    fixture ``tests/fixtures/tiling_parity_params.npz`` loads strictly)."""
     return DetectorConfig(
         NUM_CLASSES=19,
         NET="ScanNet_Backbone",
@@ -89,4 +126,19 @@ def scannet_chunk_config() -> DetectorConfig:
         TPU_COMPUTE_DTYPE="float32",
         USE_RPN=True,
         USE_CLASS=True,
+    )
+
+
+def scannet_scene_config() -> DetectorConfig:
+    """ScanNet whole-scene inference with instance masks, as
+    ``bench.py::bench_masked_scene`` configures it: the values of
+    ``tools/tiling_parity_check.py::build_cfg`` on
+    ``experiments/cfgs/ScanNet/benchmark.yml`` that this path reads (proposals
+    256 -> 32 per tile, CLASS_THRESH 0.3), with ``USE_MASK=True``; tiles,
+    mask canvases and queue capacities at their defaults."""
+    return scannet_chunk_config().replace(
+        ANCHORS_TYPE_LEVEL3="",
+        TEST=ProposalConfig(RPN_PRE_NMS_TOP_N=256, RPN_POST_NMS_TOP_N=32, RPN_NMS_THRESH=0.1),
+        USE_MASK=True,
+        CLASS_THRESH=0.3,
     )

@@ -6,7 +6,9 @@
 // (tpu3dsis/geometry/boxes.py::nms_overlap, same operation order, built with
 // --fmad=false, so the float32 IoU is bit-identical to the plain version's);
 // an earlier kept box suppresses a later one when IoU > thresh; invalid boxes
-// are never kept and never suppress.
+// are never kept and never suppress. With a classes operand (the class-aware
+// mode of the whole-scene stitch, nms.py:101-104) a box suppresses only boxes
+// of its own class; the IoU stays that of the raw boxes.
 //
 // What bounds it on this card: neither bytes nor FLOPs at the card's scale,
 // but the few SMs that one sample can use. A chunk has N = 400 boxes (10 KB)
@@ -19,12 +21,14 @@
 // sample; nothing through device memory but the boxes in and the keep mask
 // out.
 //   1. Every block of the cluster stages the sample's boxes (with their
-//      +1-extent volumes) and a bitset of the valid ones in shared memory.
+//      +1-extent volumes), a bitset of the valid ones and, in the class-aware
+//      mode, their classes in shared memory.
 //   2. The blocks share the upper-triangular suppression bitmask, the
 //      reference's scheme (lib/layer_utils/nms/src/cuda/nms_kernel.cu): word
 //      w of row i holds "box i suppresses box j" for the 64 boxes j of word
-//      w, j > i. A thread computes one (row, word); the 32 lanes of a warp
-//      take 32 rows of one word, so they read each box j together. The words
+//      w, j > i (and, class-aware, of box i's class). A thread computes one
+//      (row, word); the 32 lanes of a warp take 32 rows of one word, so they
+//      read each box j together. The words
 //      go straight into the shared memory of the cluster's first block
 //      (distributed shared memory), so two SMs build one sample's mask. The
 //      test "IoU > thresh" needs no division and no branch (`suppresses`),
@@ -94,9 +98,13 @@ __device__ bool suppresses_by_division(float4 a0, float4 a1, float4 b0, float4 b
   return inter / (a1.z + b1.z - inter) > thresh;
 }
 
+// kClasses: the class-aware mode, `classes` (B, N) int32; without it the
+// kernel never reads `classes` and is the class-agnostic one.
+template <bool kClasses>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 nms3d_kernel(const float* __restrict__ boxes, const bool* __restrict__ valid,
-             int N, float thresh, double mid, bool tie_up, bool* __restrict__ keep) {
+             const int* __restrict__ classes, int N, float thresh, double mid,
+             bool tie_up, bool* __restrict__ keep) {
   extern __shared__ float4 smem[];
   const int cb = words(N);
   float4* box = smem;                                              // 2N
@@ -104,6 +112,7 @@ nms3d_kernel(const float* __restrict__ boxes, const bool* __restrict__ valid,
       reinterpret_cast<unsigned long long*>(smem + 2 * N);         // N x cb
   unsigned long long* valid_words = rows + static_cast<long long>(N) * cb;  // cb
   unsigned long long* keep_words = valid_words + cb;               // cb
+  int* cls = reinterpret_cast<int*>(keep_words + cb);              // N, class-aware only
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -117,6 +126,7 @@ nms3d_kernel(const float* __restrict__ boxes, const bool* __restrict__ valid,
     const float vol = (c[3] - c[0] + 1.0f) * (c[4] - c[1] + 1.0f) * (c[5] - c[2] + 1.0f);
     box[2 * i] = make_float4(c[0], c[1], c[2], c[3]);
     box[2 * i + 1] = make_float4(c[4], c[5], vol, 0.0f);
+    if (kClasses) cls[i] = classes[s * N + i];
   }
   // cb * 64 is a multiple of 32, so every warp runs the ballot whole
   for (int i = threadIdx.x; i < cb * kWord; i += kThreads) {
@@ -158,6 +168,14 @@ nms3d_kernel(const float* __restrict__ boxes, const bool* __restrict__ valid,
           const bool sup = suppresses_by_division(a0, a1, bj[2 * t], bj[2 * t + 1], thresh);
           bits |= static_cast<unsigned long long>(sup) << t;
         }
+      }
+      if (kClasses) {  // only boxes of box i's class
+        const int ci = cls[i];
+        const int* cj = cls + j0;
+        unsigned long long same = 0;
+#pragma unroll 8
+        for (int t = 0; t < n; ++t) same |= static_cast<unsigned long long>(cj[t] == ci) << t;
+        bits &= same;
       }
       bits &= valid_words[w];  // 0 past N
       if (i >= j0) bits &= i - j0 == kWord - 1 ? 0ull : ~0ull << (i - j0 + 1);
@@ -207,36 +225,47 @@ nms3d_kernel(const float* __restrict__ boxes, const bool* __restrict__ valid,
 
 }  // namespace
 
-// Bytes of dynamic shared memory one block needs for N boxes; the wrapper
-// checks it against the card's limit before launching.
-extern "C" long long tpu3dsis_nms3d_smem(int N) {
+// Bytes of dynamic shared memory one block needs for N boxes, and their
+// classes when `with_classes`; the wrapper checks it against the card's limit
+// before launching.
+extern "C" long long tpu3dsis_nms3d_smem(int N, int with_classes) {
   const long long cb = words(N);
-  return 32LL * N + (static_cast<long long>(N) + 2) * cb * 8;
+  return 32LL * N + (static_cast<long long>(N) + 2) * cb * 8 + (with_classes ? 4LL * N : 0LL);
 }
 
 // Kernel launches so far (one per call that had boxes).
 extern "C" long long tpu3dsis_nms3d_launches() { return g_launches; }
 
-// boxes: (B, N, 6) float32; valid: (B, N) bool; keep: (B, N) bool output;
-// N <= 64 * 32. Returns the cudaError_t.
-extern "C" int tpu3dsis_nms3d(const void* boxes, const void* valid, int B,
-                              int N, float thresh, void* keep, void* stream) {
+template <bool kClasses>
+static cudaError_t launch(const void* boxes, const void* valid, const void* classes, int B, int N,
+                          float thresh, double mid, bool tie_up, void* keep, void* stream) {
+  const long long smem = tpu3dsis_nms3d_smem(N, kClasses);
+  cudaError_t err = cudaFuncSetAttribute(
+      nms3d_kernel<kClasses>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  nms3d_kernel<kClasses><<<B * kCluster, kThreads, static_cast<size_t>(smem),
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(boxes), static_cast<const bool*>(valid),
+      static_cast<const int*>(classes), N, thresh, mid, tie_up, static_cast<bool*>(keep));
+  return cudaGetLastError();
+}
+
+// boxes: (B, N, 6) float32; valid: (B, N) bool; classes: (B, N) int32 for the
+// class-aware mode, or null; keep: (B, N) bool output; N <= 64 * 32.
+// Returns the cudaError_t.
+extern "C" int tpu3dsis_nms3d(const void* boxes, const void* valid, const void* classes,
+                              int B, int N, float thresh, void* keep, void* stream) {
   if (B == 0 || N == 0) return static_cast<int>(cudaSuccess);
   const float next = nextafterf(thresh, INFINITY);
   const double mid = (static_cast<double>(thresh) + static_cast<double>(next)) * 0.5;
   unsigned next_bits;
   memcpy(&next_bits, &next, sizeof(next_bits));
+  const bool tie_up = (next_bits & 1u) == 0u;
   if (words(N) > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
-  const long long smem = tpu3dsis_nms3d_smem(N);
-  cudaError_t err = cudaFuncSetAttribute(
-      nms3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  nms3d_kernel<<<B * kCluster, kThreads, static_cast<size_t>(smem),
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(boxes), static_cast<const bool*>(valid), N,
-      thresh, mid, (next_bits & 1u) == 0u, static_cast<bool*>(keep));
-  err = cudaGetLastError();
+  const cudaError_t err =
+      classes ? launch<true>(boxes, valid, classes, B, N, thresh, mid, tie_up, keep, stream)
+              : launch<false>(boxes, valid, classes, B, N, thresh, mid, tie_up, keep, stream);
   if (err == cudaSuccess) ++g_launches;
   return static_cast<int>(err);
 }

@@ -2,7 +2,10 @@
 
 Boxes are corner-format ``(minx, miny, minz, maxx, maxy, maxz)``. Every
 function takes any leading batch dimensions and keeps the JAX version's
-operation order, so float32 results agree to the last bit on the CPU.
+operation order. ``clip_boxes`` and ``nms_overlap`` agree with it to the last
+bit on the CPU; ``bbox_transform_inv`` goes through ``exp``, where XLA's and
+torch's may round an ulp apart, so its coordinates agree to a few float32
+ulps of the decode's largest intermediate.
 ``bbox_transform`` and ``bbox_overlap`` serve training and wait for it.
 """
 

@@ -16,7 +16,7 @@ from torch import nn
 from tpu3dsis_torch.config import DetectorConfig
 from tpu3dsis_torch.geometry.anchors import anchors_inside_mask, generate_level_anchors
 from tpu3dsis_torch.geometry.boxes import bbox_transform_inv, clip_boxes
-from tpu3dsis_torch.models.backbones import FC7_CHANNELS, FEAT_STRIDE, ScanNetBackbone
+from tpu3dsis_torch.models.backbones import FC7_CHANNELS, FEAT_STRIDE, MaskBackbone, ScanNetBackbone
 from tpu3dsis_torch.models.nn import Linear, init_params
 from tpu3dsis_torch.models.rpn import LevelAnchors, RPNHeads, select_proposals
 from tpu3dsis_torch.ops.roi_pool3d import roi_pool3d_multilevel
@@ -25,7 +25,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Detector(ScanNetBackbone, RPNHeads, nn.Module):
-    """Geometry-only ScanNet detector.
+    """Geometry-only ScanNet detector, with the mask FCN as ``mask_backbone``
+    when ``cfg.USE_MASK`` (else ``mask_backbone`` is None).
 
     Parameters live in ``cfg.TPU_COMPUTE_DTYPE`` (float32 or bfloat16) on
     ``device``, the CUDA card unless the caller passes ``device="cpu"``;
@@ -56,6 +57,7 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
         if self.use_class:
             self.classifier_cls_score_net = Linear(FC7_CHANNELS, self.num_classes)
             self.classifier_bbox_pred_net = Linear(FC7_CHANNELS, self.num_classes * 6)
+        self.mask_backbone = MaskBackbone(self.num_classes, device=device) if cfg.USE_MASK else None
         self.anchor_dir = anchor_dir
         self.anchor_files = {1: cfg.ANCHORS_TYPE_LEVEL1, 2: cfg.ANCHORS_TYPE_LEVEL2}
         self._anchor_cache = {}

@@ -91,7 +91,7 @@ def call_k1(lib, feats, rois, batch_idx, level_idx, scales, pooled):
 def call_k2(lib, boxes, valid, thresh):
     b, n = valid.shape
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
-    err = lib.tpu3dsis_nms3d(boxes.data_ptr(), valid.data_ptr(), b, n, float(thresh), keep.data_ptr(),
+    err = lib.tpu3dsis_nms3d(boxes.data_ptr(), valid.data_ptr(), None, b, n, float(thresh), keep.data_ptr(),
                              torch.cuda.current_stream().cuda_stream)
     _build.check(err, "probe K2")
 
