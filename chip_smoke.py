@@ -26,10 +26,12 @@ result):
   6. the scene path: ``SceneInference.infer`` with the trained detector and
      the trained mask head (``mask_backbone.*`` of
      ``tests/fixtures/color_loop_params.npz``) on 240x48x240 scenes of 24
-     objects (25 tiles each), as ``bench.py::bench_masked_scene`` runs it: K2's
-     class-aware mode against its plain version; 4 scenes in float32 and
-     bfloat16, each served by the fused path, with the kernels' launches
-     counted; the card against the CPU on a 144x48x144 scene; bfloat16
+     objects (25 tiles each), as ``bench.py::bench_masked_scene`` runs it:
+     every K1 and K2 call of one scene, recorded with its arguments in each
+     dtype, against its plain version, and K2's class-aware mode on
+     synthetic boxes; 4 scenes in float32 and bfloat16, each served by the
+     fused path, with the kernels' launches counted; the card against the
+     CPU on a 144x48x144 scene; bfloat16
      against float32; masked scenes/min over a prefetched stream of 8,
      ``device_seconds``, per-stage ms, K2 class-aware against its plain
      version and its bound, and a profile of one bf16 scene.
@@ -41,6 +43,7 @@ as ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import json
 import statistics
 import subprocess
@@ -316,7 +319,7 @@ def kernel_inputs(dev, rng, batch=BATCH, rois_per_chunk=200, boxes_per_chunk=400
     return feats.to(dev), k1, k2
 
 
-def _k1_case(name, feats, k1, nan_ok=False):
+def _k1_case(name, feats, k1, nan_ok=False, phase=2):
     """K1 against its plain version on one input; with NaN voxels, the NaN
     positions first, then the rest exactly."""
     got = rp.roi_pool3d_cuda(feats, **k1)
@@ -332,7 +335,7 @@ def _k1_case(name, feats, k1, nan_ok=False):
     same = torch.equal(got.masked_fill(nan_got, 0), want.masked_fill(nan_want, 0))
     err = float((got.float() - want.float()).abs().nan_to_num(0.0).max())
     n_empty = int((want == 0).flatten(1).all(1).sum())
-    log(f"[2] K1 {name} {tuple(got.shape)}: exact={same} max_abs_err={err} NaN outputs={int(nan_want.sum())} "
+    log(f"[{phase}] K1 {name} {tuple(got.shape)}: exact={same} max_abs_err={err} NaN outputs={int(nan_want.sum())} "
         f"all-zero rois={n_empty} plain {start.elapsed_time(end):.1f} ms [{CARD}]")
     check(same, f"K1 {name} differs from its plain version")
     return err, start.elapsed_time(end), int(nan_want.sum())
@@ -561,7 +564,7 @@ def profile_batch(infer, x, batches=3):
     by_name = defaultdict(float)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / batches
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / batches
     busy = sum(by_name.values())
     window = start.elapsed_time(end) / batches
     return busy, window, sorted(by_name.items(), key=lambda kv: -kv[1])
@@ -613,7 +616,7 @@ def phase_timing(dev, scenes, dets, kernel_data, iters=10):
             busy, window, top = profile_batch(infer, x)
             log(f"[5] {name} profile: device busy {busy:.3f} ms per batch of a {window:.3f} ms window, idle share "
                 f"{1 - busy / window:.3f}; top kernels (ms per batch): "
-                + json.dumps({k: round(v, 4) for k, v in top[:12]}) + f" [{CARD}]")
+                + json.dumps({k[:60]: round(v, 4) for k, v in top[:12]}) + f" [{CARD}]")
 
     for dt in (torch.float32, torch.bfloat16):
         name = str(dt).split(".")[-1]
@@ -657,18 +660,47 @@ def scene_inference(dev, dtype, params):
     return SceneInference(load_jax_params(Detector(cfg, device=dev), params), cfg)
 
 
-def stitch_inputs(si, scene):
-    """K2's class-aware arguments as the fused path gives them on `scene`:
-    (1, P) boxes, valid flags and classes, P = min(TPU_FUSED_PRE_NMS, tiles
-    x RPN_POST_NMS_TOP_N) = 800 here (tiling.py's top-P)."""
-    with torch.inference_mode():
-        data, scene_dev = si._device_scene(scene)
-        origins = si._origins(data.shape[:3])
-        cand = si._candidates(si._tile_outputs(scene_dev, origins), origins)
-        return cand["boxes"][None], cand["valid"][None], cand["classes"][None]
+def _copy(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (list, tuple)):
+        return [_copy(v) for v in x]
+    return x
 
 
-def _k2_class_aware_case(name, boxes, valid, classes, thresh):
+def recorded_kernel_calls(si, scene):
+    """Every call that one ``si.infer(scene)`` makes to K1's and K2's
+    wrappers, with copies of its arguments, in call order: [(wrapper name,
+    {argument: value})]. The wrappers are wrapped for that call only."""
+    calls = []
+    wrapped = ((rp, "roi_pool3d_cuda"), (nms, "nms3d_cuda"))
+    originals = [getattr(mod, name) for mod, name in wrapped]
+
+    def recorder(fn):
+        sig = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            calls.append((fn.__name__, {k: _copy(v) for k, v in bound.arguments.items()}))
+            return fn(*args, **kwargs)
+
+        call.__dict__ = fn.__dict__  # the wrapper counts its launches in fn's counters
+        return call
+
+    for (mod, name), fn in zip(wrapped, originals):
+        setattr(mod, name, recorder(fn))
+    try:
+        si.infer(scene)
+    finally:
+        for (mod, name), fn in zip(wrapped, originals):
+            setattr(mod, name, fn)
+    check(si.last_fused, "the recorded scene fell back to the host-planned path")
+    return calls
+
+
+def _k2_case(name, boxes, thresh, valid, classes=None):
+    """K2 against its plain version on one input, class-aware given classes."""
     got = nms.nms3d_cuda(boxes, thresh, valid, classes)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -676,12 +708,13 @@ def _k2_class_aware_case(name, boxes, valid, classes, thresh):
     want = nms.nms_mask_plain(boxes, thresh, valid, classes)
     end.record()
     end.synchronize()
-    agnostic = nms.nms_mask_plain(boxes, thresh, valid)
-    log(f"[6] K2 class-aware {name} {tuple(got.shape)} thresh {thresh}: kept={int(got.sum())} "
-        f"(class-agnostic would keep {int(agnostic.sum())}) of {int(valid.sum())} valid, "
-        f"mismatches={int((got != want).sum())}, plain {start.elapsed_time(end):.1f} ms [{CARD}]")
-    check(torch.equal(got, want), f"K2 class-aware {name} differs from its plain version")
-    return float((got.int() - want.int()).abs().max()), start.elapsed_time(end)
+    kind = "class-agnostic" if classes is None else "class-aware"
+    other = "" if classes is None else f" (class-agnostic would keep {int(nms.nms_mask_plain(boxes, thresh, valid).sum())})"
+    log(f"[6] K2 {kind} {name} {tuple(got.shape)} thresh {thresh}: kept={int(got.sum())}{other} of "
+        f"{int(valid.sum())} valid, mismatches={int((got != want).sum())}, plain {start.elapsed_time(end):.1f} ms "
+        f"[{CARD}]")
+    check(torch.equal(got, want), f"K2 {kind} {name} differs from its plain version")
+    return float((got.int() - want.int()).abs().max())
 
 
 def mask_agreement(box_a, mask_a, box_b, mask_b):
@@ -715,21 +748,38 @@ def match_detections(a, b, iou_thresh=0.5):
 def phase_scene(dev, params, n_scenes=4):
     sis = {dt: scene_inference(dev, dt, params) for dt in ("float32", "bfloat16")}
     scenes, gts = zip(*[make_scene(np.random.RandomState(7 + i)) for i in range(n_scenes)])
-    res = {"err": 0.0}
+    res = {"err": 0.0, "k1_err": 0.0, "k2_err": 0.0}
 
-    # K2 class-aware against its plain version: the stitch's own input, and
-    # score-ordered synthetic boxes of 18 classes at (1, 1024) and (4, 1024)
-    rng = np.random.RandomState(3)
-    cases = {"stitch input of scene 0": stitch_inputs(sis["float32"], scenes[0])}
-    for b in (1, 4):
-        bx = _boxes(rng, b, 1024)
-        cases[f"synthetic {b}x1024"] = (bx["boxes"].to(dev), bx["valid"].to(dev),
-                                        torch.from_numpy(rng.randint(1, 19, (b, 1024)).astype(np.int32)).to(dev))
-    for name, (boxes, valid, classes) in cases.items():
-        err, _ = _k2_class_aware_case(name, boxes, valid, classes, 0.25)
-        res["err"] = max(res["err"], err)
-    res["stitch_input"] = cases["stitch input of scene 0"]
-    res["synthetic_1x1024"] = cases["synthetic 1x1024"]
+    # K1 and K2 on the scene path's own arguments: every call one infer() of
+    # scene 0 makes, in each dtype, against its plain version
+    with torch.inference_mode():
+        for dt, si in sis.items():
+            calls = recorded_kernel_calls(si, scenes[0])
+            kinds = [n if n == "roi_pool3d_cuda" or a["classes"] is None else "class-aware" for n, a in calls]
+            check(sorted(set(kinds)) == ["class-aware", "nms3d_cuda", "roi_pool3d_cuda"],
+                  f"{dt}: the scene path called {kinds}")
+            for (name, args), kind in zip(calls, kinds):
+                if kind == "roi_pool3d_cuda":
+                    feats = args.pop("feats")
+                    err, _, _ = _k1_case(f"{dt} scene path, {args['rois'].shape[0]} rois on levels "
+                                         f"{[tuple(f.shape) for f in feats]}", feats, args, phase=6)
+                    res["k1_err"] = max(res["k1_err"], err)
+                elif kind == "nms3d_cuda":
+                    res["k2_err"] = max(res["k2_err"], _k2_case(f"{dt} scene path proposals", **args))
+                else:
+                    res["err"] = max(res["err"], _k2_case(f"{dt} scene path stitch", **args))
+                    if dt == "float32":
+                        res["stitch_input"] = (args["boxes"], args["valid"], args["classes"])
+
+        # K2 class-aware on score-ordered synthetic boxes of 18 classes
+        rng = np.random.RandomState(3)
+        for b in (1, 4):
+            bx = _boxes(rng, b, 1024)
+            case = (bx["boxes"].to(dev), bx["valid"].to(dev),
+                    torch.from_numpy(rng.randint(1, 19, (b, 1024)).astype(np.int32)).to(dev))
+            res["err"] = max(res["err"], _k2_case(f"synthetic {b}x1024", case[0], 0.25, case[1], case[2]))
+            if b == 1:
+                res["synthetic_1x1024"] = case
 
     # the path: every count set to 0 just before, read just after
     rp.roi_pool3d_cuda.launches = 0
@@ -749,8 +799,10 @@ def phase_scene(dev, params, n_scenes=4):
     kernel_launches = {k: v - before[k] for k, v in device_launches().items()}
     runs = len(sis) * n_scenes
     per_scene = {k: v / runs for k, v in launches.items()}
+    host_path = {dt: si.host_path_scenes for dt, si in sis.items()}
     log(f"[6] scene path: {runs} scenes ({n_scenes} x float32, bfloat16) of {SCENE_EXTENT}, 25 tiles each, all "
-        f"served by the fused path; wrapper calls {launches}, kernel launches {kernel_launches}, per scene {per_scene}")
+        f"served by the fused path (host-path scenes so far {host_path}); wrapper calls {launches}, kernel launches "
+        f"{kernel_launches}, per scene {per_scene}")
     for k in ("roi_pool3d_cuda", "nms3d_cuda"):
         check(launches[k] > 0, f"{k} was not launched on the scene path")
         check(kernel_launches[k] == launches[k], f"{k}: {kernel_launches[k]} kernel launches for {launches[k]} calls")
@@ -855,7 +907,7 @@ def profile_scene(si, scene, runs=2):
     by_name = defaultdict(float)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / runs
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / runs
     return sum(by_name.values()), window, sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
@@ -902,10 +954,8 @@ def phase_scene_timing(sis, scenes, res, passes=3):
                 return si._window_masks(scene_dev, q["starts"], q["locals6"],
                                         det["pred_class"][q["roi_idx"].long()], si._queue_canvas[name])
 
-            by_8 = SceneInference(si.det, si.cfg, tile_batch=8)  # the JAX package's tile batch
             stages = {
                 "tiles": cuda_ms(lambda: si._tile_outputs(scene_dev, origins), 5),
-                "tiles_in_batches_of_8": cuda_ms(lambda: by_8._tile_outputs(scene_dev, origins), 5),
                 "stitch_nms": cuda_ms(lambda: si._stitch(tiles, origins, scenes[0].shape[:3]), 10),
                 "planning": cuda_ms(lambda: si._plan_queues(det, scene_dev.shape[:3]), 10),
                 "mask_fcn_small": cuda_ms(lambda: fcn("mask_small"), 5),
@@ -923,14 +973,14 @@ def phase_scene_timing(sis, scenes, res, passes=3):
         log(f"[6] {dt}: {60.0 / times[len(times) // 2]:.2f} masked scenes/min (median of {passes} passes of a "
             f"prefetched stream of 8; per-scene s {[round(t, 4) for t in times]}), device_seconds {dev_s:.4f} s "
             f"= {60.0 / dev_s:.1f} scenes/min device-bound; {int(kv.sum())} detections, valid windows {n_windows} "
-            f"of 64 small and 12 large slots [{CARD}]")
+            f"of 64 small and 12 large slots; host-path scenes {si.host_path_scenes} [{CARD}]")
         log(f"[6] {dt} per-stage ms: " + json.dumps({k: round(v, 4) for k, v in stages.items()}) + f" [{CARD}]")
         out[dt] = {"scenes_per_min": 60.0 / times[len(times) // 2], "device_s": dev_s, "stages": stages}
         if dt == "bfloat16":
             busy, window, top = profile_scene(si, scenes[0])
             log(f"[6] bfloat16 scene profile: device busy {busy:.3f} ms of a {window:.3f} ms window per scene, "
                 f"idle share {1 - busy / window:.3f}; top kernels (ms per scene): "
-                + json.dumps({k: round(v, 4) for k, v in top[:12]}) + f" [{CARD}]")
+                + json.dumps([[k[:60], round(v, 4)] for k, v in top[:12]]) + f" [{CARD}]")
 
     out["k2_class_aware"] = k2_class_aware_timing("the stitch's own input", *res["stitch_input"])
     k2_class_aware_timing("synthetic boxes of 18 classes", *res["synthetic_1x1024"])
@@ -988,13 +1038,13 @@ def main() -> int:
         {"name": "roi_pool3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/roi_pool3d.cu",
          "replaces": "tpu3dsis/ops/roi_pool3d_pallas.py:85", "launches": launches["roi_pool3d_cuda"],
          "launches_per_batch": per_batch["roi_pool3d_cuda"], "launches_scene_path": scene_launches["roi_pool3d_cuda"],
-         "launches_per_scene": per_scene["roi_pool3d_cuda"], "max_abs_err": k1["err"],
+         "launches_per_scene": per_scene["roi_pool3d_cuda"], "max_abs_err": max(k1["err"], k2c["k1_err"]),
          "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"],
          "bound_ms": kernels["k1_bfloat16_bound"], "bound_by": "bytes", "library_ms": None},
         {"name": "nms3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
          "replaces": "tpu3dsis/ops/nms.py:86", "launches": launches["nms3d_cuda"],
          "launches_per_batch": per_batch["nms3d_cuda"], "launches_scene_path": scene_launches["nms3d_cuda"],
-         "launches_per_scene": per_scene["nms3d_cuda"], "max_abs_err": k2["err"],
+         "launches_per_scene": per_scene["nms3d_cuda"], "max_abs_err": max(k2["err"], k2c["k2_err"]),
          "ms": kernels["k2_400_0.1"], "plain_ms": kernels["k2_plain_0.1"],
          "bound_ms": kernels["k2_400_bound"], "bound_by": kernels["k2_400_bound_by"], "library_ms": None},
         {"name": "nms3d_cuda (class-aware, scene stitch)", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",

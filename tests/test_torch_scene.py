@@ -24,12 +24,11 @@ from tpu3dsis_torch.infer import tiling
 # mask flips allowed at the sigmoid threshold: the JAX test's own bar
 # (test_tiling.py:312), for two frameworks that sum each conv in another order
 MASK_FLIPS = 0.005
-# Box corners to 1e-3 voxels, confidences to rtol 1e-5. Two runs of the same
-# port on the same CPU host can already differ by up to 4.3e-4 voxels in a
-# corner (measured on a loaded 8-core host: its conv and matmul libraries do
-# not promise one summation order), so a bar of 1e-4 would fail by chance;
-# 1e-3 is the card-vs-CPU bar of chip_smoke.py's chunk phase.
-BOX_ATOL, CONF_RTOL = 1e-3, 1e-5
+# Box corners to 1e-4 voxels, confidences to rtol 1e-5. The CPU's conv
+# library splits its sums by thread, so the port runs on a fixed number of
+# threads here (``pair``): the same result on every host and under any load.
+BOX_ATOL, CONF_RTOL = 1e-4, 1e-5
+TORCH_THREADS = 4
 
 
 def _small_cfg(cfg):
@@ -60,15 +59,19 @@ def _numpy_params(jdet, seed):
 @pytest.fixture(scope="module")
 def pair():
     """JAX detector + params, and the port's detector on the CPU with the
-    same weights (mask head included), on the small tiles."""
+    same weights (mask head included), on the small tiles; the port on
+    ``TORCH_THREADS`` threads while the module's tests run."""
     from __graft_entry__ import _scannet_cfg
 
+    threads = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
     cfg = _small_cfg(_scannet_cfg())
     jdet = JaxDetector(cfg, anchor_dir="experiments/anchors")
     params = _numpy_params(jdet, 0)
     tcfg = DetectorConfig.from_cfg(cfg)
     tdet = load_jax_params(Detector(tcfg, device="cpu"), params)
-    return cfg, jdet, params, tcfg, tdet
+    yield cfg, jdet, params, tcfg, tdet
+    torch.set_num_threads(threads)
 
 
 def _scene(seed, shape=(60, 48, 60)):
@@ -142,7 +145,7 @@ def test_infer_matches_own_host_path_with_overflows(pair):
 
     over = SceneInference(tdet, tcfg.replace(TPU_FUSED_PRE_NMS=8), tile_batch=3)
     got = over.infer(scene)
-    assert not over.last_fused
+    assert not over.last_fused and over.host_path_scenes == 1 and si.host_path_scenes == 0
     _assert_same(*got, want_det, want_masks)
 
     # boxes larger than the small canvas: several halo windows each, more

@@ -119,10 +119,12 @@ class SceneInference:
 
     ``tile_batch`` tiles go through the chunk detector at a time. The JAX
     package takes 8 to bound TPU memory; here each batch costs the host about
-    as much to enqueue as the card takes to run it (25 tiles in bf16 on an
-    NVIDIA H100 80GB HBM3 at 700 W, ``chip_smoke.py`` phase 6: 19-45 ms in
-    batches of 8, 10-13 ms in one batch), so the default is the chunk path's
-    batch of 32.
+    as much to enqueue as the card takes to run it (PERF.md, Findings), so
+    the default is the chunk path's batch of 32.
+
+    ``last_fused`` says whether the fused path served the last ``infer``;
+    ``host_path_scenes`` counts the ``infer`` calls that an overflow sent to
+    the host-planned path.
     """
 
     def __init__(self, detector: Detector, cfg: DetectorConfig, tile_batch: int = 32, mesh=None):
@@ -132,13 +134,12 @@ class SceneInference:
         self.cfg = cfg
         self.tile = tuple(int(t) for t in cfg.TPU_TILE_SIZE)
         self.stride = tuple(int(s) for s in cfg.TPU_TILE_STRIDE)
-        # mask-FCN window canvas, and a smaller one for boxes that fit it: the
-        # region-masked FCN is canvas-size independent on region voxels
-        self.mask_canvas = tuple(min(int(c), t) for c, t in zip(cfg.TPU_MASK_INFER_CANVAS, self.tile))
-        small = tuple(min(int(c), t) for c, t in zip(cfg.TPU_MASK_INFER_CANVAS_SMALL, self.mask_canvas))
-        self.mask_canvas_small = None if small == self.mask_canvas else small
-        # the fused program's two window queues and their canvases
-        self._queue_canvas = {"mask_small": small, "mask_large": self.mask_canvas}
+        # the two window queues' mask-FCN canvases: boxes that fit the small
+        # one get a single small window (the region-masked FCN is canvas-size
+        # independent on region voxels), the others halo windows of the large
+        large = tuple(min(int(c), t) for c, t in zip(cfg.TPU_MASK_INFER_CANVAS, self.tile))
+        small = tuple(min(int(c), t) for c, t in zip(cfg.TPU_MASK_INFER_CANVAS_SMALL, large))
+        self._queue_canvas = {"mask_small": small, "mask_large": large}
         self.tile_batch = int(tile_batch)
         self.device = detector.device
         self._dtype = detector.compute_dtype
@@ -148,6 +149,7 @@ class SceneInference:
         self._upload_exec = None
         self._upload_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.last_fused = False  # did the fused path serve the last infer()?
+        self.host_path_scenes = 0  # infer() calls an overflow sent to detect + predict_masks
 
     def close(self) -> None:
         """Stop the upload thread, if one was started."""
@@ -337,6 +339,7 @@ class SceneInference:
         if int(out["pre_overflow"]) > 0 or int(out["det_overflow"]) > 0:
             # more confident detections than the device queues hold: the
             # host-planned path is unbounded
+            self.host_path_scenes += 1
             det_out = self.detect(scene_data)
             return det_out, self.predict_masks(scene_data, det_out)
         self.last_fused = True
@@ -351,14 +354,14 @@ class SceneInference:
             # rois whose halo windows did not all fit the large queue: redo
             # them through the host-planned path (only large-routed rois can
             # be short; the small queue holds one window per roi)
-            small = np.asarray(self._queue_canvas["mask_small"])
+            small, large = np.asarray(self._queue_canvas["mask_small"]), self._queue_canvas["mask_large"]
             slots = np.nonzero(kv)[0]
             short = []
             for b, slot in enumerate(slots):
                 r = np.round(det_out["pred_box"][b]).astype(int)
                 if np.all(r[3:] - r[:3] <= small):
                     continue
-                if delivered[slot] < len(plan_windows_np(det_out["pred_box"][b], data.shape[:3], self.mask_canvas)):
+                if delivered[slot] < len(plan_windows_np(det_out["pred_box"][b], data.shape[:3], large)):
                     short.append(b)
             if short:
                 redo = self.predict_masks(scene_data, {k: v[short] for k, v in det_out.items()})
@@ -455,16 +458,14 @@ class SceneInference:
         if n == 0:
             return []
         data, scene_dev = self._device_scene(scene_data)
-        small = self.mask_canvas_small
-        queues = {"large": (self.mask_canvas, [], batch)}
-        if small is not None:
-            queues["small"] = (small, [], batch * 4)
+        small, large = self._queue_canvas["mask_small"], self._queue_canvas["mask_large"]
+        queues = {"large": (large, [], batch), "small": (small, [], batch * 4)}
         full_sizes = []
         for i, (box, cls) in enumerate(zip(det_out["pred_box"], det_out["pred_class"])):
             r = np.round(box).astype(int)
             dims = r[3:] - r[:3]
             full_sizes.append(tuple(dims))
-            which = "small" if small is not None and np.all(dims <= np.asarray(small)) else "large"
+            which = "small" if small != large and np.all(dims <= np.asarray(small)) else "large"
             canvas, items, _ = queues[which]
             for start, local, own in plan_windows_np(box, data.shape[:3], canvas):
                 items.append((i, start, local, own, int(cls)))
