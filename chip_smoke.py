@@ -34,7 +34,20 @@ result):
      CPU on a 144x48x144 scene; bfloat16
      against float32; masked scenes/min over a prefetched stream of 8,
      ``device_seconds``, per-stage ms, K2 class-aware against its plain
-     version and its bound, and a profile of one bf16 scene.
+     version and its bound, and a profile of one bf16 scene;
+  7. the color scene path: ``SceneInference.infer(scene, frames)`` with the
+     whole trained color detector (``tests/fixtures/color_loop_params.npz``,
+     ENet included; ``bench.py::bench_color_scene``'s configuration) on
+     240x48x240 rooms of 24 objects with 32, 96, 144 and 200 views (depth
+     ray-cast, RGB shaded, made here with numpy): every kernel call of one
+     scene recorded and held against its plain version (K3's resident
+     volume, K1, K2), K3 on the per-tile path's calls and on its edge cases;
+     the path in both dtypes, each scene served by the fused path, launches
+     counted; the card against the CPU on a 144x48x144 room with 16 views;
+     bfloat16 against float32; color masked scenes/min over a prefetched
+     stream of 8, ``device_seconds``, prep ms by view count (upload, ENet,
+     K3), per-stage ms, K3 against its plain version and its bound, and a
+     profile of one bf16 scene with its prep.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
@@ -55,8 +68,10 @@ import numpy as np
 import torch
 
 from tpu3dsis_torch import (Detector, SceneInference, _build, build_inference_fn, load_jax_params,
-                            scannet_chunk_config, scannet_scene_config)
+                            scannet_chunk_config, scannet_color_scene_config, scannet_scene_config)
+from tpu3dsis_torch.geometry import projection
 from tpu3dsis_torch.geometry.boxes import nms_overlap
+from tpu3dsis_torch.infer.color_volume import build_color_volume
 from tpu3dsis_torch.models.detector import device_anchors
 from tpu3dsis_torch.models.rpn import select_proposals
 from tpu3dsis_torch.ops import nms
@@ -65,7 +80,8 @@ from tpu3dsis_torch.ops import roi_pool3d as rp
 SHAPE = (96, 48, 96)
 BATCH = 32
 TRAINED = "tests/fixtures/tiling_parity_params.npz"
-MASK_HEAD = "tests/fixtures/color_loop_params.npz"  # its mask_backbone.* keys: the trained mask FCN
+COLOR_FIXTURE = "tests/fixtures/color_loop_params.npz"  # the trained color detector, ENet included
+MASK_HEAD = COLOR_FIXTURE  # its mask_backbone.* keys: the trained mask FCN
 SCENE_EXTENT = (240, 48, 240)
 SCENE_SMALL = (144, 48, 144)  # the card-vs-CPU scene, to bound the CPU's time
 CARD = ""  # "<name>, <power limit>" from nvidia-smi, set in main()
@@ -406,7 +422,16 @@ def load_detectors(dev):
 
 def device_launches():
     lib = _build.load_library()
-    return {"roi_pool3d_cuda": lib.tpu3dsis_roi_pool3d_launches(), "nms3d_cuda": lib.tpu3dsis_nms3d_launches()}
+    return {"roi_pool3d_cuda": lib.tpu3dsis_roi_pool3d_launches(), "nms3d_cuda": lib.tpu3dsis_nms3d_launches(),
+            "fuse_views_cuda": lib.tpu3dsis_fuse_views_launches()}
+
+
+def reset_launch_counts():
+    """Every wrapper's launch count to 0 (just before a path is driven)."""
+    rp.roi_pool3d_cuda.launches = 0
+    nms.nms3d_cuda.launches = 0
+    nms.nms3d_cuda.class_aware_launches = 0
+    projection.fuse_views_cuda.launches = 0
 
 
 def phase_main_path(dev, scenes, gts, dets, batches=3):
@@ -414,8 +439,7 @@ def phase_main_path(dev, scenes, gts, dets, batches=3):
     infer32 = build_inference_fn(det32, cfg32, SHAPE)
     infer16 = build_inference_fn(det16, cfg16, SHAPE)
     x = torch.from_numpy(scenes).to(dev)
-    rp.roi_pool3d_cuda.launches = 0
-    nms.nms3d_cuda.launches = 0
+    reset_launch_counts()
     before = device_launches()
     outs = {}
     for name, infer in (("float32", infer32), ("bfloat16", infer16)):
@@ -423,7 +447,7 @@ def phase_main_path(dev, scenes, gts, dets, batches=3):
             outs[name] = infer(x)
     torch.cuda.synchronize()
     launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches}
-    kernel_launches = {k: v - before[k] for k, v in device_launches().items()}
+    kernel_launches = {k: v - before[k] for k, v in device_launches().items() if k in launches}
     per_batch = {k: v / (2 * batches) for k, v in kernel_launches.items()}
     log(f"[3] main path: {2 * batches} batches of {len(scenes)} chunks; wrapper calls {launches}, "
         f"kernel launches {kernel_launches}, launches per batch {per_batch}")
@@ -668,12 +692,13 @@ def _copy(x):
     return x
 
 
-def recorded_kernel_calls(si, scene):
-    """Every call that one ``si.infer(scene)`` makes to K1's and K2's
-    wrappers, with copies of its arguments, in call order: [(wrapper name,
-    {argument: value})]. The wrappers are wrapped for that call only."""
+def recorded_kernel_calls(si, scene, frames=None, fused=True):
+    """Every call that one ``si.infer(scene, frames)`` makes to K1's, K2's
+    and K3's wrappers, with copies of its arguments, in call order: [(kind,
+    {argument: value})], kind the wrapper's name or "class-aware" for K2 with
+    classes. The wrappers are wrapped for that call only."""
     calls = []
-    wrapped = ((rp, "roi_pool3d_cuda"), (nms, "nms3d_cuda"))
+    wrapped = ((rp, "roi_pool3d_cuda"), (nms, "nms3d_cuda"), (projection, "fuse_views_cuda"))
     originals = [getattr(mod, name) for mod, name in wrapped]
 
     def recorder(fn):
@@ -682,7 +707,8 @@ def recorded_kernel_calls(si, scene):
         def call(*args, **kwargs):
             bound = sig.bind(*args, **kwargs)
             bound.apply_defaults()
-            calls.append((fn.__name__, {k: _copy(v) for k, v in bound.arguments.items()}))
+            kind = "class-aware" if bound.arguments.get("classes") is not None else fn.__name__
+            calls.append((kind, {k: _copy(v) for k, v in bound.arguments.items()}))
             return fn(*args, **kwargs)
 
         call.__dict__ = fn.__dict__  # the wrapper counts its launches in fn's counters
@@ -691,15 +717,33 @@ def recorded_kernel_calls(si, scene):
     for (mod, name), fn in zip(wrapped, originals):
         setattr(mod, name, recorder(fn))
     try:
-        si.infer(scene)
+        si.infer(scene, frames)
     finally:
         for (mod, name), fn in zip(wrapped, originals):
             setattr(mod, name, fn)
-    check(si.last_fused, "the recorded scene fell back to the host-planned path")
+    check(si.last_fused == fused, f"the recorded scene was {'not ' * fused}served by the fused path")
     return calls
 
 
-def _k2_case(name, boxes, thresh, valid, classes=None):
+def check_recorded_k1_k2(calls, label, phase):
+    """Each recorded K1 and K2 call against its plain version; the largest
+    error of each kind."""
+    errs = {"k1_err": 0.0, "k2_err": 0.0, "class_aware_err": 0.0}
+    for kind, args in calls:
+        if kind == "roi_pool3d_cuda":
+            args = dict(args)
+            feats = args.pop("feats")
+            err, _, _ = _k1_case(f"{label}, {args['rois'].shape[0]} rois on levels {[tuple(f.shape) for f in feats]}",
+                                 feats, args, phase=phase)
+            errs["k1_err"] = max(errs["k1_err"], err)
+        elif kind == "nms3d_cuda":
+            errs["k2_err"] = max(errs["k2_err"], _k2_case(f"{label} proposals", **args, phase=phase))
+        elif kind == "class-aware":
+            errs["class_aware_err"] = max(errs["class_aware_err"], _k2_case(f"{label} stitch", **args, phase=phase))
+    return errs
+
+
+def _k2_case(name, boxes, thresh, valid, classes=None, phase=6):
     """K2 against its plain version on one input, class-aware given classes."""
     got = nms.nms3d_cuda(boxes, thresh, valid, classes)
     torch.cuda.synchronize()
@@ -710,7 +754,7 @@ def _k2_case(name, boxes, thresh, valid, classes=None):
     end.synchronize()
     kind = "class-agnostic" if classes is None else "class-aware"
     other = "" if classes is None else f" (class-agnostic would keep {int(nms.nms_mask_plain(boxes, thresh, valid).sum())})"
-    log(f"[6] K2 {kind} {name} {tuple(got.shape)} thresh {thresh}: kept={int(got.sum())}{other} of "
+    log(f"[{phase}] K2 {kind} {name} {tuple(got.shape)} thresh {thresh}: kept={int(got.sum())}{other} of "
         f"{int(valid.sum())} valid, mismatches={int((got != want).sum())}, plain {start.elapsed_time(end):.1f} ms "
         f"[{CARD}]")
     check(torch.equal(got, want), f"K2 {kind} {name} differs from its plain version")
@@ -745,6 +789,39 @@ def match_detections(a, b, iou_thresh=0.5):
     return pairs
 
 
+def bf16_vs_fp32(outs, n_scenes, phase, iou_thresh=0.5, max_drift=0.1, slack_div=8):
+    """bfloat16 against float32, scene by scene: test_bf16_stability.py's
+    contract on the detections (its defaults; its color-trained case
+    loosens them to IoU 0.25, drift 0.3 and a quarter of the set churning,
+    test_bf16_stability.py:190-200); mask agreement on matched pairs is
+    printed."""
+    flips, matched_all, n_hi_all, drift = [], 0, 0, 0.0
+    for (d32, m32), (d16, m16) in zip(outs["float32"], outs["bfloat16"]):
+        hi32, hi16 = d32["pred_conf"] >= 0.9, d16["pred_conf"] >= 0.9
+        a = {k: v[hi32] for k, v in d32.items()}
+        b = {k: v[hi16] for k, v in d16.items()}
+        pairs = match_detections(a, b, iou_thresh)
+        n_hi = int(hi32.sum())
+        slack = max(1, n_hi // slack_div)
+        check(len(pairs) >= n_hi - slack, f"bf16 matched only {len(pairs)}/{n_hi} confident detections")
+        check(int(hi16.sum()) - len(pairs) <= slack, "bf16 added unmatched confident detections")
+        i32, i16 = np.nonzero(hi32)[0], np.nonzero(hi16)[0]
+        for i, j in pairs:
+            check(a["pred_class"][i] == b["pred_class"][j], "class flipped in bf16")
+            drift = max(drift, abs(float(a["pred_conf"][i]) - float(b["pred_conf"][j])))
+            f = mask_agreement(a["pred_box"][i], m32[i32[i]], b["pred_box"][j], m16[i16[j]])
+            if f is not None:
+                flips.append(f)
+        matched_all += len(pairs)
+        n_hi_all += n_hi
+    check(drift <= max_drift, f"bf16 confidence drift {drift} > {max_drift}")
+    log(f"[{phase}] bf16 vs float32 over {n_scenes} scenes: {matched_all}/{n_hi_all} confident detections matched at "
+        f"IoU {iou_thresh} with the same class (slack n // {slack_div} per scene), max conf drift {drift:.4f}; masks "
+        f"of matched pairs differ in "
+        f"{np.mean(flips) if flips else 0.0:.4f} of their voxels on average (max "
+        f"{np.max(flips) if flips else 0.0:.4f}; printed, not gated) [{CARD}]")
+
+
 def phase_scene(dev, params, n_scenes=4):
     sis = {dt: scene_inference(dev, dt, params) for dt in ("float32", "bfloat16")}
     scenes, gts = zip(*[make_scene(np.random.RandomState(7 + i)) for i in range(n_scenes)])
@@ -755,21 +832,16 @@ def phase_scene(dev, params, n_scenes=4):
     with torch.inference_mode():
         for dt, si in sis.items():
             calls = recorded_kernel_calls(si, scenes[0])
-            kinds = [n if n == "roi_pool3d_cuda" or a["classes"] is None else "class-aware" for n, a in calls]
+            kinds = [kind for kind, _ in calls]
             check(sorted(set(kinds)) == ["class-aware", "nms3d_cuda", "roi_pool3d_cuda"],
                   f"{dt}: the scene path called {kinds}")
-            for (name, args), kind in zip(calls, kinds):
-                if kind == "roi_pool3d_cuda":
-                    feats = args.pop("feats")
-                    err, _, _ = _k1_case(f"{dt} scene path, {args['rois'].shape[0]} rois on levels "
-                                         f"{[tuple(f.shape) for f in feats]}", feats, args, phase=6)
-                    res["k1_err"] = max(res["k1_err"], err)
-                elif kind == "nms3d_cuda":
-                    res["k2_err"] = max(res["k2_err"], _k2_case(f"{dt} scene path proposals", **args))
-                else:
-                    res["err"] = max(res["err"], _k2_case(f"{dt} scene path stitch", **args))
-                    if dt == "float32":
-                        res["stitch_input"] = (args["boxes"], args["valid"], args["classes"])
+            errs = check_recorded_k1_k2(calls, f"{dt} scene path", phase=6)
+            for k in ("k1_err", "k2_err"):
+                res[k] = max(res[k], errs[k])
+            res["err"] = max(res["err"], errs["class_aware_err"])
+            if dt == "float32":
+                args = next(a for kind, a in calls if kind == "class-aware")
+                res["stitch_input"] = (args["boxes"], args["valid"], args["classes"])
 
         # K2 class-aware on score-ordered synthetic boxes of 18 classes
         rng = np.random.RandomState(3)
@@ -782,9 +854,7 @@ def phase_scene(dev, params, n_scenes=4):
                 res["synthetic_1x1024"] = case
 
     # the path: every count set to 0 just before, read just after
-    rp.roi_pool3d_cuda.launches = 0
-    nms.nms3d_cuda.launches = 0
-    nms.nms3d_cuda.class_aware_launches = 0
+    reset_launch_counts()
     before = device_launches()
     outs = {}
     for dt, si in sis.items():
@@ -796,7 +866,7 @@ def phase_scene(dev, params, n_scenes=4):
     torch.cuda.synchronize()
     launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
                 "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches}
-    kernel_launches = {k: v - before[k] for k, v in device_launches().items()}
+    kernel_launches = {k: v - before[k] for k, v in device_launches().items() if k in launches}
     runs = len(sis) * n_scenes
     per_scene = {k: v / runs for k, v in launches.items()}
     host_path = {dt: si.host_path_scenes for dt, si in sis.items()}
@@ -827,31 +897,7 @@ def phase_scene(dev, params, n_scenes=4):
         check(min(n_vox) > 0, f"{dt}: a scene whose masks are all empty")
         check(np.mean(recalls) >= 0.25, f"{dt}: object recall below 0.25")
 
-    # bfloat16 against float32, scene by scene: test_bf16_stability.py's
-    # contract on the detections; mask agreement on matched pairs is printed
-    flips, matched_all, n_hi_all, drift = [], 0, 0, 0.0
-    for (d32, m32), (d16, m16) in zip(outs["float32"], outs["bfloat16"]):
-        hi32, hi16 = d32["pred_conf"] >= 0.9, d16["pred_conf"] >= 0.9
-        a = {k: v[hi32] for k, v in d32.items()}
-        b = {k: v[hi16] for k, v in d16.items()}
-        pairs = match_detections(a, b)
-        n_hi = int(hi32.sum())
-        slack = max(1, n_hi // 8)
-        check(len(pairs) >= n_hi - slack, f"bf16 matched only {len(pairs)}/{n_hi} confident detections")
-        check(int(hi16.sum()) - len(pairs) <= slack, "bf16 added unmatched confident detections")
-        i32, i16 = np.nonzero(hi32)[0], np.nonzero(hi16)[0]
-        for i, j in pairs:
-            check(a["pred_class"][i] == b["pred_class"][j], "class flipped in bf16")
-            drift = max(drift, abs(float(a["pred_conf"][i]) - float(b["pred_conf"][j])))
-            f = mask_agreement(a["pred_box"][i], m32[i32[i]], b["pred_box"][j], m16[i16[j]])
-            if f is not None:
-                flips.append(f)
-        matched_all += len(pairs)
-        n_hi_all += n_hi
-    check(drift <= 0.1, f"bf16 confidence drift {drift} > 0.1")
-    log(f"[6] bf16 vs float32 over {n_scenes} scenes: {matched_all}/{n_hi_all} confident detections matched at "
-        f"IoU 0.5 with the same class, max conf drift {drift:.4f}; masks of matched pairs differ in "
-        f"{np.mean(flips):.4f} of their voxels on average (max {np.max(flips):.4f}; printed, not gated) [{CARD}]")
+    bf16_vs_fp32(outs, n_scenes, phase=6)
     return sis, scenes, launches, per_scene, res
 
 
@@ -865,11 +911,19 @@ def phase_scene_card_vs_cpu(sis, params):
     cpu = cpu_si.infer(scene)
     cpu_s = time.time() - t0
     check(cpu_si.last_fused and sis["float32"].last_fused, "card or CPU fell back to the host-planned path")
+    compare_card_cpu(card, cpu, f"one {SCENE_SMALL} scene", cpu_s, phase=6)
+
+
+def compare_card_cpu(card, cpu, label, cpu_s, phase):
+    """float32 card against CPU: the same detections (order-free, same class,
+    boxes within 1e-3 voxels, conf within 1e-4), masks within 0.005 flips
+    per box; the flipped voxels are counted."""
     (dc, mc), (dp, mp) = card, cpu
     check(len(dc["pred_box"]) == len(dp["pred_box"]) > 0,
           f"{len(dc['pred_box'])} detections on the card, {len(dp['pred_box'])} on the CPU")
     used = np.zeros(len(dp["pred_box"]), bool)
     worst_box = worst_conf = worst_flip = 0.0
+    flipped = 0
     for i in range(len(dc["pred_box"])):
         d = np.abs(dp["pred_box"] - dc["pred_box"][i]).max(1)
         d[used | (dp["pred_class"] != dc["pred_class"][i])] = np.inf
@@ -881,27 +935,32 @@ def phase_scene_card_vs_cpu(sis, params):
         check(mc[i].shape == mp[j].shape, "mask shapes differ")
         if mc[i].size:
             worst_flip = max(worst_flip, float((mc[i] != mp[j]).mean()))
+            flipped += int((mc[i] != mp[j]).sum())
     check(worst_conf <= 1e-4, f"card vs CPU conf differs by {worst_conf}")
     check(worst_flip < 0.005, f"card vs CPU masks differ in {worst_flip} of a box's voxels")
-    log(f"[6] card vs CPU, one {SCENE_SMALL} scene, float32, TF32 off: {len(dc['pred_box'])} detections on both, "
-        f"max abs diff box {worst_box:.3g} voxels, conf {worst_conf:.3g}; worst mask flips {worst_flip:.4g} "
-        f"(CPU infer {cpu_s:.1f} s) [{CARD}]")
+    log(f"[{phase}] card vs CPU, {label}, float32, TF32 off: {len(dc['pred_box'])} detections on both, "
+        f"max abs diff box {worst_box:.3g} voxels, conf {worst_conf:.3g}; mask voxels flipped {flipped} of "
+        f"{sum(m.size for m in mc)}, worst box {worst_flip:.4g} (CPU infer {cpu_s:.1f} s) [{CARD}]")
 
 
-def profile_scene(si, scene, runs=2):
+def profile_scene(si, scene, runs=2, frames=None):
     """Device time per scene by kernel name, and the idle share, from
     torch.profiler over `runs` infer() calls after a warm-up; the window is
-    the host clock around them."""
+    the host clock around them. Each call gets a fresh copy of `frames`, so
+    a color scene's window holds its prep too (not prefetched)."""
     from torch.profiler import ProfilerActivity, profile
 
-    si.infer(scene)
+    def fresh():
+        return None if frames is None else dict(frames)
+
+    si.infer(scene, fresh())
     torch.cuda.synchronize()
     # the card's activity only: tracing every host op slows the host's
     # enqueue, which this path is bound by
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
-            si.infer(scene)
+            si.infer(scene, fresh())
         torch.cuda.synchronize()
         window = (time.perf_counter() - t0) * 1e3 / runs
     by_name = defaultdict(float)
@@ -924,6 +983,43 @@ def k2_class_aware_timing(name, boxes, valid, classes, thresh=0.25):
     return {"ms": k2, "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by}
 
 
+def scene_stages(si, scene, prep=None):
+    """Per-stage ms of one scene's fused program (CUDA events; the color
+    crops alone too, with a color prep) and the host's paste. Returns
+    (stages, kept detections per slot, valid windows per queue)."""
+    from tpu3dsis_torch.infer.tiling import _to_host
+
+    with torch.inference_mode():
+        data, scene_dev = si._device_scene(scene)
+        origins = si._origins(data.shape[:3])
+        tiles = si._tile_outputs(scene_dev, origins, prep)
+        det = si._stitch(tiles, origins, scene.shape[:3])
+        plans = si._plan_queues(det, scene_dev.shape[:3])
+
+        def fcn(name):
+            q = plans[name]
+            return si._window_masks(scene_dev, q["starts"], q["locals6"], det["pred_class"][q["roi_idx"].long()],
+                                    si._queue_canvas[name])
+
+        stages = {"tiles": cuda_ms(lambda: si._tile_outputs(scene_dev, origins, prep), 5)}
+        if prep is not None:
+            stages["color_crops_of_tiles"] = cuda_ms(lambda: si._tile_color(prep, origins), 5)
+        stages.update({
+            "stitch_nms": cuda_ms(lambda: si._stitch(tiles, origins, scene.shape[:3]), 10),
+            "planning": cuda_ms(lambda: si._plan_queues(det, scene_dev.shape[:3]), 10),
+            "mask_fcn_small": cuda_ms(lambda: fcn("mask_small"), 5),
+            "mask_fcn_large": cuda_ms(lambda: fcn("mask_large"), 5),
+        })
+        host = _to_host(si._fused(scene_dev, origins, scene.shape[:3], prep))
+        kv = host["det_valid"].astype(bool)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            si._paste(host, kv)
+        stages["host_paste"] = (time.perf_counter() - t0) * 1e3 / 5
+        n_windows = {k: int(host[k]["valid"].sum()) for k in ("mask_small", "mask_large")}
+    return stages, kv, n_windows
+
+
 def phase_scene_timing(sis, scenes, res, passes=3):
     out = {}
     for dt, si in sis.items():
@@ -942,34 +1038,7 @@ def phase_scene_timing(sis, scenes, res, passes=3):
 
         times = sorted(one_pass() for _ in range(passes))
         dev_s = si.device_seconds(scenes[0], iters=6)
-        with torch.inference_mode():
-            data, scene_dev = si._device_scene(scenes[0])
-            origins = si._origins(data.shape[:3])
-            tiles = si._tile_outputs(scene_dev, origins)
-            det = si._stitch(tiles, origins, scenes[0].shape[:3])
-            plans = si._plan_queues(det, scene_dev.shape[:3])
-
-            def fcn(name):
-                q = plans[name]
-                return si._window_masks(scene_dev, q["starts"], q["locals6"],
-                                        det["pred_class"][q["roi_idx"].long()], si._queue_canvas[name])
-
-            stages = {
-                "tiles": cuda_ms(lambda: si._tile_outputs(scene_dev, origins), 5),
-                "stitch_nms": cuda_ms(lambda: si._stitch(tiles, origins, scenes[0].shape[:3]), 10),
-                "planning": cuda_ms(lambda: si._plan_queues(det, scene_dev.shape[:3]), 10),
-                "mask_fcn_small": cuda_ms(lambda: fcn("mask_small"), 5),
-                "mask_fcn_large": cuda_ms(lambda: fcn("mask_large"), 5),
-            }
-            from tpu3dsis_torch.infer.tiling import _to_host
-
-            host = _to_host(si._fused(scene_dev, origins, scenes[0].shape[:3]))
-            kv = host["det_valid"].astype(bool)
-            t0 = time.perf_counter()
-            for _ in range(5):
-                si._paste(host, kv)
-            stages["host_paste"] = (time.perf_counter() - t0) * 1e3 / 5
-            n_windows = {k: int(host[k]["valid"].sum()) for k in ("mask_small", "mask_large")}
+        stages, kv, n_windows = scene_stages(si, scenes[0])
         log(f"[6] {dt}: {60.0 / times[len(times) // 2]:.2f} masked scenes/min (median of {passes} passes of a "
             f"prefetched stream of 8; per-scene s {[round(t, 4) for t in times]}), device_seconds {dev_s:.4f} s "
             f"= {60.0 / dev_s:.1f} scenes/min device-bound; {int(kv.sum())} detections, valid windows {n_windows} "
@@ -984,6 +1053,457 @@ def phase_scene_timing(sis, scenes, res, passes=3):
 
     out["k2_class_aware"] = k2_class_aware_timing("the stitch's own input", *res["stitch_input"])
     k2_class_aware_timing("synthetic boxes of 18 classes", *res["synthetic_1x1024"])
+    return out
+
+
+# --- phase 7: the color scene path --------------------------------------------------
+# Rooms as tpu3dsis/datagen/synthetic_color.py:73 room_mesh builds them, in the
+# scene grid the scene loader gives them (scene voxel = world / VOXEL +
+# ROOM_OFFSET): a floor at y = 0, four walls 6 voxels in from the grid's x and
+# z borders, furniture boxes standing on the floor. The TSDF is the boxes',
+# floor's and walls' signed distance; depth is ray-cast against the same
+# solids at 41x32 and RGB is shaded as MeshRenderer shades it (per-face albedo,
+# headlight Lambert), rendered at 41x32 and upsampled x8 to 328x256.
+
+VOXEL = 0.046875  # benchmark.yml:66
+ROOM_OFFSET = np.array([6.0, 0.0, 6.0])  # synthetic_color.py:283-285, the pad-16 -> crop-10 offset
+WALL_HEIGHT_M = 2.4
+COLOR_VIEWS = (32, 96, 144, 200)  # bench.py:253-260's range of view counts
+CARD_VS_CPU_VIEWS = 16
+KIND_DIMS_M = {"sofa": ((2.2, 2.6), (0.8, 1.1), (0.9, 1.2)), "chair": ((0.45, 0.7), (0.4, 0.65), (0.45, 0.7)),
+               "table": ((0.75, 1.05), (0.18, 0.33), (0.75, 1.05))}  # synthetic_color.py:37-44
+FLOOR_RGB, WALL_RGB = (90, 80, 70), (120, 120, 120)
+# K3's float32 operations per (voxel, view) projection, FMAs off: 18 for the
+# camera coordinates, a multiply, a division, an add and a rounding per pixel
+# coordinate
+K3_OPS_PER_PROJECTION = 26
+
+
+def room_objects(rng, room_m, n_objects):
+    """room_mesh's furniture (synthetic_color.py:97-126): about a third sofas,
+    then chairs and tables, each on the floor, 0.1 m apart. Returns (lo, hi)
+    world boxes in metres."""
+    ex, _, ez = room_m
+    kinds = ["sofa"] * max(1, n_objects // 3)
+    kinds += ["chair", "table"] * (n_objects - len(kinds))
+    placed = []
+    for kind in kinds[:n_objects]:
+        (dx0, dx1), (dy0, dy1), (dz0, dz1) = KIND_DIMS_M[kind]
+        sx, sy, sz = rng.uniform(dx0, dx1), rng.uniform(dy0, dy1), rng.uniform(dz0, dz1)
+        if rng.rand() < 0.5:
+            sx, sz = sz, sx
+        for _ in range(60):
+            x0, z0 = rng.uniform(0.2, max(ex - sx - 0.2, 0.3)), rng.uniform(0.2, max(ez - sz - 0.2, 0.3))
+            box = (x0, 0.0, z0, x0 + sx, sy, z0 + sz)
+            if any(not (box[3] + 0.1 <= b[0] or b[3] + 0.1 <= box[0] or box[5] + 0.1 <= b[2] or b[5] + 0.1 <= box[2])
+                   for b in placed):
+                continue
+            placed.append(box)
+            break
+    return np.asarray(placed, np.float64).reshape(-1, 6)
+
+
+def room_tsdf(extent, room_m, boxes_m):
+    """The encoded TSDF of the room on the scene grid: the signed distance in
+    voxels to the union of the boxes, the floor and the walls (positive in
+    the room's free space)."""
+    g = [np.arange(n, dtype=np.float64) for n in extent]
+    x, y, z = g[0][:, None, None], g[1][None, :, None], g[2][None, None, :]
+    hi_x, hi_z = (ROOM_OFFSET[[0, 2]] + np.asarray(room_m)[[0, 2]] / VOXEL)
+    sdf = np.minimum(np.minimum(x - ROOM_OFFSET[0], hi_x - x), np.minimum(z - ROOM_OFFSET[2], hi_z - z))
+    sdf = np.minimum(sdf, y)  # the floor
+    for b in boxes_m:
+        lo, hi = b[:3] / VOXEL + ROOM_OFFSET, b[3:] / VOXEL + ROOM_OFFSET
+        q = [np.maximum(lo[0] - x, x - hi[0]), np.maximum(lo[1] - y, y - hi[1]), np.maximum(lo[2] - z, z - hi[2])]
+        outside = np.sqrt(sum(np.maximum(a, 0.0) ** 2 for a in q))
+        inside = np.minimum(np.maximum(np.maximum(q[0], q[1]), q[2]), 0.0)
+        sdf = np.minimum(sdf, outside + inside)
+    return encode_tsdf(sdf.astype(np.float32))
+
+
+def camera_pose(eye, yaw_deg, pitch_deg):
+    """tpu3dsis/datagen/virtual_scan.py:94: camera-to-world with look =
+    Ry(yaw) Rx(pitch) ez, columns right, up, look (positive pitch looks
+    down)."""
+    yaw, pitch = np.radians(yaw_deg), np.radians(pitch_deg)
+    ry = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0], [-np.sin(yaw), 0, np.cos(yaw)]])
+    rx = np.array([[1, 0, 0], [0, np.cos(pitch), -np.sin(pitch)], [0, np.sin(pitch), np.cos(pitch)]])
+    r = ry @ rx
+    look, up = r[:, 2], r[:, 1]
+    pose = np.eye(4)
+    pose[:3, 0], pose[:3, 1], pose[:3, 2], pose[:3, 3] = np.cross(up, look), up, look, eye
+    return pose
+
+
+def room_cameras(rng, n_views, room_m, boxes_m):
+    """ViewStats' cameras (virtual_scan.py:48-54): 1.55 +- 0.15 m high,
+    pitched down 11 +- 8 degrees; most look toward a piece of furniture,
+    the rest at a random yaw."""
+    ex, _, ez = room_m
+    poses = []
+    for _ in range(n_views):
+        eye = np.array([rng.uniform(0.5, ex - 0.5), np.clip(rng.normal(1.55, 0.15), 1.25, 1.85),
+                        rng.uniform(0.5, ez - 0.5)])
+        yaw = rng.uniform(0.0, 360.0)
+        if len(boxes_m) and rng.rand() < 0.75:
+            c = boxes_m[rng.randint(len(boxes_m))]
+            d = (c[:3] + c[3:]) / 2 - eye
+            yaw = np.degrees(np.arctan2(d[0], d[2])) + rng.normal(0, 10)
+        poses.append(camera_pose(eye, yaw, rng.normal(11.0, 8.0)))
+    return np.asarray(poses, np.float32)
+
+
+def render_views(poses, intrinsic, room_m, boxes_m, colors, depth_wh=(41, 32), far=6.0):
+    """Ray-cast every view at the depth maps' resolution: (V, H, W) z-depth
+    in metres (0 where nothing is hit within `far`, as MeshRenderer) and
+    (V, H, W, 3) uint8 RGB. colors: per solid and face (n_boxes + 5, 6, 3)
+    albedo; the solids are the boxes, the floor and the four walls."""
+    w, h = depth_wh
+    fx, fy, cx, cy = intrinsic[0][0], intrinsic[1][1], intrinsic[0][2], intrinsic[1][2]
+    u, v = np.meshgrid(np.arange(w), np.arange(h))
+    rays = np.stack([(u - cx) / fx, (v - cy) / fy, np.ones_like(u, dtype=np.float64)], -1).reshape(-1, 3)
+    ex, ey, ez = room_m
+    depths, images = [], []
+    for pose in poses.astype(np.float64):
+        o, d = pose[:3, 3], rays @ pose[:3, :3].T  # world ray o + t d, t = camera z
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv = 1.0 / d
+            best = np.full(len(d), np.inf)
+            solid = np.full(len(d), -1)
+            face = np.zeros(len(d), np.int64)
+            for i, b in enumerate(boxes_m):  # slabs
+                t1, t2 = (b[:3] - o) * inv, (b[3:] - o) * inv
+                tn, tf = np.minimum(t1, t2), np.maximum(t1, t2)
+                t_near, t_far = tn.max(1), tf.min(1)
+                hit = (t_near <= t_far) & (t_near > 0) & (t_near < best)
+                best[hit], solid[hit] = t_near[hit], i
+                axis = tn.argmax(1)
+                face[hit] = 2 * axis[hit] + (d[hit, axis[hit]] > 0)
+            # the room's floor and four walls, (axis, position), seen from the inside
+            for k, (axis, at) in enumerate(((1, 0.0), (0, 0.0), (0, ex), (2, 0.0), (2, ez))):
+                t = (at - o[axis]) * inv[:, axis]
+                p = o + t[:, None] * d
+                inside = (p[:, 0] >= -1e-9) & (p[:, 0] <= ex + 1e-9) & (p[:, 2] >= -1e-9) & (p[:, 2] <= ez + 1e-9)
+                if axis != 1:
+                    inside &= (p[:, 1] >= 0) & (p[:, 1] <= ey)
+                hit = (t > 0) & inside & (t < best)
+                best[hit], solid[hit], face[hit] = t[hit], len(boxes_m) + k, 2 * axis
+        seen = np.isfinite(best) & (best <= far)
+        depth = np.where(seen, best, 0.0)
+        normal = np.zeros((len(d), 3))
+        normal[np.arange(len(d)), face // 2] = 1.0
+        shade = 0.3 + 0.7 * np.abs(normal @ pose[:3, 2])  # mesh_render.py:123-129
+        rgb = colors[np.clip(solid, 0, None), face] * shade[:, None]
+        rgb[~seen] = 0.0
+        depths.append(depth.reshape(h, w))
+        images.append(np.clip(rgb, 0, 255).astype(np.uint8).reshape(h, w, 3))
+    return np.asarray(depths, np.float32), np.asarray(images)
+
+
+def make_color_scene(rng, n_views, extent=SCENE_EXTENT, n_objects=24, intrinsic=None):
+    """A room scene with its frames: (encoded TSDF (X, Y, Z, 2), object boxes
+    in scene voxels (N, 6), frames {images (V, 256, 328, 3) uint8, depths
+    (V, 32, 41), poses (V, 4, 4), world_to_grid (4, 4)})."""
+    if intrinsic is None:
+        intrinsic = scannet_color_scene_config().INTRINSIC
+    room_m = ((extent[0] - 2 * ROOM_OFFSET[0]) * VOXEL, WALL_HEIGHT_M, (extent[2] - 2 * ROOM_OFFSET[2]) * VOXEL)
+    boxes_m = room_objects(rng, room_m, n_objects)
+    colors = np.empty((len(boxes_m) + 5, 6, 3))
+    colors[:len(boxes_m)] = rng.randint(60, 220, (len(boxes_m), 1, 3))
+    colors[len(boxes_m)] = FLOOR_RGB
+    colors[len(boxes_m) + 1:] = WALL_RGB
+    colors = np.clip(colors + rng.randint(-25, 26, colors.shape), 0, 255)  # room_mesh's face jitter
+    poses = room_cameras(rng, n_views, room_m, boxes_m)
+    depths, small = render_views(poses, intrinsic, room_m, boxes_m, colors)
+    w2g = np.eye(4, dtype=np.float32)
+    w2g[[0, 1, 2], [0, 1, 2]] = 1.0 / VOXEL
+    w2g[:3, 3] = ROOM_OFFSET
+    frames = {"images": np.repeat(np.repeat(small, 8, axis=1), 8, axis=2), "depths": depths, "poses": poses,
+              "world_to_grid": w2g}
+    gt = np.concatenate([boxes_m[:, :3] / VOXEL + ROOM_OFFSET, boxes_m[:, 3:] / VOXEL + ROOM_OFFSET], 1)
+    return room_tsdf(extent, room_m, boxes_m), gt.astype(np.float32), frames
+
+
+def color_params():
+    """The trained color fixture, every key (the ENet's included)."""
+    with np.load(COLOR_FIXTURE) as d:
+        return {k: d[k] for k in d.files}
+
+
+def color_scene_inference(dev, dtype, params, **changes):
+    cfg = scannet_color_scene_config().replace(TPU_COMPUTE_DTYPE=dtype, **changes)
+    return SceneInference(load_jax_params(Detector(cfg, device=dev), params), cfg)
+
+
+def k3_bound(feats2d, depths, volume_dims, view_valid=None, **_):
+    """K3's bound in ms, its bound_by and its bytes: the (X, Y, Z, C) output
+    written once and the feature maps, depths, matrices and flags read once
+    (bytes), or one projection per voxel and valid view at
+    K3_OPS_PER_PROJECTION float32 operations (operations)."""
+    v, c, itemsize = feats2d.shape[0], feats2d.shape[-1], feats2d.element_size()
+    n = int(np.prod(volume_dims))
+    valid = v if view_valid is None else int(torch.as_tensor(view_valid).sum())
+    nbytes = n * c * itemsize + feats2d.numel() * itemsize + depths.numel() * 4 + v * (12 * 4 + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n * valid * K3_OPS_PER_PROJECTION / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"), nbytes
+
+
+def _k3_case(name, args, quiet=False):
+    """K3 against its plain version on one call's arguments, with
+    ``torch.equal`` (NaN positions first, then the rest). Returns (max abs
+    err, plain ms, the share of voxels it fills, the plain result)."""
+    got = projection.fuse_views_cuda(**args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = projection.fuse_views_plain(**args)
+    end.record()
+    end.synchronize()
+    nan_got, nan_want = torch.isnan(got), torch.isnan(want)
+    same = torch.equal(nan_got, nan_want) and torch.equal(got.masked_fill(nan_got, 0), want.masked_fill(nan_want, 0))
+    err = float((got.float() - want.float()).abs().nan_to_num(0.0).max())
+    filled = float((want != 0).any(-1).float().mean())
+    if not quiet or not same:
+        log(f"[7] K3 {name}: {tuple(got.shape)} {got.dtype}, {args['feats2d'].shape[0]} views: exact={same} "
+            f"max_abs_err={err} filled {filled:.4f} of the voxels, NaN outputs {int(nan_want.sum())}, plain "
+            f"{start.elapsed_time(end):.1f} ms [{CARD}]")
+    check(same, f"K3 {name} differs from its plain version")
+    return err, start.elapsed_time(end), filled, want
+
+
+def k3_edge_cases(args):
+    """K3 against its plain version where its semantics have edges, on the
+    path's own features and views: invalid views skipped whole, a single
+    valid view with negative features (they pass through as they are), no
+    valid view (0 everywhere), ``zero_floor``, NaN feature rows (the max
+    propagates them)."""
+    feats, v = args["feats2d"], args["feats2d"].shape[0]
+    dev = feats.device
+    err = 0.0
+    cases = {
+        "every third view invalid": dict(args, view_valid=torch.arange(v, device=dev) % 3 != 0),
+        "no valid view": dict(args, view_valid=torch.zeros(v, dtype=torch.bool, device=dev)),
+        "zero_floor": dict(args, zero_floor=True),
+    }
+    coverage = [float((d > 0).float().mean()) for d in args["depths"]]
+    k = int(np.argmax(coverage))
+    cases["one valid view, negative features"] = dict(
+        args, feats2d=-feats.abs() - 0.5, view_valid=torch.arange(v, device=dev) == k)
+    nanned = feats.clone()
+    nanned[k, ::3, ::3, :] = float("nan")
+    nanned[(k + 1) % v, 7, 9, 5] = float("nan")
+    cases["NaN feature rows"] = dict(args, feats2d=nanned)
+    for name, case in cases.items():
+        e, _, filled, want = _k3_case(name, case)
+        err = max(err, e)
+        if name == "no valid view":
+            check(not bool(want.any()), "K3 with no valid view is not all 0")
+        if name == "one valid view, negative features":
+            check(bool((want < 0).any()), "no negative feature passed through the single valid view")
+        if name == "NaN feature rows":
+            check(bool(torch.isnan(want).any()), "no voxel read a NaN feature row")
+    return err
+
+
+def phase_color(dev, params):
+    """Phase 7: the color scene path's kernel calls against their plain
+    versions, then the path itself, counted."""
+    sis = {dt: color_scene_inference(dev, dt, params) for dt in ("float32", "bfloat16")}
+    t0 = time.time()
+    made = [make_color_scene(np.random.RandomState(20 + i), v) for i, v in enumerate(COLOR_VIEWS)]
+    scenes, gts, frames = (list(x) for x in zip(*made))
+    log(f"[7] {len(scenes)} color scenes of {SCENE_EXTENT} with {list(COLOR_VIEWS)} views, "
+        f"{[len(g) for g in gts]} objects, made in {time.time() - t0:.1f} s; depth hits per view "
+        f"{[round(float((f['depths'] > 0).mean()), 3) for f in frames]}")
+    res = {"err": 0.0, "k1_err": 0.0, "k2_err": 0.0, "recorded": {}}
+    with torch.inference_mode():
+        # every kernel call of one infer() of the 96-view scene, in each
+        # dtype: K3's resident volume, K1, K2 (a fresh frames dict, so that
+        # the prep runs inside the call)
+        for dt, si in sis.items():
+            calls = recorded_kernel_calls(si, scenes[1], dict(frames[1]))
+            k3 = [a for kind, a in calls if kind == "fuse_views_cuda"]
+            check(len(k3) == 1, f"{dt}: the resident path made {len(k3)} K3 calls, not 1")
+            err, plain_ms, filled, _ = _k3_case(f"{dt} resident volume of the {COLOR_VIEWS[1]}-view scene (the path's "
+                                                f"call)", k3[0])
+            check(filled > 0, "K3 filled no voxel of the scene's volume")
+            res["err"] = max(res["err"], err)
+            res["recorded"][dt] = (k3[0], plain_ms)
+            errs = check_recorded_k1_k2(calls, f"{dt} color scene path", phase=7)
+            res["k1_err"] = max(res["k1_err"], errs["k1_err"])
+            res["k2_err"] = max(res["k2_err"], errs["k2_err"], errs["class_aware_err"])
+            res["err"] = max(res["err"], k3_edge_cases(k3[0]))
+
+        # the per-tile path (TPU_SCENE_COLOR_RESIDENT="never"): one K3 call per
+        # tile of the 200-view scene, each over the first 16 views whose
+        # frusta meet the tile, zero_floor where a view was left out
+        for dt in sis:
+            never = color_scene_inference(dev, dt, params, TPU_SCENE_COLOR_RESIDENT="never")
+            calls = recorded_kernel_calls(never, scenes[3], dict(frames[3]), fused=False)
+            k3 = [a for kind, a in calls if kind == "fuse_views_cuda"]
+            floors = sum(bool(a["zero_floor"]) for a in k3)
+            views = [a["feats2d"].shape[0] for a in k3]
+            fills = []
+            for i, a in enumerate(k3):
+                e, _, f, _ = _k3_case(f"{dt} per-tile call {i}", a, quiet=True)
+                res["err"] = max(res["err"], e)
+                fills.append(f)
+            n_tiles = len(never._origins_np(never._bucket_shape(scenes[3].shape[:3])))
+            log(f"[7] K3 {dt} per-tile path of the {COLOR_VIEWS[3]}-view scene: {len(k3)} calls, all exact; views "
+                f"per tile {views}; zero_floor on {floors}; filled share per tile min {min(fills):.4f} max "
+                f"{max(fills):.4f} [{CARD}]")
+            check(len(k3) == n_tiles and 0 < floors, f"{dt}: {len(k3)} per-tile K3 calls for {n_tiles} tiles, "
+                  f"{floors} with zero_floor")
+            check(max(views) <= never.cfg.TPU_MAX_TILE_VIEWS, "a tile took more views than the cap")
+            del never
+
+    # the path: every count set to 0 just before, read just after
+    reset_launch_counts()
+    before = device_launches()
+    outs, filled = {}, {}
+    for dt, si in sis.items():
+        outs[dt], filled[dt] = [], []
+        for s, f in zip(scenes, frames):
+            det, masks = si.infer(s, f)
+            check(si.last_fused, f"{dt}: a color scene was not served by the fused path")
+            outs[dt].append((det, masks))
+            filled[dt].append(float((si._color_cache[1]["color"] != 0).any(-1).float().mean()))
+    torch.cuda.synchronize()
+    launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
+                "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches,
+                "fuse_views_cuda": projection.fuse_views_cuda.launches}
+    kernel_launches = {k: v - before[k] for k, v in device_launches().items() if k in launches}
+    runs = len(sis) * len(scenes)
+    per_scene = {k: v / runs for k, v in launches.items()}
+    host_path = {dt: si.host_path_scenes for dt, si in sis.items()}
+    log(f"[7] color scene path: {runs} scenes ({len(scenes)} x float32, bfloat16), views {list(COLOR_VIEWS)}, all "
+        f"served by the fused path (host-path scenes {host_path}); wrapper calls {launches}, kernel launches "
+        f"{kernel_launches}, per scene {per_scene}")
+    log(f"[7] share of the volume's voxels K3 fills, per scene: {json.dumps(filled)}")
+    for k in ("roi_pool3d_cuda", "nms3d_cuda", "fuse_views_cuda"):
+        check(launches[k] > 0, f"{k} was not launched on the color scene path")
+        check(kernel_launches[k] == launches[k], f"{k}: {kernel_launches[k]} kernel launches for {launches[k]} calls")
+    check(launches["fuse_views_cuda"] == runs, "K3 did not launch once per color scene")
+    check(min(min(v) for v in filled.values()) > 0, "a color scene whose volume K3 left empty")
+    check(all(n == 0 for n in host_path.values()), f"color scenes on the host path: {host_path}")
+
+    for dt, per in outs.items():
+        n_det, n_vox, recalls = [], [], []
+        for (det, masks), gt in zip(per, gts):
+            check(np.isfinite(det["pred_box"]).all() and np.isfinite(det["pred_conf"]).all(), f"{dt}: not finite")
+            check(len(masks) == len(det["pred_box"]), f"{dt}: one mask per detection")
+            for box, m in zip(det["pred_box"], masks):
+                r = np.round(box).astype(int)
+                check(m.shape == tuple(r[3:] - r[:3]) and m.dtype == np.uint8, f"{dt}: mask shape {m.shape}")
+            n_det.append(len(masks))
+            n_vox.append(int(sum(m.sum() for m in masks)))
+            confident = det["pred_box"][det["pred_conf"] >= 0.5]
+            recalls.append((iou(gt, confident).max(1) >= 0.25).mean() if len(confident) else 0.0)
+        log(f"[7] {dt}: detections per scene {n_det} (views {list(COLOR_VIEWS)}), mask voxels per scene {n_vox}, "
+            f"object recall at IoU 0.25 (conf >= 0.5) per scene {[round(float(r), 3) for r in recalls]}")
+        check(max(n_det) >= 5, f"{dt}: no color scene with 5 detections, so the mask FCN ran on few windows")
+        check(max(n_vox) > 0, f"{dt}: every color scene's masks are empty")
+    bf16_vs_fp32(outs, len(scenes), phase=7, iou_thresh=0.25, max_drift=0.3, slack_div=4)
+    return sis, scenes, frames, launches, per_scene, res
+
+
+def phase_color_card_vs_cpu(sis, params):
+    """One 144x48x144 room with 16 views through infer on the card and on
+    the CPU, float32, TF32 off; the two resident color volumes are compared
+    too."""
+    scene, _, frames = make_color_scene(np.random.RandomState(31), CARD_VS_CPU_VIEWS, SCENE_SMALL, n_objects=10)
+    card = sis["float32"].infer(scene, frames)
+    vol_card = sis["float32"]._color_cache[1]["color"].cpu()
+    cpu_si = color_scene_inference("cpu", "float32", params)
+    t0 = time.time()
+    cpu = cpu_si.infer(scene, frames)
+    cpu_s = time.time() - t0
+    vol_cpu = cpu_si._color_cache[1]["color"]
+    check(cpu_si.last_fused and sis["float32"].last_fused, "card or CPU fell back to the host-planned path")
+    # K3 and its plain version decide every (voxel, view) pair alike (held
+    # exactly above); the features differ by ENet's rounding, so a voxel
+    # whose max is a feature within rounding of 0 may be 0 on one side only
+    diff = (vol_card - vol_cpu).abs()
+    one_side = (vol_card != 0) != (vol_cpu != 0)
+    err, top = float(diff.max()), float(vol_cpu.abs().max())
+    near_zero = float(diff[one_side].max()) if bool(one_side.any()) else 0.0
+    log(f"[7] card vs CPU color volume {tuple(vol_card.shape)}: max abs diff {err:.3g} (largest value {top:.3g}); "
+        f"{int(one_side.sum())} values nonzero on one side only, the largest {near_zero:.3g} [{CARD}]")
+    check(err <= 1e-5 * top, f"card and CPU color volumes differ by {err}")
+    compare_card_cpu(card, cpu, f"one {SCENE_SMALL} color scene with {CARD_VS_CPU_VIEWS} views", cpu_s, phase=7)
+
+
+def phase_color_timing(sis, scenes, frames, res, passes=3):
+    out = {}
+    for dt, si in sis.items():
+        # a stream of 8 scenes (the 4 twice, fresh arrays and frames dicts) as
+        # bench.py:305-320 streams them: scene i+1 uploads and its views go
+        # through ENet and K3 in the upload thread while scene i computes
+        def one_pass():
+            stream = [(s.copy(), dict(f)) for _ in range(2) for s, f in zip(scenes, frames)]
+            t0 = time.perf_counter()
+            si.prefetch_scene(stream[0][0])
+            si.prefetch_frames(stream[0][1], stream[0][0].shape)
+            for j, (s, f) in enumerate(stream):
+                if j + 1 < len(stream):
+                    si.prefetch_scene(stream[j + 1][0])
+                    si.prefetch_frames(stream[j + 1][1], stream[j + 1][0].shape)
+                det, masks = si.infer(s, f)
+                check(len(masks) == len(det["pred_box"]) and si.last_fused, "stream color scene not served fused")
+            return (time.perf_counter() - t0) / len(stream)
+
+        times = sorted(one_pass() for _ in range(passes))
+        dev_s = si.device_seconds(scenes[1], frames[1], iters=6)
+        prep = si._device_color(frames[1], scenes[1].shape[:3])
+        stages, kv, n_windows = scene_stages(si, scenes[1], prep)
+        log(f"[7] {dt}: {60.0 / times[len(times) // 2]:.2f} color masked scenes/min (median of {passes} passes of a "
+            f"prefetched stream of 8, views {list(COLOR_VIEWS)} twice; per-scene s {[round(t, 4) for t in times]}), "
+            f"device_seconds of the {COLOR_VIEWS[1]}-view scene {dev_s:.4f} s = {60.0 / dev_s:.1f} scenes/min device-bound (prep "
+            f"excluded); {int(kv.sum())} detections, valid windows {n_windows}; host-path scenes "
+            f"{si.host_path_scenes} [{CARD}]")
+        log(f"[7] {dt} per-stage ms of the {COLOR_VIEWS[1]}-view scene: " + json.dumps({k: round(v, 4) for k, v in stages.items()})
+            + f" [{CARD}]")
+
+        # the prep by view count: upload, ENet, K3, and the whole prep
+        proj = si.det.color_projector
+        preps = {}
+        with torch.inference_mode():
+            for s, f in zip(scenes, frames):
+                images, depths = torch.from_numpy(f["images"]).pin_memory(), torch.from_numpy(f["depths"]).pin_memory()
+                dev = si.device
+                upload = cuda_ms(lambda: (images.to(dev, non_blocking=True), depths.to(dev, non_blocking=True)), 5)
+                img_d, dep_d = images.to(dev), depths.to(dev)
+                enet = cuda_ms(lambda: proj.image_features(img_d).to(si._dtype), 5)
+                feats = proj.image_features(img_d).to(si._dtype)
+                bucket = si._bucket_shape(s.shape[:3])
+                k3 = device_ms(lambda: build_color_volume(proj, feats, dep_d, f["poses"], f["world_to_grid"], bucket,
+                                                          si._dtype), 5)
+                whole = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    si._prepare_color(dict(f), s.shape[:3])
+                    torch.cuda.synchronize()  # every stream: the prep runs on the upload stream
+                    whole.append((time.perf_counter() - t0) * 1e3)
+                preps[len(f["poses"])] = {"upload": upload, "enet": enet, "k3": k3, "prep_host_clock":
+                                          statistics.median(whole)}
+        log(f"[7] {dt} prep ms per scene by view count (upload and ENet by CUDA events, K3 device time, the whole "
+            f"prep by the host clock): " + json.dumps({v: {k: round(x, 4) for k, x in p.items()}
+                                                      for v, p in preps.items()}) + f" [{CARD}]")
+        args, plain_ms = res["recorded"][dt]
+        k3_ms = device_ms(lambda: projection.fuse_views_cuda(**args), 10)
+        bound, bound_by, nbytes = k3_bound(**args)
+        log(f"[7] K3 {dt} on the path's call (96 views into {tuple(args['volume_dims'])} x "
+            f"{args['feats2d'].shape[-1]}): {k3_ms:.4f} ms device time; plain {plain_ms:.1f} ms; bound {bound:.4f} ms "
+            f"({bound_by}, {nbytes / 1e9:.3f} GB), {bound / k3_ms:.3f} of it [{CARD}]")
+        out[dt] = {"scenes_per_min": 60.0 / times[len(times) // 2], "device_s": dev_s, "stages": stages,
+                   "prep": preps, "k3_ms": k3_ms, "k3_plain_ms": plain_ms, "k3_bound_ms": bound,
+                   "k3_bound_by": bound_by}
+        if dt == "bfloat16":
+            busy, window, top = profile_scene(si, scenes[1], frames=frames[1])
+            log(f"[7] bfloat16 color scene profile (the {COLOR_VIEWS[1]}-view scene with its prep, not prefetched): device busy "
+                f"{busy:.3f} ms of a {window:.3f} ms window per scene, idle share {1 - busy / window:.3f}; top kernels "
+                f"(ms per scene): " + json.dumps([[k[:60], round(v, 4)] for k, v in top[:14]]) + f" [{CARD}]")
     return out
 
 
@@ -1030,6 +1550,12 @@ def main() -> int:
     sis, scene_list, scene_launches, per_scene, k2c = phase_scene(dev, params)
     phase_scene_card_vs_cpu(sis, params)
     scene_t = phase_scene_timing(sis, scene_list, k2c)
+    del sis, scene_list
+
+    cparams = color_params()
+    csis, cscenes, cframes, color_launches, color_per_scene, k3r = phase_color(dev, cparams)
+    phase_color_card_vs_cpu(csis, cparams)
+    color_t = phase_color_timing(csis, cscenes, cframes, k3r)
 
     k1, k2 = kernel_res["roi_pool3d_cuda"], kernel_res["nms3d_cuda"]
     # K1 at the bench's compute dtype, bf16, and K2 at N = 400, thresh 0.1
@@ -1038,13 +1564,15 @@ def main() -> int:
         {"name": "roi_pool3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/roi_pool3d.cu",
          "replaces": "tpu3dsis/ops/roi_pool3d_pallas.py:85", "launches": launches["roi_pool3d_cuda"],
          "launches_per_batch": per_batch["roi_pool3d_cuda"], "launches_scene_path": scene_launches["roi_pool3d_cuda"],
-         "launches_per_scene": per_scene["roi_pool3d_cuda"], "max_abs_err": max(k1["err"], k2c["k1_err"]),
+         "launches_per_scene": per_scene["roi_pool3d_cuda"], "launches_color_path": color_launches["roi_pool3d_cuda"],
+         "max_abs_err": max(k1["err"], k2c["k1_err"], k3r["k1_err"]),
          "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"],
          "bound_ms": kernels["k1_bfloat16_bound"], "bound_by": "bytes", "library_ms": None},
         {"name": "nms3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
          "replaces": "tpu3dsis/ops/nms.py:86", "launches": launches["nms3d_cuda"],
          "launches_per_batch": per_batch["nms3d_cuda"], "launches_scene_path": scene_launches["nms3d_cuda"],
-         "launches_per_scene": per_scene["nms3d_cuda"], "max_abs_err": max(k2["err"], k2c["k2_err"]),
+         "launches_per_scene": per_scene["nms3d_cuda"], "launches_color_path": color_launches["nms3d_cuda"],
+         "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"]),
          "ms": kernels["k2_400_0.1"], "plain_ms": kernels["k2_plain_0.1"],
          "bound_ms": kernels["k2_400_bound"], "bound_by": kernels["k2_400_bound_by"], "library_ms": None},
         {"name": "nms3d_cuda (class-aware, scene stitch)", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
@@ -1053,6 +1581,12 @@ def main() -> int:
          "launches_per_scene": per_scene["nms3d_cuda_class_aware"], "max_abs_err": k2c["err"],
          "ms": scene_t["k2_class_aware"]["ms"], "plain_ms": scene_t["k2_class_aware"]["plain_ms"],
          "bound_ms": scene_t["k2_class_aware"]["bound_ms"], "bound_by": scene_t["k2_class_aware"]["bound_by"],
+         "library_ms": None},
+        {"name": "fuse_views_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/fuse_views.cu",
+         "replaces": "tpu3dsis/geometry/projection.py:369", "launches": color_launches["fuse_views_cuda"],
+         "launches_per_scene": color_per_scene["fuse_views_cuda"], "max_abs_err": k3r["err"],
+         "ms": color_t["bfloat16"]["k3_ms"], "plain_ms": color_t["bfloat16"]["k3_plain_ms"],
+         "bound_ms": color_t["bfloat16"]["k3_bound_ms"], "bound_by": color_t["bfloat16"]["k3_bound_by"],
          "library_ms": None},
     ]}
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")

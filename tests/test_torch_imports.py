@@ -1,5 +1,6 @@
-"""The port's path imports no JAX, YAML, PIL or JAX package; the probe's cuts
-still fit the kernel sources; its kernels on the card."""
+"""The port's paths (chunk, scene, color scene) import no JAX, YAML, PIL or JAX
+package; the probe's cuts still fit the kernel sources; its kernels on the
+card."""
 
 import os
 import subprocess
@@ -30,6 +31,24 @@ det = tt.Detector(cfg, device="cpu").init_params(torch.Generator().manual_seed(0
 si = tt.SceneInference(det, cfg)
 boxes, masks = si.infer(np.random.RandomState(1).randn(20, 16, 20, 2).astype(np.float32))
 assert si.last_fused and len(masks) == len(boxes["pred_box"]) > 0
+# the color scene path: uint8 images -> ENet -> view fusion -> the resident
+# volume the tiles crop (images 32x40, so 2D features and depths are 4x5)
+f = 6.0
+cfg = tt.scannet_color_scene_config().replace(
+    TPU_COMPUTE_DTYPE="float32", TPU_TILE_SIZE=(16, 16, 16), TPU_TILE_STRIDE=(12, 12, 12),
+    TPU_MASK_INFER_CANVAS=(16, 16, 16), TPU_MASK_INFER_CANVAS_SMALL=(8, 8, 8), TEST=tt.ProposalConfig(16, 4, 0.1),
+    CLASS_THRESH=0.0, IMAGE_SHAPE=(40, 32), DEPTH_SHAPE=(5, 4), VOXEL_SIZE=0.25,
+    INTRINSIC=((f, 0.0, 2.5, 0.0), (0.0, f, 2.0, 0.0), (0.0, 0.0, 1.0, 0.0), (0.0, 0.0, 0.0, 1.0)))
+det = tt.Detector(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+rng = np.random.RandomState(2)
+poses = np.tile(np.eye(4, dtype=np.float32), (3, 1, 1))
+poses[:, :3, 3] = [[2.5, 2.0, -1.0], [2.0, 2.5, -1.5], [3.0, 2.0, -2.0]]
+frames = {"images": rng.randint(0, 256, (3, 32, 40, 3)).astype(np.uint8),
+          "depths": rng.uniform(1.0, 3.5, (3, 4, 5)).astype(np.float32), "poses": poses,
+          "world_to_grid": np.diag([4.0, 4.0, 4.0, 1.0]).astype(np.float32)}
+si = tt.SceneInference(det, cfg)
+boxes, masks = si.infer(np.random.RandomState(3).randn(20, 16, 20, 2).astype(np.float32), frames)
+assert si.last_fused and len(masks) == len(boxes["pred_box"])
 print(" ".join(m for m in sys.modules
                if m in ("jax", "jaxlib", "yaml", "PIL", "tpu3dsis") or m.startswith("tpu3dsis.")))
 """
@@ -60,10 +79,11 @@ def test_probe_cuts_match_the_kernel_sources():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_the_card():
-    """K1 and K2 against their plain versions, on CUDA tensors (run on a
+    """K1, K2 and K3 against their plain versions, on CUDA tensors (run on a
     machine with an NVIDIA card and nvcc: ``python -m pytest -m gpu``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from tpu3dsis_torch.geometry import projection
     from tpu3dsis_torch.ops import nms, roi_pool3d as rp
 
     dev = torch.device("cuda")
@@ -93,3 +113,19 @@ def test_kernels_match_plain_versions_on_the_card():
             got = nms.nms3d_cuda(boxes, thresh, valid, classes)
             torch.cuda.synchronize()
             assert torch.equal(got, nms.nms_mask_plain(boxes, thresh, valid, classes))
+
+    # K3: 12 views looking into a 40^3 grid of 0.1 m voxels, two invalid
+    intrinsic = np.array([[28.0, 0, 20.5, 0], [0, 28.0, 16.0, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+    poses = np.tile(np.eye(4, dtype=np.float32), (12, 1, 1))
+    poses[:, :3, 3] = np.stack([rng.uniform(1, 3, 12), rng.uniform(1, 3, 12), rng.uniform(-3, -1, 12)], 1)
+    w2g = np.diag([10.0, 10.0, 10.0, 1.0]).astype(np.float32)
+    depths = torch.from_numpy(rng.uniform(1.0, 6.0, (12, 32, 41)).astype(np.float32)).to(dev)
+    valid = torch.from_numpy(np.arange(12) % 5 != 1).to(dev)
+    feats = torch.from_numpy(rng.randn(12, 32, 41, 128).astype(np.float32)).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        for zero_floor in (None, True):
+            args = (feats.to(dt), depths, poses, w2g, intrinsic, (40, 40, 40), 0.1, 4.0, 0.1, valid, zero_floor)
+            got = projection.fuse_views_cuda(*args)
+            torch.cuda.synchronize()
+            want = projection.fuse_views_plain(*args)
+            assert bool((want != 0).any()) and torch.equal(got, want)

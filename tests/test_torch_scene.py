@@ -5,7 +5,10 @@
 ``predict_masks`` with the same weights (the setup of
 ``tests/test_tiling.py::test_fused_matches_multidispatch``); (c) the port's
 ``infer`` against its own host-planned path, with every overflow forced, and
-independent of the tile batch and of prefetching.
+independent of the tile batch and of prefetching; (d) the same for color
+scenes with frames, on 128-channel feature images (``USE_IMAGES_GT``, the
+setup of ``tests/test_color_pipeline.py``): the fused path with the resident
+color volume, the per-tile path, and prefetched frames.
 """
 
 import importlib.util
@@ -180,12 +183,15 @@ def test_results_independent_of_tile_batch_and_prefetch(pair):
 
 
 def test_scene_inference_takes_no_mesh_or_frames(pair):
+    """A mesh raises; a geometry-only detector ignores frames, as the JAX
+    package's does (its ``infer`` and ``detect`` read them only with a color
+    stream)."""
     _, _, _, tcfg, tdet = pair
     with pytest.raises(NotImplementedError):
         SceneInference(tdet, tcfg, mesh=object())
     si = SceneInference(tdet, tcfg)
-    with pytest.raises(NotImplementedError):
-        si.infer(_scene(0), frames={})
+    want = si.infer(_scene(0))
+    _assert_same(*si.infer(_scene(0), frames={}), *want)
     cfg = tcfg.replace(TEST=ProposalConfig(8, 4, 0.1))
     assert SceneInference(Detector(cfg.replace(USE_MASK=False), device="cpu"), cfg).predict_masks(
         _scene(0), {"pred_box": np.zeros((1, 6), np.float32)}) == []
@@ -197,3 +203,136 @@ def test_scene_path_defaults_to_the_card_and_raises_without_one(monkeypatch):
         Detector(scannet_scene_config())
     det = Detector(scannet_scene_config(), device="cpu")
     assert det.mask_backbone is not None and SceneInference(det, scannet_scene_config()).device.type == "cpu"
+
+
+# --- color scenes ------------------------------------------------------------------
+
+COLOR_VIEWS = 3
+DEPTH_WH = (16, 12)
+INTRINSIC = [[7.0, 0, 7.3, 0], [0, 7.5, 5.6, 0], [0, 0, 1, 0], [0, 0, 0, 1]]
+
+
+@pytest.fixture(scope="module")
+def color_pair():
+    """The JAX color detector on the small tiles (128-channel ground-truth
+    feature images, 0.1 m voxels) with its params, a JAX ``SceneInference``
+    on its resident path, and the port's detector on the CPU with the same
+    weights, on ``TORCH_THREADS`` threads."""
+    from __graft_entry__ import _scannet_cfg
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    cfg = _small_cfg(_scannet_cfg())
+    cfg.USE_IMAGES, cfg.USE_IMAGES_GT, cfg.NUM_IMAGE_CHANNELS = True, True, 128
+    cfg.DEPTH_SHAPE, cfg.INTRINSIC, cfg.VOXEL_SIZE = list(DEPTH_WH), INTRINSIC, 0.1
+    cfg.PROJ_DEPTH_MIN, cfg.PROJ_DEPTH_MAX = 0.4, 4.0
+    cfg.TPU_MAX_TILE_VIEWS = COLOR_VIEWS  # every view: the per-tile path is uncapped
+    jdet = JaxDetector(cfg, anchor_dir="experiments/anchors")
+    params = _numpy_params(jdet, 1)
+    tcfg = DetectorConfig.from_cfg(cfg)
+    tdet = load_jax_params(Detector(tcfg, device="cpu"), params)
+    yield cfg, jdet, params, tcfg, tdet, jax_tiling.SceneInference(jdet, cfg, tile_batch=2)
+    torch.set_num_threads(threads)
+
+
+def _assert_same_up_to_ties(got_det, got_masks, want_det, want_masks):
+    """``_assert_same``, after putting ``got``'s detections in ``want``'s
+    order where their confidences tie within CONF_RTOL: untrained weights at
+    CLASS_THRESH 0 give boxes clipped to the scene's border confidences that
+    differ in the last bits, and either framework may rank such a pair
+    either way."""
+    order, used = [], set()
+    for i, (box, cls, conf) in enumerate(zip(want_det["pred_box"], want_det["pred_class"], want_det["pred_conf"])):
+        same = [j for j in range(len(got_det["pred_box"])) if j not in used and got_det["pred_class"][j] == cls
+                and abs(got_det["pred_conf"][j] - conf) <= CONF_RTOL * conf
+                and np.abs(got_det["pred_box"][j] - box).max() <= BOX_ATOL]
+        j = same[0] if same else i
+        order.append(j)
+        used.add(j)
+    if sorted(order) == list(range(len(got_det["pred_box"]))):
+        got_det = {k: v[order] for k, v in got_det.items()}
+        got_masks = [got_masks[j] for j in order] if got_masks else got_masks
+    _assert_same(got_det, got_masks, want_det, want_masks)
+
+
+def _frames(seed, v=COLOR_VIEWS):
+    """Cameras 2.4 m up inside the scene's 6 x 4.8 x 6 m box at random yaw,
+    pitched down; random depths and 128-channel feature images."""
+    rng = np.random.RandomState(seed)
+    poses = np.tile(np.eye(4, dtype=np.float32), (v, 1, 1))
+    for i in range(v):
+        yaw, pitch = rng.uniform(0, 2 * np.pi), rng.uniform(-0.6, -0.2)
+        fwd = np.array([np.cos(pitch) * np.sin(yaw), np.sin(pitch), np.cos(pitch) * np.cos(yaw)])
+        right = np.cross(fwd, [0.0, 1.0, 0.0])
+        right /= np.linalg.norm(right)
+        poses[i, :3, 0], poses[i, :3, 1], poses[i, :3, 2] = right, np.cross(fwd, right), fwd
+        poses[i, :3, 3] = [rng.uniform(2, 4), 2.4, rng.uniform(2, 4)]
+    w, h = DEPTH_WH
+    return {"images": rng.randn(v, h, w, 128).astype(np.float32),
+            "depths": rng.uniform(0.5, 3.5, (v, h, w)).astype(np.float32),
+            "poses": poses, "world_to_grid": np.diag([10.0, 10.0, 10.0, 1.0]).astype(np.float32)}
+
+
+def test_color_infer_matches_jax_detect_and_predict_masks(color_pair):
+    """A color scene through the port's fused path, its tiles cropping the
+    resident color volume, == the JAX package's ``detect`` +
+    ``predict_masks`` with frames, to the geometry test's bars."""
+    _, _, params, tcfg, tdet, jsi = color_pair
+    scene, frames = _scene(15), _frames(16)
+    want_det = jsi.detect(params, scene, frames=frames)
+    want_masks = jsi.predict_masks(params, scene, want_det, frames=frames)
+    si = SceneInference(tdet, tcfg, tile_batch=2)
+    got_det, got_masks = si.infer(scene, frames)
+    assert si.last_fused
+    assert (si._device_color(frames, scene.shape[:3])["color"] != 0).any()
+    _assert_same_up_to_ties(got_det, got_masks, want_det, want_masks)
+
+
+def test_color_resident_and_per_tile_paths_match_jax_pair(color_pair):
+    """The port's resident and per-tile (``TPU_SCENE_COLOR_RESIDENT="never"``)
+    paths against the JAX package's own pair
+    (``test_color_pipeline.py::test_resident_matches_per_tile_all_views``):
+    each equals its JAX counterpart, and, with every view admitted, the two
+    agree."""
+    cfg, jdet, params, tcfg, tdet, jsi = color_pair
+    scene, frames = _scene(17), _frames(18)
+    jcfg = cfg.copy()
+    jcfg.TPU_SCENE_COLOR_RESIDENT = "never"
+    want = {"auto": jsi.detect(params, scene, frames=frames),
+            "never": jax_tiling.SceneInference(jdet, jcfg, tile_batch=2).detect(params, scene, frames=frames)}
+    got = {}
+    for mode in want:
+        si = SceneInference(tdet, tcfg.replace(TPU_SCENE_COLOR_RESIDENT=mode), tile_batch=2)
+        got[mode] = si.detect(scene, frames)
+        assert ("color" in si._device_color(frames, scene.shape[:3])) == (mode == "auto")
+        _assert_same_up_to_ties(got[mode], [], want[mode], [])
+    _assert_same_up_to_ties(got["never"], [], got["auto"], [])
+    # the per-tile path also serves infer, as the JAX package's does
+    si = SceneInference(tdet, tcfg.replace(TPU_SCENE_COLOR_RESIDENT="never"), tile_batch=2)
+    det, masks = si.infer(scene, frames)
+    assert not si.last_fused and len(masks) == len(det["pred_box"])
+    _assert_same_up_to_ties(det, [], got["never"], [])
+
+
+def test_color_results_independent_of_prefetch_frames(color_pair):
+    """A prefetched stream of color scenes (``prefetch_scene`` +
+    ``prefetch_frames``) gives what each scene gives alone; a color detector
+    needs frames."""
+    _, _, _, tcfg, tdet, _ = color_pair
+    scenes = [(_scene(19 + i, (60, 40, 40)), _frames(21 + i)) for i in range(3)]
+    alone = SceneInference(tdet, tcfg, tile_batch=4)
+    want = [alone.infer(s, f) for s, f in scenes]
+    streamed = SceneInference(tdet, tcfg, tile_batch=4)
+    streamed.prefetch_scene(scenes[0][0])
+    streamed.prefetch_frames(scenes[0][1], scenes[0][0].shape)
+    for j, (s, f) in enumerate(scenes):
+        if j + 1 < len(scenes):
+            streamed.prefetch_scene(scenes[j + 1][0])
+            streamed.prefetch_frames(scenes[j + 1][1], scenes[j + 1][0].shape)
+        got = streamed.infer(s, f)
+        assert streamed.last_fused
+        _assert_same(*got, *want[j])
+    streamed.close()
+    assert streamed.device_seconds(scenes[2][0], scenes[2][1], iters=1) > 0
+    with pytest.raises(ValueError, match="frames"):
+        streamed.infer(scenes[0][0])

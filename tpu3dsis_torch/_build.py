@@ -20,10 +20,11 @@ from pathlib import Path
 from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "roi_pool3d.cu", _PKG / "csrc" / "nms3d.cu")
+SOURCES = (_PKG / "csrc" / "roi_pool3d.cu", _PKG / "csrc" / "nms3d.cu", _PKG / "csrc" / "fuse_views.cu")
 BUILD_DIR = _PKG / "_build"
-# --fmad=false: the IoU and the bin bounds must round exactly as the plain
-# PyTorch versions do, which never contract a multiply and an add into an FMA.
+# --fmad=false: the IoU, the bin bounds and the projections must round exactly
+# as the plain PyTorch versions do, which never contract a multiply and an add
+# into an FMA.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,6 +42,10 @@ _SIGNATURES = {
     "tpu3dsis_nms3d": ([_P, _P, _P, _I, _I, _F, _P, _P], _I),
     "tpu3dsis_nms3d_smem": ([_I, _I], _LL),
     "tpu3dsis_nms3d_launches": ([], _LL),
+    "tpu3dsis_fuse_views": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
+                            _I),
+    "tpu3dsis_fuse_views_smem": ([_I, _I], _LL),
+    "tpu3dsis_fuse_views_launches": ([], _LL),
 }
 
 

@@ -1,11 +1,12 @@
-"""ScanNet geometry backbone, classifier MLP and mask FCN (``tpu3dsis/models/backbones.py``).
+"""ScanNet backbone (geometry and color streams), classifier MLP and mask FCN
+(``tpu3dsis/models/backbones.py``).
 
-Geometry-only: the color stream and ``SUNCGBackbone`` come with later
-slices. ``ScanNetBackbone`` is a mixin for the detector module, which builds
-these layers on itself so that its ``state_dict`` keys are the JAX package's
-flat param names (``geometry1.0.weight``, ...); the detector holds a
-``MaskBackbone`` as its ``mask_backbone`` (``mask_backbone.geometry.0.weight``,
-...).
+``SUNCGBackbone`` and the color-only backbone (``ONLY_IMAGES``) come with
+later slices. ``ScanNetBackbone`` is a mixin for the detector module, which
+builds these layers on itself so that its ``state_dict`` keys are the JAX
+package's flat param names (``geometry1.0.weight``, ``color.0.weight``, ...);
+the detector holds a ``MaskBackbone`` as its ``mask_backbone``
+(``mask_backbone.geometry.0.weight``, ...).
 """
 
 from __future__ import annotations
@@ -21,19 +22,35 @@ FC7_CHANNELS = 128  # classifier MLP output
 
 
 class ScanNetBackbone:
-    """Reference ``backbones.py:171-231``, geometry stream only."""
+    """Reference ``backbones.py:171-231``. With ``use_images`` the geometry
+    stream ends at 64 channels and a color stream over the projected 2D
+    features gives the other 64; ``geometry2`` reads them concatenated,
+    color first (``backbones.py:90``)."""
 
-    def build_backbone(self, pooling_size: int) -> None:
+    def build_backbone(self, pooling_size: int, use_images: bool = False, num_image_channels: int = 128) -> None:
+        geo_ch = 64 if use_images else 128
         self.geometry1 = nn.Sequential(
             Conv(2, 32, 2, stride=2, bias=False),
             Relu(),
             Bottleneck(32, 32),
             Bottleneck(32, 32),
-            Conv(32, 128, 2, stride=2, bias=False),
+            Conv(32, geo_ch, 2, stride=2, bias=False),
             Relu(),
-            Bottleneck(128, 32),
-            Bottleneck(128, 32),
+            Bottleneck(geo_ch, 32),
+            Bottleneck(geo_ch, 32),
         )
+        self.color = None
+        if use_images:
+            self.color = nn.Sequential(
+                Conv(num_image_channels, 64, 2, stride=2, bias=False),
+                Relu(),
+                Bottleneck(64, 32),
+                MaxPool(3, 1, 1),
+                Conv(64, 64, 2, stride=2, bias=False),
+                Relu(),
+                Bottleneck(64, 32),
+                MaxPool(3, 1, 1),
+            )
         self.geometry2 = nn.Sequential(
             Conv(128, 128, 3, pad=1, bias=False),
             Relu(),
@@ -50,9 +67,12 @@ class ScanNetBackbone:
             Relu(),
         )
 
-    def backbone(self, scene: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """scene (N, 2, X, Y, Z) -> level maps (N, 128, X/4, Y/4, Z/4) x 2."""
+    def backbone(self, scene: torch.Tensor, imageft: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """scene (N, 2, X, Y, Z) and, with the color stream, imageft
+        (N, C2d, X, Y, Z) -> level maps (N, 128, X/4, Y/4, Z/4) x 2."""
         lvl1 = self.geometry1(scene)
+        if self.color is not None:
+            lvl1 = torch.cat([self.color(imageft), lvl1], dim=1)
         return lvl1, self.geometry2(lvl1)
 
     def classify(self, pool5: torch.Tensor) -> torch.Tensor:

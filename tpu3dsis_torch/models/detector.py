@@ -1,11 +1,11 @@
 """End-to-end chunk detector: backbone -> RPN -> proposals -> RoI heads -> boxes.
 
-Port of ``tpu3dsis/models/detector.py`` for geometry-only TEST inference.
-``Detector`` is one ``nn.Module`` whose ``state_dict`` keys are the JAX
-package's flat param names; ``build_inference_fn`` returns the inference
-function for one scene shape, which runs a whole batch of chunks at once:
-one backbone and RPN pass, one K2 launch for every sample's NMS and one K1
-launch for every roi's pool.
+Port of ``tpu3dsis/models/detector.py`` for TEST inference, geometry-only
+or with the color stream. ``Detector`` is one ``nn.Module`` whose
+``state_dict`` keys are the JAX package's flat param names;
+``build_inference_fn`` returns the inference function for one scene shape,
+which runs a whole batch of chunks at once: one backbone and RPN pass, one
+K2 launch for every sample's NMS and one K1 launch for every roi's pool.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ from tpu3dsis_torch.config import DetectorConfig
 from tpu3dsis_torch.geometry.anchors import anchors_inside_mask, generate_level_anchors
 from tpu3dsis_torch.geometry.boxes import bbox_transform_inv, clip_boxes
 from tpu3dsis_torch.models.backbones import FC7_CHANNELS, FEAT_STRIDE, MaskBackbone, ScanNetBackbone
+from tpu3dsis_torch.models.color import ColorProjector
+from tpu3dsis_torch.models.enet2d import ENet2D
 from tpu3dsis_torch.models.nn import Linear, init_params
 from tpu3dsis_torch.models.rpn import LevelAnchors, RPNHeads, select_proposals
 from tpu3dsis_torch.ops.roi_pool3d import roi_pool3d_multilevel
@@ -25,14 +27,18 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Detector(ScanNetBackbone, RPNHeads, nn.Module):
-    """Geometry-only ScanNet detector, with the mask FCN as ``mask_backbone``
-    when ``cfg.USE_MASK`` (else ``mask_backbone`` is None).
+    """ScanNet detector, with the mask FCN as ``mask_backbone`` when
+    ``cfg.USE_MASK`` (else None) and, with ``cfg.USE_IMAGES``, the color
+    stream: its 3D convs (``color``), the ENet (``enet``, None under
+    ``USE_IMAGES_GT``) and the ``color_projector`` that fuses the views.
 
     Parameters live in ``cfg.TPU_COMPUTE_DTYPE`` (float32 or bfloat16) on
     ``device``, the CUDA card unless the caller passes ``device="cpu"``;
     without a CUDA device the default raises rather than falling back. The
-    5-D conv weights and the volumes run in ``torch.channels_last_3d``, so a
-    level map's channels-last view, which the RoI pool reads, costs no copy.
+    ENet stays in float32, as the JAX package runs it, and its features are
+    cast to the compute dtype. The 5-D conv weights and the volumes run in
+    ``torch.channels_last_3d``, so a level map's channels-last view, which
+    the RoI pool reads, costs no copy.
     """
 
     def __init__(self, cfg: DetectorConfig, anchor_dir: str = "experiments/anchors",
@@ -51,7 +57,7 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
         self.pooling_size = cfg.CLASS_POOLING_SIZE
         self.use_class = cfg.USE_CLASS
         self.compute_dtype = _DTYPES[cfg.TPU_COMPUTE_DTYPE]
-        self.build_backbone(self.pooling_size)
+        self.build_backbone(self.pooling_size, cfg.USE_IMAGES, cfg.NUM_IMAGE_CHANNELS)
         self.num_anchors = {1: cfg.NUM_ANCHORS_LEVEL1, 2: cfg.NUM_ANCHORS_LEVEL2}
         self.build_rpn(self.num_anchors, cfg.RPN_CHANNELS)
         if self.use_class:
@@ -62,6 +68,9 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
         self.anchor_files = {1: cfg.ANCHORS_TYPE_LEVEL1, 2: cfg.ANCHORS_TYPE_LEVEL2}
         self._anchor_cache = {}
         self.to(device=device, dtype=self.compute_dtype, memory_format=torch.channels_last_3d)
+        # added after the cast: the ENet's 2D convs stay float32 and NCHW
+        self.enet = ENet2D(cfg.NUM_2D_CLASSES).to(device) if cfg.USE_IMAGES and not cfg.USE_IMAGES_GT else None
+        self.color_projector = ColorProjector(cfg, self.enet) if cfg.USE_IMAGES else None
 
     @property
     def device(self) -> torch.device:
@@ -89,11 +98,32 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
         return self._anchor_cache[key]
 
     # --- forward pieces --------------------------------------------------
-    def features(self, scene: torch.Tensor) -> dict:
-        """scene (N, X, Y, Z, 2) -> {lvl: (N, W, H, L, 128)} channels-last."""
+    def features(self, scene: torch.Tensor, imageft: torch.Tensor | None = None) -> dict:
+        """scene (N, X, Y, Z, 2) and, with the color stream, the projected
+        color volume imageft (N, X, Y, Z, C2d) -> {lvl: (N, W, H, L, 128)}
+        channels-last."""
         x = scene.to(self.device, self.compute_dtype).permute(0, 4, 1, 2, 3)
-        lvl1, lvl2 = self.backbone(x)
+        if self.color is not None:
+            if imageft is None:
+                raise ValueError("a detector with the color stream needs the projected color volume (imageft)")
+            imageft = imageft.to(self.device, self.compute_dtype).permute(0, 4, 1, 2, 3)
+        lvl1, lvl2 = self.backbone(x, imageft)
         return {1: lvl1.permute(0, 2, 3, 4, 1), 2: lvl2.permute(0, 2, 3, 4, 1)}
+
+    def project_frames(self, frames: dict, shape) -> torch.Tensor:
+        """One chunk's frames -> its (X, Y, Z, C2d) color volume in the
+        compute dtype. frames: images (V, H, W, 3) uint8 or normalised float
+        (or 2D features under ``USE_IMAGES_GT``); depths (V, Hd, Wd); poses
+        (V, 4, 4); world_to_grid (4, 4); optional view_valid (V,) and
+        zero_floor."""
+        proj = self.color_projector
+        feats = proj.image_features(torch.as_tensor(frames["images"], device=self.device)).to(self.compute_dtype)
+        depths = torch.as_tensor(frames["depths"], dtype=torch.float32, device=self.device)
+        view_valid = frames.get("view_valid")
+        if view_valid is not None:
+            view_valid = torch.as_tensor(view_valid, dtype=torch.bool).to(self.device)
+        return proj.project(feats, depths, frames["poses"], frames["world_to_grid"], shape,
+                            view_valid=view_valid, zero_floor=frames.get("zero_floor"))
 
     def rpn_forward(self, feats: dict) -> dict:
         return self.rpn_heads({lvl: f.permute(0, 4, 1, 2, 3) for lvl, f in feats.items()})
@@ -144,9 +174,12 @@ def device_anchors(detector: Detector, scene_shape) -> dict:
 def build_inference_fn(detector: Detector, cfg: DetectorConfig, scene_shape, mode: str = "TEST"):
     """Inference function for one static scene shape.
 
-    Returns f(scene) for scene (N, X, Y, Z, 2) channels-last, N >= 1, which
-    returns the JAX ``infer``'s dict of fixed-shape outputs; with N > 1 each
-    output has a leading batch dimension.
+    Returns f(scene, imageft=None, frames=None) for scene (N, X, Y, Z, 2)
+    channels-last, N >= 1, which returns the JAX ``infer``'s dict of
+    fixed-shape outputs; with N > 1 each output has a leading batch
+    dimension. A detector with the color stream takes either the chunks'
+    color crops, imageft (N, X, Y, Z, C2d), or one chunk's frames (see
+    ``Detector.project_frames``), whose views it fuses itself.
     """
     mode_cfg = getattr(cfg, mode)
     pre_n = mode_cfg.RPN_PRE_NMS_TOP_N
@@ -156,11 +189,15 @@ def build_inference_fn(detector: Detector, cfg: DetectorConfig, scene_shape, mod
     anchors = device_anchors(detector, shape)
 
     @torch.inference_mode()
-    def infer(scene):
+    def infer(scene, imageft=None, frames=None):
         scene = torch.as_tensor(scene, device=detector.device)
         if tuple(scene.shape[1:4]) != shape:
             raise ValueError(f"scene shape {tuple(scene.shape)} does not match {shape}")
-        feats = detector.features(scene)
+        if frames is not None:
+            if imageft is not None or scene.shape[0] != 1:
+                raise ValueError("frames describe one chunk and replace imageft")
+            imageft = detector.project_frames(frames, shape)[None]
+        feats = detector.features(scene, imageft)
         rpn_out = detector.rpn_forward(feats)
         out = select_proposals(rpn_out, anchors, shape, pre_n, post_n, thresh)
         if detector.use_class:

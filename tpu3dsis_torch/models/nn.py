@@ -48,7 +48,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
     makes weight and bias both U(+-1/sqrt(fan_in))), drawn from `generator`
     on the CPU so a seed gives the same weights on every device."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv3d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.Linear)):
             bound = m.weight[0].numel() ** -0.5
             for p in (m.weight, m.bias):
                 if p is not None:

@@ -1,9 +1,10 @@
-"""Where K1's and K2's time goes on the card, without a profiler's counters.
+"""Where K1's, K2's and K3's time goes on the card, without a profiler's counters.
 
 Each kernel is timed against copies of itself built with one phase cut out
 (a loop that runs no time, a store that never happens, an early return), on
 the inputs ``chip_smoke.py`` uses: phase 2's 6400 rois and the main path's
-own proposals for K1, 32 x 400 and 32 x 1024 boxes for K2. A cut copy
+own proposals for K1, 32 x 400 and 32 x 1024 boxes for K2, the views of
+phase 7's 96-view room fused into its 240x48x240 volume for K3. A cut copy
 computes nothing useful; only its time is read. Run from the repository root
 on a machine with a CUDA card and nvcc:
 
@@ -40,6 +41,12 @@ CUTS = {
         "one pair per row": ("#pragma unroll 8\n      for (int t = 0; t < n; ++t) {",
                              "#pragma unroll 8\n      for (int t = 0; t < 1; ++t) {"),
         "no walk": ("  if (rank != 0) return;\n", "  return;\n"),
+    },
+    "fuse_views.cu": {
+        "no gather or max": ("    while (accepted) {  // uniform: the same set in every lane",
+                          "    while (accepted && V < 0) {"),
+        "no output stores": ("    *reinterpret_cast<Pack<T, CPL>*>(out + (n0 + j) * C + lane * CPL) = r;",
+                             "    if (V < 0) *reinterpret_cast<Pack<T, CPL>*>(out + (n0 + j) * C + lane * CPL) = r;"),
     },
 }
 
@@ -96,6 +103,32 @@ def call_k2(lib, boxes, valid, thresh):
     _build.check(err, "probe K2")
 
 
+def call_k3(lib, feats2d, depths, mats, valid, fx, fy, cx, cy, volume_dims, depth_min, depth_max, voxel_size):
+    v, h, w, c = feats2d.shape
+    out = torch.empty((*volume_dims, c), dtype=feats2d.dtype, device=feats2d.device)
+    err = lib.tpu3dsis_fuse_views(int(feats2d.dtype == torch.bfloat16), feats2d.data_ptr(), depths.data_ptr(),
+                                  mats.data_ptr(), valid.data_ptr(), v, h, w, c, *volume_dims, fx, fy, cx, cy,
+                                  depth_min, depth_max, voxel_size, 0, out.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "probe K3")
+
+
+def k3_inputs(dev, cs):
+    """K3's arguments for phase 7's 96-view room at its bucket, features
+    random (their values do not change the work)."""
+    from tpu3dsis_torch.geometry.projection import view_matrices
+
+    _, _, frames = cs.make_color_scene(np.random.RandomState(21), 96)
+    cfg = cs.scannet_color_scene_config()
+    k = cfg.INTRINSIC
+    feats = torch.randn((96, 32, 41, 128), generator=torch.Generator().manual_seed(3)).to(dev)
+    return feats, dict(depths=torch.from_numpy(frames["depths"]).to(dev),
+                       mats=view_matrices(frames["poses"], frames["world_to_grid"]).to(dev),
+                       valid=torch.ones(96, dtype=torch.uint8, device=dev), fx=k[0][0], fy=k[1][1], cx=k[0][2],
+                       cy=k[1][2], volume_dims=cs.SCENE_EXTENT, depth_min=cfg.PROJ_DEPTH_MIN,
+                       depth_max=cfg.PROJ_DEPTH_MAX, voxel_size=cfg.VOXEL_SIZE)
+
+
 def in_turns(fns, iters, device_ms):
     names = list(fns)
     times = {k: [] for k in names}
@@ -130,6 +163,12 @@ def main() -> int:
                for k, lib in libs["nms3d"].items()}
         print(json.dumps({"case": f"K2 32x{n} boxes, thresh 0.1", "ms": in_turns(fns, 50, cs.device_ms),
                           "card": card}), flush=True)
+    feats, k3 = k3_inputs(dev, cs)
+    for dt in (torch.bfloat16, torch.float32):
+        f = feats.to(dt)
+        fns = {k: (lambda lib=lib: call_k3(lib, f, **k3)) for k, lib in libs["fuse_views"].items()}
+        print(json.dumps({"case": f"K3 {str(dt).split('.')[-1]}, 96 views into {cs.SCENE_EXTENT} x 128",
+                          "ms": in_turns(fns, 10, cs.device_ms), "card": card}), flush=True)
     return 0
 
 
