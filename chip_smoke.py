@@ -41,7 +41,8 @@ result):
      240x48x240 rooms of 24 objects with 32, 96, 144 and 200 views (depth
      ray-cast, RGB shaded, made here with numpy): every kernel call of one
      scene recorded and held against its plain version (K3's resident
-     volume, K1, K2), K3 on the per-tile path's calls and on its edge cases;
+     volume, K1, K2), the share of (brick, view) pairs K3's cull keeps on
+     the resident call, K3 on the per-tile path's calls and on its edge cases;
      the path in both dtypes, each scene served by the fused path, launches
      counted; the card against the CPU on a 144x48x144 room with 16 views;
      bfloat16 against float32; color masked scenes/min over a prefetched
@@ -1235,16 +1236,27 @@ def color_scene_inference(dev, dtype, params, **changes):
     return SceneInference(load_jax_params(Detector(cfg, device=dev), params), cfg)
 
 
-def k3_bound(feats2d, depths, volume_dims, view_valid=None, **_):
+def k3_kept(args):
+    """The (brick, view) pairs K3's cull keeps on one call's arguments, by
+    its plain version: (n_bricks, V) bool."""
+    return projection.brick_view_candidates_plain(
+        args["depths"], args["poses"], args["world_to_grid"], args["intrinsic"], args["volume_dims"],
+        args["depth_min"], args["depth_max"], args["voxel_size"], view_valid=args["view_valid"])
+
+
+def k3_bound(args):
     """K3's bound in ms, its bound_by and its bytes: the (X, Y, Z, C) output
     written once and the feature maps, depths, matrices and flags read once
-    (bytes), or one projection per voxel and valid view at
-    K3_OPS_PER_PROJECTION float32 operations (operations)."""
+    (bytes), or K3_OPS_PER_PROJECTION float32 operations for each voxel of a
+    brick and each view the cull keeps for it (operations: the projections
+    these inputs need, not one per voxel and valid view)."""
+    feats2d, depths = args["feats2d"], args["depths"]
     v, c, itemsize = feats2d.shape[0], feats2d.shape[-1], feats2d.element_size()
-    n = int(np.prod(volume_dims))
-    valid = v if view_valid is None else int(torch.as_tensor(view_valid).sum())
+    n = int(np.prod(args["volume_dims"]))
+    lo, hi = projection.brick_bounds(args["volume_dims"], depths.device)
+    projections = int(((hi - lo + 1).prod(1) * k3_kept(args).sum(1)).sum())
     nbytes = n * c * itemsize + feats2d.numel() * itemsize + depths.numel() * 4 + v * (12 * 4 + 1)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, n * valid * K3_OPS_PER_PROJECTION / FP32_OPS_PER_S * 1e3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, projections * K3_OPS_PER_PROJECTION / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"), nbytes
 
 
@@ -1272,36 +1284,68 @@ def _k3_case(name, args, quiet=False):
 
 
 def k3_edge_cases(args):
-    """K3 against its plain version where its semantics have edges, on the
-    path's own features and views: invalid views skipped whole, a single
-    valid view with negative features (they pass through as they are), no
-    valid view (0 everywhere), ``zero_floor``, NaN feature rows (the max
-    propagates them)."""
+    """K3 against its plain version where its semantics or its cull have
+    edges, on the path's own features and views: invalid views skipped
+    whole, a single valid view with negative features (they pass through as
+    they are, and the bricks that cull it floor at 0), no valid view (0
+    everywhere), ``zero_floor``, NaN feature rows (the max propagates them),
+    a camera inside the volume, ragged volume dims, a single valid view whose
+    depths are all 0 or all NaN, and a single valid view that covers no
+    brick at all (each culls everywhere: 0 everywhere)."""
     feats, v = args["feats2d"], args["feats2d"].shape[0]
     dev = feats.device
     err = 0.0
+    only = lambda i: torch.arange(v, device=dev) == i  # noqa: E731
+    coverage = [float((d > 0).float().mean()) for d in args["depths"]]
+    k = int(np.argmax(coverage))
+    negative = -feats.abs() - 0.5
+    nanned = feats.clone()
+    nanned[k, ::3, ::3, :] = float("nan")
+    nanned[(k + 1) % v, 7, 9, 5] = float("nan")
+    poses = np.array(torch.as_tensor(args["poses"]).cpu(), np.float32)
+    g2w = np.linalg.inv(np.asarray(torch.as_tensor(args["world_to_grid"]).cpu(), np.float64))
+    inside = poses.copy()  # view k moved to the volume's centre, its rotation kept
+    inside[k, :3, 3] = (g2w @ np.array([*(np.asarray(args["volume_dims"]) / 2.0), 1.0]))[:3]
+    away = poses.copy()  # view k 20 m outside the volume, looking away from it
+    corner = (g2w @ np.array([0.0, 0.0, 0.0, 1.0]))[:3]
+    away[k] = camera_pose(corner - 20.0, 225.0, 0.0)
+    flat_depths = {}
+    for name, value in (("zero", 0.0), ("NaN", float("nan"))):
+        d = args["depths"].clone()
+        d[k] = value
+        flat_depths[name] = d
     cases = {
         "every third view invalid": dict(args, view_valid=torch.arange(v, device=dev) % 3 != 0),
         "no valid view": dict(args, view_valid=torch.zeros(v, dtype=torch.bool, device=dev)),
         "zero_floor": dict(args, zero_floor=True),
+        "one valid view, negative features": dict(args, feats2d=negative, view_valid=only(k)),
+        "NaN feature rows": dict(args, feats2d=nanned),
+        "a camera inside the volume": dict(args, poses=inside),
+        "a camera inside the volume, its view alone, negative features": dict(args, poses=inside, feats2d=negative,
+                                                                             view_valid=only(k)),
+        "ragged volume dims (237, 45, 233)": dict(args, volume_dims=(237, 45, 233)),
+        "one valid view, its depths all 0": dict(args, depths=flat_depths["zero"], view_valid=only(k)),
+        "one valid view, its depths all NaN": dict(args, depths=flat_depths["NaN"], view_valid=only(k)),
+        "one valid view covering no brick, negative features": dict(args, poses=away, feats2d=negative,
+                                                                    view_valid=only(k)),
     }
-    coverage = [float((d > 0).float().mean()) for d in args["depths"]]
-    k = int(np.argmax(coverage))
-    cases["one valid view, negative features"] = dict(
-        args, feats2d=-feats.abs() - 0.5, view_valid=torch.arange(v, device=dev) == k)
-    nanned = feats.clone()
-    nanned[k, ::3, ::3, :] = float("nan")
-    nanned[(k + 1) % v, 7, 9, 5] = float("nan")
-    cases["NaN feature rows"] = dict(args, feats2d=nanned)
     for name, case in cases.items():
         e, _, filled, want = _k3_case(name, case)
         err = max(err, e)
-        if name == "no valid view":
-            check(not bool(want.any()), "K3 with no valid view is not all 0")
-        if name == "one valid view, negative features":
-            check(bool((want < 0).any()), "no negative feature passed through the single valid view")
+        if name in ("no valid view", "one valid view, its depths all 0", "one valid view, its depths all NaN",
+                    "one valid view covering no brick, negative features"):
+            check(not bool(want.any()), f"K3 {name}: not all 0")
+        if name.endswith("negative features") and "covering no brick" not in name:
+            check(bool((want < 0).any()), f"K3 {name}: no negative feature passed through")
+            kept = k3_kept(case)[:, k]
+            check(bool(kept.any()) and not bool(kept.all()), f"K3 {name}: the cull kept the view in no brick or "
+                  f"in every brick ({float(kept.float().mean()):.4f})")
         if name == "NaN feature rows":
             check(bool(torch.isnan(want).any()), "no voxel read a NaN feature row")
+        if name.startswith("a camera inside") or name.startswith("ragged"):
+            check(filled > 0, f"K3 {name}: no voxel filled")
+        if "covering no brick" in name:
+            check(not bool(k3_kept(case).any()), f"K3 {name}: the cull kept it somewhere")
     return err
 
 
@@ -1329,6 +1373,11 @@ def phase_color(dev, params):
             check(filled > 0, "K3 filled no voxel of the scene's volume")
             res["err"] = max(res["err"], err)
             res["recorded"][dt] = (k3[0], plain_ms)
+            kept = k3_kept(k3[0])
+            res["kept_share"] = float(kept.float().mean())
+            log(f"[7] K3's cull on the path's call: keeps {int(kept.sum())} of {kept.numel()} (brick, view) pairs, "
+                f"{res['kept_share']:.4f}; candidates per brick mean {float(kept.sum(1).float().mean()):.2f}, max "
+                f"{int(kept.sum(1).max())}; bricks with none {int((kept.sum(1) == 0).sum())} of {kept.shape[0]}")
             errs = check_recorded_k1_k2(calls, f"{dt} color scene path", phase=7)
             res["k1_err"] = max(res["k1_err"], errs["k1_err"])
             res["k2_err"] = max(res["k2_err"], errs["k2_err"], errs["class_aware_err"])
@@ -1492,7 +1541,7 @@ def phase_color_timing(sis, scenes, frames, res, passes=3):
                                                       for v, p in preps.items()}) + f" [{CARD}]")
         args, plain_ms = res["recorded"][dt]
         k3_ms = device_ms(lambda: projection.fuse_views_cuda(**args), 10)
-        bound, bound_by, nbytes = k3_bound(**args)
+        bound, bound_by, nbytes = k3_bound(args)
         log(f"[7] K3 {dt} on the path's call (96 views into {tuple(args['volume_dims'])} x "
             f"{args['feats2d'].shape[-1]}): {k3_ms:.4f} ms device time; plain {plain_ms:.1f} ms; bound {bound:.4f} ms "
             f"({bound_by}, {nbytes / 1e9:.3f} GB), {bound / k3_ms:.3f} of it [{CARD}]")
@@ -1587,7 +1636,7 @@ def main() -> int:
          "launches_per_scene": color_per_scene["fuse_views_cuda"], "max_abs_err": k3r["err"],
          "ms": color_t["bfloat16"]["k3_ms"], "plain_ms": color_t["bfloat16"]["k3_plain_ms"],
          "bound_ms": color_t["bfloat16"]["k3_bound_ms"], "bound_by": color_t["bfloat16"]["k3_bound_by"],
-         "library_ms": None},
+         "library_ms": None, "cull_kept_share": k3r["kept_share"]},
     ]}
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps(record))

@@ -44,7 +44,7 @@ _SIGNATURES = {
     "tpu3dsis_nms3d_launches": ([], _LL),
     "tpu3dsis_fuse_views": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _P],
                             _I),
-    "tpu3dsis_fuse_views_smem": ([_I, _I], _LL),
+    "tpu3dsis_fuse_views_smem": ([_I], _LL),
     "tpu3dsis_fuse_views_launches": ([], _LL),
 }
 

@@ -12,6 +12,12 @@ kernel K3 (``csrc/fuse_views.cu``), CPU tensors to ``fuse_views_plain``.
 Both read the per-view matrices of ``view_matrices``, computed once per call
 on the host in float32, and decide the predicate with the same float32
 operations in the same order, so they agree bit for bit.
+
+K3 first rules out, per brick of ``BRICK`` voxels, the views that can accept
+no voxel of it; ``brick_view_candidates_plain`` is that cull's plain version
+(the same corners, arithmetic and margins), for the tests and the card's
+smoke run. The fused result does not depend on it: a culled view rejects
+every voxel of its brick.
 """
 
 from __future__ import annotations
@@ -59,6 +65,92 @@ def _project(mat, depth, fx, fy, cx, cy, coords, depth_min, depth_max, voxel_siz
     d = depth.reshape(-1)[pix]
     accept = inside & (d >= depth_min) & (d <= depth_max) & (torch.abs(d - zc) <= voxel_size)
     return accept, pix
+
+
+# K3's brick (X, Y, Z voxels), its camera-depth margin in metres and the
+# least camera depth of the cut for its pixel-box cull (csrc/fuse_views.cu's
+# kBX, kBY, kBZ, kEps, kFootprintZ)
+BRICK = (8, 4, 8)
+CULL_EPS = 1e-3
+FOOTPRINT_Z = 0.05
+# a brick's 12 edges as pairs of corners, corner i at (x, y, z) = bits (4, 2, 1) of i
+_EDGES = [(i, i | bit) for bit in (1, 2, 4) for i in range(8) if not i & bit]
+
+
+def brick_bounds(volume_dims, device="cpu"):
+    """(n_bricks, 3) int64 first and last voxel of each brick of the
+    (X, Y, Z) grid, in K3's block order (z fastest); edge bricks are
+    ragged."""
+    dims = [int(n) for n in volume_dims]
+    idx = torch.meshgrid(*(torch.arange(-(-n // b), device=device) for n, b in zip(dims, BRICK)), indexing="ij")
+    lo = torch.stack([i.reshape(-1) * b for i, b in zip(idx, BRICK)], -1)
+    hi = torch.minimum(lo + torch.tensor(BRICK, device=device), torch.tensor(dims, device=device)) - 1
+    return lo, hi
+
+
+def brick_view_candidates_plain(depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max,
+                                voxel_size, view_valid=None) -> torch.Tensor:
+    """Plain version of K3's cull: (n_bricks, V) bool, True where the brick
+    (in ``brick_bounds`` order) keeps the view as a candidate.
+
+    A valid view is kept when a corner of the brick projects to a value that
+    is not finite, or when some depth of its footprint lies in the band
+    [max(depth_min, zlo - voxel_size - CULL_EPS), min(depth_max, zhi +
+    voxel_size + CULL_EPS)], [zlo, zhi] the corners' camera depths. The
+    brick is cut at zcut = max(zlo, depth_min - voxel_size - CULL_EPS), the
+    nearest camera depth at which a voxel can accept; when zcut >
+    FOOTPRINT_Z the footprint is the box of the rounded pixels of the cut
+    brick's vertices (its corners beyond the cut and the points where its
+    edges cross it) widened by 1 and clamped to the image, else the whole
+    image. An invalid view is never a candidate. The float32 operations are
+    the kernel's, the corners' those of the predicate (``_project``).
+    """
+    dev = depths.device
+    v, h, w = depths.shape
+    mats = view_matrices(poses, world_to_grid).to(dev)
+    fx, fy, cx, cy = (t.to(dev) for t in _intrinsics(intrinsic))
+    dmin, dmax, vs, eps = (torch.tensor(float(s), dtype=torch.float32, device=dev)
+                           for s in (depth_min, depth_max, voxel_size, CULL_EPS))
+    zfloor = (dmin - vs) - eps  # no voxel nearer than this can accept
+    lo, hi = brick_bounds(volume_dims, dev)
+    sel = torch.tensor([[(i >> s) & 1 for s in (2, 1, 0)] for i in range(8)], dtype=torch.bool, device=dev)
+    x, y, z = torch.where(sel, hi[:, None], lo[:, None]).float().unbind(-1)  # (n_bricks, 8) corners
+    valid = torch.ones(v, dtype=torch.bool) if view_valid is None else torch.as_tensor(view_valid).bool().cpu()
+    cols, rows = torch.arange(w, device=dev), torch.arange(h, device=dev)
+    keep = torch.zeros((lo.shape[0], v), dtype=torch.bool, device=dev)
+    for i in torch.nonzero(valid).flatten().tolist():
+        m = mats[i]
+        cam = [((m[r, 0] * x + m[r, 1] * y) + m[r, 2] * z) + m[r, 3] for r in range(3)]
+        finite = torch.isfinite(torch.stack(cam)).all(0).all(1)
+        zlo, zhi = cam[2].amin(1), cam[2].amax(1)
+        band_lo, band_hi = torch.maximum(dmin, (zlo - vs) - eps), torch.minimum(dmax, (zhi + vs) + eps)
+        # the brick cut at zcut: its corners beyond the cut, and where its
+        # edges cross it, nearer endpoint first
+        zcut = torch.maximum(zlo, zfloor)[:, None]
+        beyond = cam[2] >= zcut
+        ends = [cam[r][:, _EDGES] for r in range(3)]  # (n_bricks, 12, 2)
+        near = ends[2][..., 0] < zcut
+        crosses = near != (ends[2][..., 1] < zcut)
+        a = [torch.where(near, e[..., 0], e[..., 1]) for e in ends]
+        b = [torch.where(near, e[..., 1], e[..., 0]) for e in ends]
+        t = (zcut - a[2]) / (b[2] - a[2])
+        vx = torch.cat([cam[0], a[0] + t * (b[0] - a[0])], 1)
+        vy = torch.cat([cam[1], a[1] + t * (b[1] - a[1])], 1)
+        vz = torch.cat([cam[2], zcut.expand_as(t)], 1)
+        vertex = torch.cat([beyond, crosses], 1)
+        px, py = torch.round(vx * fx / vz + cx), torch.round(vy * fy / vz + cy)
+        inf = torch.tensor(torch.inf, device=dev)
+        front = zcut[:, 0] > FOOTPRINT_Z
+        x0 = torch.where(front, torch.clamp(torch.where(vertex, px, inf).amin(1) - 1, min=0), 0.0)
+        x1 = torch.where(front, torch.clamp(torch.where(vertex, px, -inf).amax(1) + 1, max=w - 1), w - 1.0)
+        y0 = torch.where(front, torch.clamp(torch.where(vertex, py, inf).amin(1) - 1, min=0), 0.0)
+        y1 = torch.where(front, torch.clamp(torch.where(vertex, py, -inf).amax(1) + 1, max=h - 1), h - 1.0)
+        in_box = (((rows >= y0[:, None]) & (rows <= y1[:, None]))[:, :, None]
+                  & ((cols >= x0[:, None]) & (cols <= x1[:, None]))[:, None, :])
+        d = depths[i].float()
+        hit = (in_box & (d >= band_lo[:, None, None]) & (d <= band_hi[:, None, None])).flatten(1).any(1)
+        keep[:, i] = ~finite | ((band_lo <= band_hi) & hit)
+    return keep
 
 
 def _check_args(feats2d, depths, volume_dims, view_valid):
@@ -120,8 +212,9 @@ def fuse_views_cuda(feats2d, depths, poses, world_to_grid, intrinsic, volume_dim
     """Kernel K3; the arguments and result of ``fuse_views_plain``.
 
     feats2d must be a contiguous (V, H, W, C) CUDA tensor, float32 or
-    bfloat16, 16-byte aligned, with C = 32, 64 or 128; depths a (V, H, W)
-    float32 tensor on the same card. A ``zero_floor`` tensor is read on the
+    bfloat16, 16-byte aligned, with C = 32, 64 or 128 and H, W < 32768;
+    depths a (V, H, W) float32 tensor on the same card. Its shared memory
+    grows by 68 bytes a view. A ``zero_floor`` tensor is read on the
     host (one sync).
     """
     if not feats2d.is_cuda:
@@ -134,6 +227,8 @@ def fuse_views_cuda(feats2d, depths, poses, world_to_grid, intrinsic, volume_dim
     v, h, w, c = feats2d.shape
     if c not in (32, 64, 128):
         raise ValueError(f"K3 takes C = 32, 64 or 128 channels, not {c}")
+    if max(h, w) >= 2**15:
+        raise ValueError(f"K3 takes depth maps under 32768 pixels a side, not {h}x{w}")
     dev = feats2d.device
     if not depths.is_cuda or depths.device != dev or depths.dtype != torch.float32 or not depths.is_contiguous():
         raise ValueError("depths must be a contiguous float32 tensor on feats2d's card")
@@ -142,10 +237,10 @@ def fuse_views_cuda(feats2d, depths, poses, world_to_grid, intrinsic, volume_dim
         raise ValueError("the volume is too large")
     lib = _build.load_library()
     is_bf16 = int(feats2d.dtype == torch.bfloat16)
-    smem = lib.tpu3dsis_fuse_views_smem(is_bf16, c)
+    smem = lib.tpu3dsis_fuse_views_smem(v)
     if smem > torch.cuda.get_device_properties(dev).shared_memory_per_block_optin:
         raise ValueError(f"fuse_views_cuda: {smem} bytes of shared memory do not fit a block")
-    mats = view_matrices(poses, world_to_grid).to(dev, non_blocking=True)
+    mats = view_matrices(poses, world_to_grid).pin_memory().to(dev, non_blocking=True)  # no wait for the stream
     if view_valid is None:
         valid = torch.ones(v, dtype=torch.uint8, device=dev)
     else:

@@ -8,10 +8,12 @@ phase 7's 96-view room fused into its 240x48x240 volume for K3. A cut copy
 computes nothing useful; only its time is read. Run from the repository root
 on a machine with a CUDA card and nvcc:
 
-    python -m tpu3dsis_torch.probe
+    python -m tpu3dsis_torch.probe [K1] [K2] [K3]
 
-It prints one JSON line per case: the full kernel's and each cut copy's
-device time in ms, measured in turns (full, cuts, cuts reversed, full).
+(all three when none is named). It prints one JSON line per case: the full
+kernel's and each cut copy's device time in ms, measured in turns (full,
+cuts, cuts reversed, full); K3's line adds the share of (brick, view) pairs
+its cull keeps.
 """
 
 from __future__ import annotations
@@ -43,10 +45,14 @@ CUTS = {
         "no walk": ("  if (rank != 0) return;\n", "  return;\n"),
     },
     "fuse_views.cu": {
-        "no gather or max": ("    while (accepted) {  // uniform: the same set in every lane",
-                          "    while (accepted && V < 0) {"),
-        "no output stores": ("    *reinterpret_cast<Pack<T, CPL>*>(out + (n0 + j) * C + lane * CPL) = r;",
-                             "    if (V < 0) *reinterpret_cast<Pack<T, CPL>*>(out + (n0 + j) * C + lane * CPL) = r;"),
+        "no cull": ("      state = cull_view(m, lo, hi, k, s_box[threadIdx.x], s_band[threadIdx.x]);",
+                    "      state = kKeep;"),
+        "cull only": ("  const bool culled = s_culled != 0;\n",
+                      "  const bool culled = s_culled != 0;\n  if (V > 0) return;\n"),
+        "no gather or max": ("        while (acc_set) {  // uniform; lowest lane first, i.e. view order",
+                             "        while (acc_set && V < 0) {"),
+        "no output stores": ("      store_row(reinterpret_cast<Pack<T, CPL>*>(dst), r);",
+                             "      if (V < 0) store_row(reinterpret_cast<Pack<T, CPL>*>(dst), r);"),
     },
 }
 
@@ -114,8 +120,9 @@ def call_k3(lib, feats2d, depths, mats, valid, fx, fy, cx, cy, volume_dims, dept
 
 
 def k3_inputs(dev, cs):
-    """K3's arguments for phase 7's 96-view room at its bucket, features
-    random (their values do not change the work)."""
+    """K3's arguments for phase 7's 96-view room at its bucket (and the
+    intrinsic matrix), features random (their values do not change the
+    work), and the room's frames."""
     from tpu3dsis_torch.geometry.projection import view_matrices
 
     _, _, frames = cs.make_color_scene(np.random.RandomState(21), 96)
@@ -126,7 +133,7 @@ def k3_inputs(dev, cs):
                        mats=view_matrices(frames["poses"], frames["world_to_grid"]).to(dev),
                        valid=torch.ones(96, dtype=torch.uint8, device=dev), fx=k[0][0], fy=k[1][1], cx=k[0][2],
                        cy=k[1][2], volume_dims=cs.SCENE_EXTENT, depth_min=cfg.PROJ_DEPTH_MIN,
-                       depth_max=cfg.PROJ_DEPTH_MAX, voxel_size=cfg.VOXEL_SIZE)
+                       depth_max=cfg.PROJ_DEPTH_MAX, voxel_size=cfg.VOXEL_SIZE, intrinsic=k), frames
 
 
 def in_turns(fns, iters, device_ms):
@@ -137,7 +144,11 @@ def in_turns(fns, iters, device_ms):
     return {k: round(statistics.median(v), 5) for k, v in times.items()}
 
 
-def main() -> int:
+def main(argv=()) -> int:
+    which = set(argv) or {"K1", "K2", "K3"}
+    if not which <= {"K1", "K2", "K3"}:
+        print(f"probe: name K1, K2 or K3, not {sorted(which)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 1
@@ -146,7 +157,17 @@ def main() -> int:
     card = cs.nvidia_smi("name,power.limit")
     dev = torch.device("cuda:0")
     libs = build_cuts()
-    feats, k1, k2 = cs.kernel_inputs(dev, np.random.RandomState(0))
+    if "K1" in which:
+        probe_k1(cs, dev, libs, card)
+    if "K2" in which:
+        probe_k2(cs, dev, libs, card)
+    if "K3" in which:
+        probe_k3(cs, dev, libs, card)
+    return 0
+
+
+def probe_k1(cs, dev, libs, card):
+    feats, k1, _ = cs.kernel_inputs(dev, np.random.RandomState(0))
     scenes, _ = cs.make_chunks(np.random.RandomState(1), cs.BATCH)
     x = torch.from_numpy(scenes).to(dev)
     cases = {}
@@ -157,20 +178,32 @@ def main() -> int:
     for case, (levels, kw) in cases.items():
         fns = {k: (lambda lib=lib: call_k1(lib, levels, **kw)) for k, lib in libs["roi_pool3d"].items()}
         print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "card": card}), flush=True)
+
+
+def probe_k2(cs, dev, libs, card):
+    _, _, k2 = cs.kernel_inputs(dev, np.random.RandomState(0))
     k2_cases = {400: k2, 1024: {k: v.to(dev) for k, v in cs._boxes(np.random.RandomState(2), cs.BATCH, 1024).items()}}
     for n, bx in k2_cases.items():
         fns = {k: (lambda lib=lib: call_k2(lib, bx["boxes"], bx["valid"], 0.1))
                for k, lib in libs["nms3d"].items()}
         print(json.dumps({"case": f"K2 32x{n} boxes, thresh 0.1", "ms": in_turns(fns, 50, cs.device_ms),
                           "card": card}), flush=True)
-    feats, k3 = k3_inputs(dev, cs)
+
+
+def probe_k3(cs, dev, libs, card):
+    from tpu3dsis_torch.geometry.projection import brick_view_candidates_plain
+
+    feats, k3, frames = k3_inputs(dev, cs)
+    keep = brick_view_candidates_plain(k3["depths"], frames["poses"], frames["world_to_grid"], k3["intrinsic"],
+                                       k3["volume_dims"], k3["depth_min"], k3["depth_max"], k3["voxel_size"])
+    args = {key: val for key, val in k3.items() if key != "intrinsic"}
     for dt in (torch.bfloat16, torch.float32):
         f = feats.to(dt)
-        fns = {k: (lambda lib=lib: call_k3(lib, f, **k3)) for k, lib in libs["fuse_views"].items()}
+        fns = {k: (lambda lib=lib: call_k3(lib, f, **args)) for k, lib in libs["fuse_views"].items()}
         print(json.dumps({"case": f"K3 {str(dt).split('.')[-1]}, 96 views into {cs.SCENE_EXTENT} x 128",
-                          "ms": in_turns(fns, 10, cs.device_ms), "card": card}), flush=True)
-    return 0
+                          "ms": in_turns(fns, 10, cs.device_ms), "cull_kept_share": float(keep.float().mean()),
+                          "card": card}), flush=True)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
