@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's chunk and whole-scene paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's chunk and whole-scene paths and its test and
+benchmark drivers on one NVIDIA card.
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
@@ -48,7 +49,22 @@ result):
      bfloat16 against float32; color masked scenes/min over a prefetched
      stream of 8, ``device_seconds``, prep ms by view count (upload, ENet,
      K3), per-stage ms, K3 against its plain version and its bound, and a
-     profile of one bf16 scene with its prep.
+     profile of one bf16 scene with its prep;
+  8. the test and benchmark drivers: four 240x48x240 scenes of 24 objects
+     written as ``.scene`` files (nyu40 labels, masks), an overlay of
+     ``experiments/cfgs/ScanNet/benchmark.yml`` without images and a
+     ``param:`` snapshot of phase 6's weights; ``python -m
+     tpu3dsis_torch.main --mode test`` in a process of its own (its launch
+     counts start at 0 and are printed at its end: K1, K2 and K2
+     class-aware must rise), then ``--mode benchmark`` twice (the second
+     skips every scene); every artifact loaded in a process without torch;
+     the same scenes through ``run_scenes`` on the CPU (float32, TF32 off)
+     give the same detections within 1e-4 voxels and the same mAP; the
+     color stream through ``run_scenes`` on phase 7's rooms as in-memory
+     samples with frames (every count set to 0 before, read after; K3's
+     call of one room held against its plain version); driver scenes/min
+     and ms per scene of read and encode, infer, artifact writes and mAP
+     for both streams.
 
 The last three lines are the kernels' JSON, the card's name and power limit
 as ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
@@ -56,12 +72,17 @@ as ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import importlib.util
 import inspect
 import json
+import os
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
@@ -73,6 +94,7 @@ from tpu3dsis_torch import (Detector, SceneInference, _build, build_inference_fn
 from tpu3dsis_torch.geometry import projection
 from tpu3dsis_torch.geometry.boxes import nms_overlap
 from tpu3dsis_torch.infer.color_volume import build_color_volume
+from tpu3dsis_torch.models.backbones import FEAT_STRIDE
 from tpu3dsis_torch.models.detector import device_anchors
 from tpu3dsis_torch.models.rpn import select_proposals
 from tpu3dsis_torch.ops import nms
@@ -188,16 +210,24 @@ def encode_tsdf(sdf):
     return np.stack([np.abs(np.clip(sdf, -3.0, 3.0)), (sdf > -1).astype(np.float32)], -1).astype(np.float32)
 
 
-def make_scene(rng, extent=SCENE_EXTENT, n_objects=24):
+def scene_objects(rng, extent=SCENE_EXTENT, n_objects=24):
     """A scene as tools/tiling_parity_check.py:89 make_scene draws it (about a
-    third 53-voxel sofas), encoded; and its object boxes."""
+    third 53-voxel sofas): its raw sdf, its object boxes and each box's kind."""
     sdf = np.full(extent, 8.0, np.float32)
-    boxes = []
+    boxes, placed = [], []
     kinds = ["sofa"] * (n_objects // 3)
     kinds += ["chair", "table"] * ((n_objects - len(kinds)) // 2 + 1)
     for kind in kinds[:n_objects]:
+        n = len(boxes)
         _add_object(sdf, boxes, rng, kind, (2, 2, 2), tuple(e - 2 for e in extent))
-    return encode_tsdf(sdf), np.asarray(boxes, np.float32)
+        placed += [kind] * (len(boxes) - n)
+    return sdf, np.asarray(boxes, np.float32), placed
+
+
+def make_scene(rng, extent=SCENE_EXTENT, n_objects=24):
+    """``scene_objects``' scene encoded, and its object boxes."""
+    sdf, boxes, _ = scene_objects(rng, extent, n_objects)
+    return encode_tsdf(sdf), boxes
 
 
 def iou(a, b):
@@ -695,9 +725,19 @@ def _copy(x):
 
 def recorded_kernel_calls(si, scene, frames=None, fused=True):
     """Every call that one ``si.infer(scene, frames)`` makes to K1's, K2's
-    and K3's wrappers, with copies of its arguments, in call order: [(kind,
-    {argument: value})], kind the wrapper's name or "class-aware" for K2 with
-    classes. The wrappers are wrapped for that call only."""
+    and K3's wrappers (``recording_kernel_calls``)."""
+    with recording_kernel_calls() as calls:
+        si.infer(scene, frames)
+    check(si.last_fused == fused, f"the recorded scene was {'not ' * fused}served by the fused path")
+    return calls
+
+
+@contextlib.contextmanager
+def recording_kernel_calls():
+    """Within the block, every call to K1's, K2's and K3's wrappers, from any
+    thread, with copies of its arguments, in call order: [(kind, {argument:
+    value})], kind the wrapper's name or "class-aware" for K2 with classes.
+    The wrappers are wrapped for the block only."""
     calls = []
     wrapped = ((rp, "roi_pool3d_cuda"), (nms, "nms3d_cuda"), (projection, "fuse_views_cuda"))
     originals = [getattr(mod, name) for mod, name in wrapped]
@@ -718,12 +758,10 @@ def recorded_kernel_calls(si, scene, frames=None, fused=True):
     for (mod, name), fn in zip(wrapped, originals):
         setattr(mod, name, recorder(fn))
     try:
-        si.infer(scene, frames)
+        yield calls
     finally:
         for (mod, name), fn in zip(wrapped, originals):
             setattr(mod, name, fn)
-    check(si.last_fused == fused, f"the recorded scene was {'not ' * fused}served by the fused path")
-    return calls
 
 
 def check_recorded_k1_k2(calls, label, phase):
@@ -915,21 +953,37 @@ def phase_scene_card_vs_cpu(sis, params):
     compare_card_cpu(card, cpu, f"one {SCENE_SMALL} scene", cpu_s, phase=6)
 
 
-def compare_card_cpu(card, cpu, label, cpu_s, phase):
+def compare_card_cpu(card, cpu, label, cpu_s, phase, box_tol=1e-3, tie_stride=None, tie_tol=1e-3):
     """float32 card against CPU: the same detections (order-free, same class,
-    boxes within 1e-3 voxels, conf within 1e-4), masks within 0.005 flips
-    per box; the flipped voxels are counted."""
+    boxes within ``box_tol`` voxels, conf within 1e-4), masks within 0.005
+    flips per box; the flipped voxels are counted.
+
+    With ``tie_stride``, a card detection that has no such counterpart may
+    pair with a tied copy: the same class, a confidence within 1e-6, the
+    same size and a shift by a nonzero multiple of ``tie_stride`` voxels
+    (both within ``tie_tol``). On a uniform region (the truncated free
+    space) the detector scores its shifted copies alike, up to the context
+    of their tiles' borders, and which copies the proposal NMS and the
+    greedy stitch keep rests on the last bit of each sum, on the card as on
+    the CPU. Such pairs are counted and printed; their masks are not
+    compared."""
     (dc, mc), (dp, mp) = card, cpu
     check(len(dc["pred_box"]) == len(dp["pred_box"]) > 0,
           f"{len(dc['pred_box'])} detections on the card, {len(dp['pred_box'])} on the CPU")
     used = np.zeros(len(dp["pred_box"]), bool)
     worst_box = worst_conf = worst_flip = 0.0
     flipped = 0
+    deferred, tied = [], []
     for i in range(len(dc["pred_box"])):
         d = np.abs(dp["pred_box"] - dc["pred_box"][i]).max(1)
         d[used | (dp["pred_class"] != dc["pred_class"][i])] = np.inf
         j = int(np.argmin(d))
-        check(d[j] <= 1e-3, f"card detection {dc['pred_box'][i]} has no CPU counterpart within 1e-3 voxels")
+        if d[j] > box_tol:
+            check(tie_stride is not None,
+                  f"card detection {dc['pred_box'][i]} (class {dc['pred_class'][i]}, conf {dc['pred_conf'][i]:.8f}) "
+                  f"has no CPU counterpart within {box_tol} voxels: the nearest of its class is {d[j]:.6g} away")
+            deferred.append(i)
+            continue
         used[j] = True
         worst_box = max(worst_box, float(d[j]))
         worst_conf = max(worst_conf, abs(float(dc["pred_conf"][i]) - float(dp["pred_conf"][j])))
@@ -937,11 +991,26 @@ def compare_card_cpu(card, cpu, label, cpu_s, phase):
         if mc[i].size:
             worst_flip = max(worst_flip, float((mc[i] != mp[j]).mean()))
             flipped += int((mc[i] != mp[j]).sum())
+    for i in deferred:
+        box = dc["pred_box"][i]
+        shift = dp["pred_box"][:, :3] - box[:3]
+        steps = np.round(shift / tie_stride)
+        ok = (~used & (dp["pred_class"] == dc["pred_class"][i])
+              & (np.abs(dp["pred_conf"].astype(np.float64) - float(dc["pred_conf"][i])) <= 1e-6)
+              & (np.abs((dp["pred_box"][:, 3:] - dp["pred_box"][:, :3]) - (box[3:] - box[:3])).max(1) <= tie_tol)
+              & (np.abs(shift - steps * tie_stride).max(1) <= tie_tol) & (np.abs(steps).max(1) > 0))
+        check(bool(ok.any()), f"card detection {box} (class {dc['pred_class'][i]}, conf {dc['pred_conf'][i]:.8f}) "
+              f"has no CPU counterpart within {box_tol} voxels and no tied copy shifted by multiples of {tie_stride}")
+        j = int(np.argmin(np.where(ok, np.abs(shift).max(1), np.inf)))
+        used[j] = True
+        tied.append((box.round(3).tolist(), dp["pred_box"][j].round(3).tolist(), float(dc["pred_conf"][i])))
     check(worst_conf <= 1e-4, f"card vs CPU conf differs by {worst_conf}")
     check(worst_flip < 0.005, f"card vs CPU masks differ in {worst_flip} of a box's voxels")
     log(f"[{phase}] card vs CPU, {label}, float32, TF32 off: {len(dc['pred_box'])} detections on both, "
         f"max abs diff box {worst_box:.3g} voxels, conf {worst_conf:.3g}; mask voxels flipped {flipped} of "
-        f"{sum(m.size for m in mc)}, worst box {worst_flip:.4g} (CPU infer {cpu_s:.1f} s) [{CARD}]")
+        f"{sum(m.size for m in mc)}, worst box {worst_flip:.4g} (CPU infer {cpu_s:.1f} s) [{CARD}]"
+        + (f"; {len(tied)} tied copies kept at other shifts (card box, CPU box, conf): {tied}" if tied else ""))
+    return len(tied)
 
 
 def profile_scene(si, scene, runs=2, frames=None):
@@ -1260,7 +1329,7 @@ def k3_bound(args):
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"), nbytes
 
 
-def _k3_case(name, args, quiet=False):
+def _k3_case(name, args, quiet=False, phase=7):
     """K3 against its plain version on one call's arguments, with
     ``torch.equal`` (NaN positions first, then the rest). Returns (max abs
     err, plain ms, the share of voxels it fills, the plain result)."""
@@ -1276,7 +1345,7 @@ def _k3_case(name, args, quiet=False):
     err = float((got.float() - want.float()).abs().nan_to_num(0.0).max())
     filled = float((want != 0).any(-1).float().mean())
     if not quiet or not same:
-        log(f"[7] K3 {name}: {tuple(got.shape)} {got.dtype}, {args['feats2d'].shape[0]} views: exact={same} "
+        log(f"[{phase}] K3 {name}: {tuple(got.shape)} {got.dtype}, {args['feats2d'].shape[0]} views: exact={same} "
             f"max_abs_err={err} filled {filled:.4f} of the voxels, NaN outputs {int(nan_want.sum())}, plain "
             f"{start.elapsed_time(end):.1f} ms [{CARD}]")
     check(same, f"K3 {name} differs from its plain version")
@@ -1453,7 +1522,7 @@ def phase_color(dev, params):
         check(max(n_det) >= 5, f"{dt}: no color scene with 5 detections, so the mask FCN ran on few windows")
         check(max(n_vox) > 0, f"{dt}: every color scene's masks are empty")
     bf16_vs_fp32(outs, len(scenes), phase=7, iou_thresh=0.25, max_drift=0.3, slack_div=4)
-    return sis, scenes, frames, launches, per_scene, res
+    return sis, scenes, gts, frames, launches, per_scene, res
 
 
 def phase_color_card_vs_cpu(sis, params):
@@ -1556,6 +1625,306 @@ def phase_color_timing(sis, scenes, frames, res, passes=3):
     return out
 
 
+# --- phase 8: the test and benchmark drivers ------------------------------------------
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+DRIVER_SCENES = 4
+KIND_NYU40 = {"sofa": 6, "chair": 5, "table": 7}  # tools/tiling_parity_check.py:27
+PRED_FILES = ("pred_box.npy", "pred_class.npy", "pred_conf.npy", "pred_mask", "pred_mask_index", "scene.npy")
+GT_FILES = ("gt_box.npy", "gt_class.npy", "gt_mask")
+# ``python -m tpu3dsis_torch.main <args>`` as runpy runs it for -m, with every
+# launch count set to 0 first and printed after
+_ENTRY = """
+import json, runpy, sys
+from tpu3dsis_torch.ops import nms, roi_pool3d as rp
+from tpu3dsis_torch.geometry import projection
+rp.roi_pool3d_cuda.launches = nms.nms3d_cuda.launches = nms.nms3d_cuda.class_aware_launches = 0
+projection.fuse_views_cuda.launches = 0
+sys.argv = ["tpu3dsis_torch.main", *json.loads(sys.argv[1])]
+runpy.run_module("tpu3dsis_torch.main", run_name="__main__", alter_sys=True)
+print("LAUNCHES " + json.dumps({"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
+                                "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches,
+                                "fuse_views_cuda": projection.fuse_views_cuda.launches}))
+"""
+# every artifact loaded by a process in which torch cannot be imported
+_LOAD_WITHOUT_TORCH = """
+import json, os, pickle, sys
+sys.modules["torch"] = None
+import numpy as np
+root, out = sys.argv[1], {}
+for scene in sorted(os.listdir(root)):
+    files = {}
+    for name in sorted(os.listdir(os.path.join(root, scene))):
+        path = os.path.join(root, scene, name)
+        if name.endswith(".npy"):
+            a = np.load(path)
+            files[name] = [str(a.dtype), list(a.shape), bool(np.isfinite(a).all())]
+        else:
+            with open(path, "rb") as f:
+                v = pickle.load(f)
+            files[name] = [type(v).__name__, len(v), sorted({type(x).__module__ + "." + type(x).__name__
+                                                              + ("/" + str(x.dtype) if hasattr(x, "dtype") else "")
+                                                              for x in v})]
+    out[scene] = files
+print(json.dumps(out))
+"""
+
+
+def write_driver_scenes(tmp):
+    """DRIVER_SCENES 240x48x240 scenes of 24 objects (make_scene's draws,
+    seeds 40..), as ``.scene`` files with nyu40 labels and full box masks,
+    as tools/tiling_parity_check.py writes its chunks; the filelist's path."""
+    from tpu3dsis_torch.io import write_chunk_file
+
+    paths = []
+    for i in range(DRIVER_SCENES):
+        sdf, boxes, kinds = scene_objects(np.random.RandomState(40 + i))
+        path = os.path.join(tmp, f"scene{i:04d}_00__synthetic.scene")
+        write_chunk_file(path, sdf, boxes, np.asarray([KIND_NYU40[k] for k in kinds], np.uint32),
+                         [np.ones(tuple((b[3:] - b[:3]).astype(int)), np.uint16) for b in boxes],
+                         np.ones(len(boxes), np.float32), np.eye(4, dtype=np.float32), np.zeros(0, np.uint32))
+        paths.append(path)
+    filelist = os.path.join(tmp, "scenes.txt")
+    with open(filelist, "w") as f:
+        f.write("".join(p + "\n" for p in paths))
+    return filelist
+
+
+def write_overlay(path, **changes):
+    """benchmark.yml with ``changes``, written where ``--cfg`` can name it."""
+    from tpu3dsis_torch import yaml_subset
+
+    with open(os.path.join(ROOT, "experiments", "cfgs", "ScanNet", "benchmark.yml")) as f:
+        cfg = yaml_subset.load(f.read())
+    cfg.update(changes)
+    with open(path + ".yml", "w") as f:
+        f.write(yaml_subset.dump(cfg))
+    return path
+
+
+def run_entry(args, timeout=600):
+    """The entry module in a process of its own: (its launch counts, the mAP
+    dict it printed or None, wall seconds)."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-c", _ENTRY, json.dumps(args)], cwd=ROOT, capture_output=True, text=True,
+                         timeout=timeout)
+    wall = time.time() - t0
+    if res.returncode != 0:
+        log(res.stderr[-4000:])
+    check(res.returncode == 0, f"python -m tpu3dsis_torch.main {' '.join(args)} exited {res.returncode}")
+    lines = res.stdout.splitlines()
+    launches = json.loads(next(l for l in lines if l.startswith("LAUNCHES "))[len("LAUNCHES "):])
+    maps = [ast.literal_eval(l) for l in lines if l.startswith("{'mAP_")]
+    return launches, (maps[0] if maps else None), wall
+
+
+def artifacts_without_torch(save_dir):
+    res = subprocess.run([sys.executable, "-c", _LOAD_WITHOUT_TORCH, save_dir], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    check(res.returncode == 0, f"the artifacts do not load without torch: {res.stderr[-2000:]}")
+    return json.loads(res.stdout)
+
+
+def check_artifacts(listing, n_scenes, test_mode):
+    """Each scene's files, their dtypes and shapes, and pickles of numpy
+    uint8 masks and bools only."""
+    check(len(listing) == n_scenes, f"{len(listing)} scene directories for {n_scenes} scenes")
+    n_det = []
+    for scene, files in listing.items():
+        want = sorted(PRED_FILES + (GT_FILES if test_mode else ()))
+        check(sorted(files) == want, f"{scene}: files {sorted(files)}")
+        n = files["pred_box.npy"][1][0]
+        check(files["pred_box.npy"][:2] == ["float32", [n, 6]] and files["pred_box.npy"][2], f"{scene}: pred_box")
+        check(files["pred_class.npy"][:2] == ["int32", [n]], f"{scene}: pred_class {files['pred_class.npy']}")
+        check(files["pred_conf.npy"][:2] == ["float32", [n]] and files["pred_conf.npy"][2], f"{scene}: pred_conf")
+        numpy_int = str(np.where(np.zeros(1) <= 1, 1, 0).dtype)  # the driver's np.where(data <= 1, 1, 0)
+        check(files["scene.npy"][:2] == [numpy_int, list(SCENE_EXTENT)],
+              f"{scene}: scene.npy {files['scene.npy']}")
+        check(files["pred_mask"][:2] == ["list", n] and files["pred_mask"][2] in ([], ["numpy.ndarray/uint8"]),
+              f"{scene}: pred_mask {files['pred_mask']}")
+        check(files["pred_mask_index"][:2] == ["list", n] and files["pred_mask_index"][2] in ([], ["builtins.bool"]),
+              f"{scene}: pred_mask_index {files['pred_mask_index']}")
+        if test_mode:
+            check(files["gt_mask"][2] == ["numpy.ndarray/uint8"], f"{scene}: gt_mask {files['gt_mask']}")
+        n_det.append(n)
+    return n_det
+
+
+def load_scene_artifacts(scene_dir):
+    det = {k: np.load(os.path.join(scene_dir, f"{k}.npy")) for k in ("pred_box", "pred_class", "pred_conf")}
+    with open(os.path.join(scene_dir, "pred_mask"), "rb") as f:
+        masks = pickle.load(f)
+    return det, masks
+
+
+class MemoryScenes:
+    """A dataset of ``Sample``s held in memory, named for their artifacts'
+    directories, as ``run_scenes`` reads a ``SceneDataset``."""
+
+    def __init__(self, names, samples):
+        self.scenes, self._samples = list(names), list(samples)
+
+    def __len__(self):
+        return len(self._samples)
+
+    def __getitem__(self, i):
+        return self._samples[i]
+
+
+def room_samples(scenes, gts, frames):
+    """Phase 7's rooms as the scene loader would give them: gt boxes rounded
+    out (floor, ceil) with their class (chair, sofa or table by size, mapped
+    as the ScanNet label map maps nyu40 5, 6, 7), full box masks, frames."""
+    from tpu3dsis_torch.io import Sample
+
+    samples = []
+    for scene, gt, f in zip(scenes, gts, frames):
+        lo, hi = np.floor(gt[:, :3]), np.ceil(gt[:, 3:])
+        size_m = (gt[:, 3:] - gt[:, :3]) * VOXEL
+        cls = np.where(size_m[:, 1] <= 0.35, 5, np.where(np.maximum(size_m[:, 0], size_m[:, 2]) >= 2.0, 4, 3))
+        gt_box = np.concatenate([lo, hi, cls[:, None]], 1).astype(np.float32)
+        masks = [np.ones(tuple((h - l).astype(int)), np.uint8) for l, h in zip(lo, hi)]
+        samples.append(Sample(sample_id=f"room with {len(f['poses'])} views", data=scene, gt_box=gt_box, gt_mask=masks,
+                              world_to_grid=f["world_to_grid"], frame_ids=np.arange(len(f["poses"]), dtype=np.uint32),
+                              images=f["images"], depths=f["depths"], poses=f["poses"]))
+    return MemoryScenes([f"room{i:04d}_00_{len(f['poses'])}v" for i, f in enumerate(frames)], samples)
+
+
+def stage_ms(timings):
+    n = max(timings["scenes"], 1)
+    return {k: round(timings[k] * 1e3 / n, 3) for k in ("read", "infer", "write", "map")}
+
+
+def phase_drivers(dev, params, cparams, cscenes, cgts, cframes, scene_t, color_t):
+    """Phase 8: the entry module on files, then the color stream through
+    ``run_scenes``, each path's launches counted; the timings."""
+    from tpu3dsis_torch import checkpoint as ckpt
+    from tpu3dsis_torch.config import DetectorConfig, cfg_from_file, finalize_config
+    from tpu3dsis_torch.infer.driver import run_scenes
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the entry module at full width: test mode, then benchmark twice
+        t0 = time.time()
+        filelist = write_driver_scenes(tmp)
+        snapshot = os.path.join(tmp, "step_0.npz")
+        np.savez(snapshot, **{f"param:{k}": v for k, v in params.items()})
+        test_dir, bench_dir = os.path.join(tmp, "test"), os.path.join(tmp, "bench")
+        test_cfg = write_overlay(os.path.join(tmp, "test_overlay"), USE_IMAGES=False, TEST_FILELIST=filelist,
+                                 TEST_SAVE_DIR=test_dir)
+        bench_cfg = write_overlay(os.path.join(tmp, "bench_overlay"), USE_IMAGES=False, TEST_FILELIST=filelist,
+                                  TEST_SAVE_DIR=bench_dir)
+        log(f"[8] {DRIVER_SCENES} scenes of {SCENE_EXTENT} written as .scene files, a param: snapshot of the trained "
+            f"geometry and mask weights ({len(params)} keys) and overlays of benchmark.yml (USE_IMAGES False) in "
+            f"{time.time() - t0:.1f} s")
+        common = ["--step", snapshot, "--output_dir", os.path.join(tmp, "out")]
+        launches, card_map, wall = run_entry(["--cfg", test_cfg, "--mode", "test", *common])
+        log(f"[8] python -m tpu3dsis_torch.main --mode test: {wall:.1f} s with start-up; launches {launches}; "
+            f"{card_map} [{CARD}]")
+        check(card_map is not None and all(np.isfinite(v) for v in card_map.values()), f"mAP {card_map}")
+        for k in ("roi_pool3d_cuda", "nms3d_cuda", "nms3d_cuda_class_aware"):
+            check(launches[k] > 0, f"{k} was not launched by the entry module")
+        res["launches"] = launches
+        bench_runs = [run_entry(["--cfg", bench_cfg, "--mode", "benchmark", *common]) for _ in range(2)]
+        stamps = {s: os.stat(os.path.join(bench_dir, s, "pred_box.npy")).st_mtime_ns for s in os.listdir(bench_dir)}
+        log(f"[8] --mode benchmark twice: {bench_runs[0][2]:.1f} s, launches {bench_runs[0][0]}; then "
+            f"{bench_runs[1][2]:.1f} s, launches {bench_runs[1][0]} [{CARD}]")
+        check(bench_runs[0][0]["roi_pool3d_cuda"] > 0, "the first benchmark run launched no K1")
+        check(not any(bench_runs[1][0].values()), "the second benchmark run did not skip every scene")
+        check(stamps == {s: os.stat(os.path.join(bench_dir, s, "pred_box.npy")).st_mtime_ns for s in stamps},
+              "the second benchmark run rewrote a scene")
+
+        # (b) the artifacts without torch, and the same scenes on the CPU
+        n_det = check_artifacts(artifacts_without_torch(test_dir), DRIVER_SCENES, True)
+        check_artifacts(artifacts_without_torch(bench_dir), DRIVER_SCENES, False)
+        log(f"[8] artifacts of both modes load without torch (numpy uint8 masks, bool index); detections per scene "
+            f"{n_det}")
+        cfg = finalize_config(cfg_from_file(test_cfg + ".yml"))
+        cfg.TEST_SAVE_DIR = os.path.join(tmp, "cpu")
+        cpu_det = Detector(DetectorConfig.from_cfg(cfg), device="cpu").init_params(torch.Generator().manual_seed(0))
+        ckpt.load_jax_params(cpu_det, ckpt.partial_update(ckpt.module_params(cpu_det), params, cfg))
+        t0 = time.time()
+        cpu_map = run_scenes(cfg, cpu_det, "test")
+        cpu_s = time.time() - t0
+        log(f"[8] mAP card {card_map}, CPU {cpu_map} (CPU {cpu_s:.1f} s for {DRIVER_SCENES} scenes)")
+        res["tied_copies"] = 0
+        for scene in sorted(os.listdir(test_dir)):
+            res["tied_copies"] += compare_card_cpu(
+                load_scene_artifacts(os.path.join(test_dir, scene)),
+                load_scene_artifacts(os.path.join(cfg.TEST_SAVE_DIR, scene)),
+                f"{scene}'s artifacts, the entry module against run_scenes", cpu_s / DRIVER_SCENES, phase=8,
+                box_tol=1e-4, tie_stride=FEAT_STRIDE[0])
+        check(cpu_map == card_map, "the card's and the CPU's mAP differ")
+        res["map"] = card_map
+
+        # (d) the geometry driver in this process: read and encode, infer,
+        # writes and mAP per scene; test mode (the first pass of this
+        # detector), then benchmark mode (no gt, no mAP) into a fresh
+        # directory
+        cfg = finalize_config(cfg_from_file(test_cfg + ".yml"))
+        det = Detector(DetectorConfig.from_cfg(cfg), device=dev)
+        ckpt.load_jax_params(det, params)
+        res["geometry"] = {}
+        for i, mode in enumerate(("test", "benchmark")):
+            cfg.TEST_SAVE_DIR = os.path.join(tmp, f"timed{i}")
+            timings = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_scenes(cfg, det, mode, timings=timings)
+            wall = time.perf_counter() - t0
+            res["geometry"][mode] = {"scenes_per_min": 60.0 * timings["scenes"] / wall, "stage_ms": stage_ms(timings)}
+        for mode, r in res["geometry"].items():
+            log(f"[8] geometry driver, {mode} mode (benchmark.yml: float32, proposals 400 -> 200 per tile, "
+                f"CLASS_THRESH 0.5): {r['scenes_per_min']:.2f} scenes/min from .scene files to artifacts"
+                f"{' and mAP' if mode == 'test' else ''}; ms per scene " + json.dumps(r["stage_ms"])
+                + " (read and encode in the loader thread, overlapped with infer); phase 6's SceneInference float32 "
+                f"{scene_t['float32']['scenes_per_min']:.2f} masked scenes/min (proposals 256 -> 32, CLASS_THRESH "
+                f"0.3) [{CARD}]")
+        del det, cpu_det
+
+        # (c) the color stream: phase 7's rooms with their frames through
+        # run_scenes (bf16, ENet, K3), one scene's K3 calls against the plain
+        # version, then the path with its launches counted
+        ccfg = finalize_config(cfg_from_file(os.path.join(ROOT, "experiments", "cfgs", "ScanNet", "benchmark.yml")))
+        want = scannet_color_scene_config()
+        ccfg.TEST.RPN_PRE_NMS_TOP_N, ccfg.TEST.RPN_POST_NMS_TOP_N = want.TEST.RPN_PRE_NMS_TOP_N, want.TEST.RPN_POST_NMS_TOP_N
+        ccfg.CLASS_THRESH, ccfg.TPU_COMPUTE_DTYPE = want.CLASS_THRESH, want.TPU_COMPUTE_DTYPE
+        ccfg.INTRINSIC = [list(r) for r in want.INTRINSIC]
+        check(DetectorConfig.from_cfg(ccfg) == want, "the color driver's config is not phase 7's")
+        cdet = load_jax_params(Detector(want, device=dev), cparams)
+        rooms = room_samples(cscenes, cgts, cframes)
+        ccfg.TEST_SAVE_DIR = os.path.join(tmp, "color_recorded")
+        with recording_kernel_calls() as calls:
+            run_scenes(ccfg, cdet, "test", dataset=MemoryScenes(rooms.scenes[1:2], [rooms[1]]))
+        k3 = [a for kind, a in calls if kind == "fuse_views_cuda"]
+        check(len(k3) == 1, f"the driver made {len(k3)} K3 calls for one color scene, not 1")
+        err = max(_k3_case(f"the driver's call, {rooms.scenes[1]}", a, phase=8)[0] for a in k3)
+        ccfg.TEST_SAVE_DIR = os.path.join(tmp, "color")
+        reset_launch_counts()
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        color_map = run_scenes(ccfg, cdet, "test", dataset=rooms, timings=timings)
+        wall = time.perf_counter() - t0
+        launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
+                    "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches,
+                    "fuse_views_cuda": projection.fuse_views_cuda.launches}
+        log(f"[8] color driver: {len(rooms)} rooms ({[len(f['poses']) for f in cframes]} views), launches {launches}, "
+            f"{color_map}")
+        for k in launches:
+            check(launches[k] > 0, f"{k} was not launched on the color driver path")
+        check(launches["fuse_views_cuda"] >= len(rooms), "K3 did not launch for every color scene")
+        check(all(np.isfinite(v) for v in color_map.values()), f"color mAP {color_map}")
+        check_artifacts(artifacts_without_torch(ccfg.TEST_SAVE_DIR), len(rooms), True)
+        res["color"] = {"launches": launches, "k3_err": err, "map": color_map,
+                        "scenes_per_min": 60.0 * timings["scenes"] / wall, "stage_ms": stage_ms(timings)}
+        log(f"[8] color driver (bf16, views {[len(f['poses']) for f in cframes]}): "
+            f"{res['color']['scenes_per_min']:.2f} scenes/min from in-memory samples to artifacts and mAP (first pass); "
+            f"ms per scene " + json.dumps(res["color"]["stage_ms"]) + f"; phase 7's SceneInference bfloat16 "
+            f"{color_t['bfloat16']['scenes_per_min']:.2f} color masked scenes/min [{CARD}]")
+    return res
+
+
 def main() -> int:
     global CARD, CLOCK_MHZ
     if not torch.cuda.is_available():
@@ -1602,9 +1971,12 @@ def main() -> int:
     del sis, scene_list
 
     cparams = color_params()
-    csis, cscenes, cframes, color_launches, color_per_scene, k3r = phase_color(dev, cparams)
+    csis, cscenes, cgts, cframes, color_launches, color_per_scene, k3r = phase_color(dev, cparams)
     phase_color_card_vs_cpu(csis, cparams)
     color_t = phase_color_timing(csis, cscenes, cframes, k3r)
+    del csis
+
+    drv = phase_drivers(dev, params, cparams, cscenes, cgts, cframes, scene_t, color_t)
 
     k1, k2 = kernel_res["roi_pool3d_cuda"], kernel_res["nms3d_cuda"]
     # K1 at the bench's compute dtype, bf16, and K2 at N = 400, thresh 0.1
@@ -1614,6 +1986,8 @@ def main() -> int:
          "replaces": "tpu3dsis/ops/roi_pool3d_pallas.py:85", "launches": launches["roi_pool3d_cuda"],
          "launches_per_batch": per_batch["roi_pool3d_cuda"], "launches_scene_path": scene_launches["roi_pool3d_cuda"],
          "launches_per_scene": per_scene["roi_pool3d_cuda"], "launches_color_path": color_launches["roi_pool3d_cuda"],
+         "launches_driver_path": drv["launches"]["roi_pool3d_cuda"],
+         "launches_driver_color_path": drv["color"]["launches"]["roi_pool3d_cuda"],
          "max_abs_err": max(k1["err"], k2c["k1_err"], k3r["k1_err"]),
          "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"],
          "bound_ms": kernels["k1_bfloat16_bound"], "bound_by": "bytes", "library_ms": None},
@@ -1621,19 +1995,25 @@ def main() -> int:
          "replaces": "tpu3dsis/ops/nms.py:86", "launches": launches["nms3d_cuda"],
          "launches_per_batch": per_batch["nms3d_cuda"], "launches_scene_path": scene_launches["nms3d_cuda"],
          "launches_per_scene": per_scene["nms3d_cuda"], "launches_color_path": color_launches["nms3d_cuda"],
+         "launches_driver_path": drv["launches"]["nms3d_cuda"],
+         "launches_driver_color_path": drv["color"]["launches"]["nms3d_cuda"],
          "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"]),
          "ms": kernels["k2_400_0.1"], "plain_ms": kernels["k2_plain_0.1"],
          "bound_ms": kernels["k2_400_bound"], "bound_by": kernels["k2_400_bound_by"], "library_ms": None},
         {"name": "nms3d_cuda (class-aware, scene stitch)", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
          "replaces": "tpu3dsis/ops/nms.py:86 (classes=, tpu3dsis/infer/tiling.py:1306)",
          "launches": scene_launches["nms3d_cuda_class_aware"],
-         "launches_per_scene": per_scene["nms3d_cuda_class_aware"], "max_abs_err": k2c["err"],
+         "launches_per_scene": per_scene["nms3d_cuda_class_aware"],
+         "launches_driver_path": drv["launches"]["nms3d_cuda_class_aware"],
+         "launches_driver_color_path": drv["color"]["launches"]["nms3d_cuda_class_aware"], "max_abs_err": k2c["err"],
          "ms": scene_t["k2_class_aware"]["ms"], "plain_ms": scene_t["k2_class_aware"]["plain_ms"],
          "bound_ms": scene_t["k2_class_aware"]["bound_ms"], "bound_by": scene_t["k2_class_aware"]["bound_by"],
          "library_ms": None},
         {"name": "fuse_views_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/fuse_views.cu",
          "replaces": "tpu3dsis/geometry/projection.py:369", "launches": color_launches["fuse_views_cuda"],
-         "launches_per_scene": color_per_scene["fuse_views_cuda"], "max_abs_err": k3r["err"],
+         "launches_per_scene": color_per_scene["fuse_views_cuda"],
+         "launches_driver_color_path": drv["color"]["launches"]["fuse_views_cuda"],
+         "max_abs_err": max(k3r["err"], drv["color"]["k3_err"]),
          "ms": color_t["bfloat16"]["k3_ms"], "plain_ms": color_t["bfloat16"]["k3_plain_ms"],
          "bound_ms": color_t["bfloat16"]["k3_bound_ms"], "bound_by": color_t["bfloat16"]["k3_bound_by"],
          "library_ms": None, "cull_kept_share": k3r["kept_share"]},

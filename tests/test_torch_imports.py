@@ -1,6 +1,6 @@
-"""The port's paths (chunk, scene, color scene) import no JAX, YAML, PIL or JAX
-package; the probe's cuts still fit the kernel sources; its kernels on the
-card."""
+"""The port's paths (chunk, scene, color scene, the test and benchmark
+drivers and their entry module) import no JAX, YAML, PIL or JAX package;
+the probe's cuts still fit the kernel sources; its kernels on the card."""
 
 import os
 import subprocess
@@ -63,6 +63,53 @@ def test_port_imports_no_jax_yaml_or_pil():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "", f"imported: {res.stdout.strip()}"
+
+
+_TINY_DRIVERS = """
+import os, sys, tempfile
+import numpy as np
+from tpu3dsis_torch import main, yaml_subset
+from tpu3dsis_torch.eval import DetectionMAP
+from tpu3dsis_torch.infer import driver, single_shot
+from tpu3dsis_torch.io import SceneDataset, chunk_format, dataset, frames
+from tpu3dsis_torch.io import write_chunk_file
+
+tmp = tempfile.mkdtemp()
+rng = np.random.RandomState(0)
+path = os.path.join(tmp, "scene0000_00.scene")
+write_chunk_file(path, rng.randn(20, 16, 20).astype(np.float32), np.array([[2, 2, 2, 8, 8, 8]], np.float32),
+                 np.array([5], np.uint32), [np.ones((6, 6, 6), np.uint16)], np.ones(1, np.float32),
+                 np.eye(4, dtype=np.float32), np.zeros(0, np.uint32))
+with open(os.path.join(tmp, "list.txt"), "w") as f:
+    f.write(path + "\\n")
+with open("experiments/cfgs/ScanNet/benchmark.yml") as f:
+    cfg = yaml_subset.load(f.read())
+cfg.update(USE_IMAGES=False, TPU_TILE_SIZE=[16, 16, 16], TPU_TILE_STRIDE=[12, 12, 12], CLASS_THRESH=0.0,
+           TPU_MASK_INFER_CANVAS=[16, 16, 16], TPU_MASK_INFER_CANVAS_SMALL=[8, 8, 8],
+           TEST_FILELIST=os.path.join(tmp, "list.txt"), TEST_SAVE_DIR=os.path.join(tmp, "out"))
+cfg["TEST"].update(RPN_PRE_NMS_TOP_N=16, RPN_POST_NMS_TOP_N=4)
+with open(os.path.join(tmp, "tiny.yml"), "w") as f:
+    f.write(yaml_subset.dump(cfg))
+for mode in ("test", "benchmark"):
+    main.main(["--cfg", os.path.join(tmp, "tiny"), "--mode", mode, "--device", "cpu", "--output_dir", tmp])
+assert sorted(os.listdir(os.path.join(tmp, "out", "scene0000_00")))[0] == "gt_box.npy"
+print("MODULES", " ".join(m for m in sys.modules
+                          if m in ("jax", "jaxlib", "yaml", "PIL") or m.startswith(("tpu3dsis.", "PIL."))
+                          or m == "tpu3dsis"))
+"""
+
+
+def test_drivers_import_no_jax_yaml_or_pil():
+    """The entry module in test and benchmark mode on a tiny geometry scene
+    (no frames on disk, so no PIL either)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", _TINY_DRIVERS], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    line = [l for l in res.stdout.splitlines() if l.startswith("MODULES")]
+    assert line == ["MODULES "], f"imported: {line}"
 
 
 def test_probe_cuts_match_the_kernel_sources():

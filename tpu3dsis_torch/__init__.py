@@ -2,11 +2,13 @@
 
 The JAX package ``tpu3dsis`` is the reference; this package follows it module
 for module. It imports ``torch`` and never ``jax``. The hand-written CUDA
-kernels (``csrc/``) are built at first use (``_build.py``). So far it covers
-chunk detection (``Detector``, ``build_inference_fn``) and whole-scene
+kernels (``csrc/``) are built at first use (``_build.py``). It covers
+chunk detection (``Detector``, ``build_inference_fn``), whole-scene
 inference with instance masks (``SceneInference``), geometry-only or with
-the color stream (ENet, view fusion), on the CUDA card unless the caller
-asks for the CPU (``device="cpu"``).
+the color stream (ENet, view fusion), and the test and benchmark drivers
+over ``.scene`` files (``python -m tpu3dsis_torch.main``,
+``infer/driver.py::run_scenes``), on the CUDA card unless the caller asks
+for the CPU (``device="cpu"``).
 """
 
 from tpu3dsis_torch.checkpoint import load_jax_params

@@ -4,8 +4,15 @@ The JAX param dict is flat and keyed by the torch names, so loading is a
 numpy-only layout conversion (DHWIO -> OIDHW 3D conv weights, HWIO -> OIHW
 2D conv weights of the ENet, (in, out) -> (out, in) linear weights) and a
 strict ``load_state_dict``; BatchNorm running statistics load as the
-modules' buffers. The conversion is the port's own copy of the JAX package's
-``params_to_torch_state_dict``, so the port never imports that package.
+modules' buffers. The conversions are the port's own copies of the JAX
+package's, so the port never imports that package.
+
+The loading half of the JAX package's checkpoints is copied too, so that
+``--step`` reads what the JAX ``main.py`` reads: a released torch ``.pth``
+(``load_pth``) or a native ``.npz`` snapshot (``load_snapshot``), merged
+into the detector's parameters by the name-partitioned ``partial_update``.
+``module_params`` gives a module's parameters under the JAX names and
+layouts, which ``partial_update`` takes and ``load_jax_params`` loads back.
 """
 
 from __future__ import annotations
@@ -44,3 +51,85 @@ def load_jax_params(module: nn.Module, params) -> nn.Module:
     state = {k: torch.tensor(v) for k, v in params_to_torch_state_dict(params).items()}
     module.load_state_dict(state, strict=True)
     return module
+
+
+def torch_state_dict_to_params(state_dict) -> dict:
+    """A torch state_dict (tensors or numpy) -> the flat JAX param dict:
+    OIDHW -> DHWIO 3D conv weights, (out, in) -> (in, out) linear weights;
+    other arrays (2D conv weights included) keep their layout, as in the
+    JAX package."""
+    params = {}
+    for name, value in state_dict.items():
+        arr = np.asarray(value.detach().cpu().numpy() if hasattr(value, "detach") else value, dtype=np.float32)
+        if name.endswith(".weight") and arr.ndim == 5:
+            arr = arr.transpose(2, 3, 4, 1, 0)  # OIDHW -> DHWIO
+        elif name.endswith(".weight") and arr.ndim == 2:
+            arr = arr.transpose(1, 0)  # (out,in) -> (in,out)
+        params[name] = arr
+    return params
+
+
+def module_params(module: nn.Module) -> dict:
+    """A module's parameters and buffers under the JAX names and layouts,
+    as float32 numpy: the inverse of ``params_to_torch_state_dict``, so
+    that ``load_jax_params(module, module_params(module))`` changes
+    nothing."""
+    out = {}
+    for name, value in module.state_dict().items():
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if name.endswith(".weight") and arr.ndim == 5:
+            arr = arr.transpose(2, 3, 4, 1, 0)  # (out, in, kx, ky, kz) -> (kx, ky, kz, in, out)
+        elif name.endswith(".weight") and arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)  # (out, in, kh, kw) -> (kh, kw, in, out)
+        elif name.endswith(".weight") and arr.ndim == 2:
+            arr = arr.transpose(1, 0)  # (out, in) -> (in, out)
+        out[name] = np.ascontiguousarray(arr)
+    return out
+
+
+def load_pth(path: str) -> dict:
+    """A torch .pth checkpoint -> the flat JAX param dict."""
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(sd, "state_dict"):
+        sd = sd.state_dict()
+    return torch_state_dict_to_params(sd)
+
+
+def partial_update(model_params: dict, pretrained: dict, cfg) -> dict:
+    """Name-substring partitioned partial load (reference
+    ``trainval.py:140-158``): backbone = "geometry" or "combine", rpn,
+    classifier (without its cls and bbox heads under NYUV2_FINETUNE), and
+    "color" with USE_IMAGES. As in the JAX package, "geometry" also takes
+    ``mask_backbone.geometry.*``, and no partition takes ``enet.*``, so a
+    checkpoint leaves the ENet at its initialisation."""
+    out = dict(model_params)
+
+    def take(pred):
+        for k, v in pretrained.items():
+            if pred(k) and k in out:
+                if out[k].shape != v.shape:
+                    raise ValueError(f"shape mismatch for {k}: {out[k].shape} vs {v.shape}")
+                out[k] = v
+
+    if cfg.LOAD_BACKBONE:
+        take(lambda k: "geometry" in k or "combine" in k)
+    if cfg.LOAD_RPN:
+        take(lambda k: "rpn" in k)
+    if cfg.LOAD_CLASS:
+        if cfg.NYUV2_FINETUNE:
+            take(lambda k: "classifier" in k and "classifier_cls" not in k and "classifier_bbox" not in k)
+        else:
+            take(lambda k: "classifier" in k)
+    if cfg.USE_IMAGES:
+        take(lambda k: "color" in k)
+    return out
+
+
+def load_snapshot(path: str):
+    """A native ``.npz`` snapshot (``param:``, ``momentum:`` and
+    ``opt_step`` entries) -> (params, momentum, opt_step)."""
+    with np.load(path) as data:
+        params = {k[len("param:"):]: data[k] for k in data.files if k.startswith("param:")}
+        momentum = {k[len("momentum:"):]: data[k] for k in data.files if k.startswith("momentum:")}
+        opt_step = int(data["opt_step"]) if "opt_step" in data.files else 0
+    return params, momentum, opt_step

@@ -1,18 +1,275 @@
-"""The settings the detector and the whole-scene path read, as a frozen dataclass.
+"""Configuration: the YAML config files, and the settings the detector reads.
 
-The JAX package's ``tpu3dsis.config`` parses YAML and holds every key of
-every flow; this module holds only the keys the port's detection, scene and
-color paths read, under the same names, and imports no YAML. The scene and
-color keys default to the JAX package's defaults
-(``tpu3dsis/config/config.py``).
-``DetectorConfig.from_cfg`` reads them from a ``tpu3dsis`` ``Config`` (or
-anything with the same attributes).
+``Config``, ``default_config``, ``merge_into``, ``cfg_from_file``,
+``cfg_to_file``, ``load_label_mapping`` and ``finalize_config`` are copies
+of the JAX package's ``tpu3dsis/config/config.py``: every key and default
+of ``experiments/cfgs/**/*.yml``, the same strict merge (unknown keys raise
+KeyError, type mismatches ValueError, ints promoted to float and bool
+defaults). The files are read and written by ``yaml_subset``, so no YAML
+library is imported. ``DetectorConfig`` is the frozen subset of those keys
+that the port's detection, scene and color paths read, under the same
+names; ``DetectorConfig.from_cfg`` takes it from a ``Config``.
 """
 
 from __future__ import annotations
 
+import copy
+import csv
 import dataclasses
 from dataclasses import dataclass
+
+from tpu3dsis_torch import yaml_subset
+
+
+class Config(dict):
+    """A dict with attribute access (replacement for easydict)."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError:
+            raise AttributeError(name)
+
+    def __setattr__(self, name, value):
+        self[name] = value
+
+    def __delattr__(self, name):
+        try:
+            del self[name]
+        except KeyError:
+            raise AttributeError(name)
+
+    @staticmethod
+    def deep(d):
+        """Recursively convert nested dicts into Config."""
+        if isinstance(d, dict):
+            return Config({k: Config.deep(v) for k, v in d.items()})
+        if isinstance(d, list):
+            return [Config.deep(v) for v in d]
+        return d
+
+    def copy(self):
+        return Config.deep(copy.deepcopy(dict(self)))
+
+
+def default_config() -> Config:
+    """Every key with its default (``tpu3dsis/config/config.py:50-268``; the
+    reference's ``lib/utils/config.py``, then the ``TPU_`` extensions)."""
+    c = Config()
+
+    c.LEARNING_RATE = 0.001
+    c.MOMENTUM = 0.9
+    c.WEIGHT_DECAY = 0.0005
+    c.GAMMA = 0.1
+    c.STEPSIZE = [30000]
+    c.DISPLAY = 10
+    c.DOUBLE_BIAS = True
+    c.INIT_TRUNCATED = True
+    c.BIAS_DECAY = False
+
+    c.RPN_POSITIVE_OVERLAP = 0.6
+    c.RPN_NEGATIVE_OVERLAP = 0.2
+    c.RPN_FG_FRACTION = 0.5
+    c.RPN_BATCHSIZE = 256
+    c.ALLOW_BORDER = 0
+    c.FIRST_TIME_ANCHORS = True
+    c.RPN_CHANNELS = 256
+
+    c.TRAIN = Config()
+    c.TRAIN.RPN_NMS_THRESH = 0.7
+    c.TRAIN.RPN_PRE_NMS_TOP_N = 12000
+    c.TRAIN.RPN_POST_NMS_TOP_N = 2000
+    c.TEST = Config()
+    c.TEST.RPN_NMS_THRESH = 0.35
+    c.TEST.RPN_PRE_NMS_TOP_N = 6000
+    c.TEST.RPN_POST_NMS_TOP_N = 300
+
+    c.CLASS_BATCH_SIZE = 128
+    c.FG_FRACTION = 0.25
+    c.FG_THRESH = 0.3
+    c.BG_THRESH = 0.2
+    c.BG_THRESH_LO = 0.2
+    c.USE_GT = True
+    c.NORMALIZE_WEIGHTS = 1.0
+    c.CLASS_POOLING_SIZE = 2
+
+    c.MASK_FG_THRESH = 0.5
+    c.MASK_USE_IMAGES = False
+    c.MASK_ONLY_IMAGES = False
+
+    c.VAL_TIME = 2.0
+    c.SNAPSHOT_KEPT = 3
+    c.VAL_NUM = 20
+    c.VAL_SAVE_DIR = ""
+    c.TEST_SAVE_DIR = ""
+
+    c.MAP_THRESH = 0.25
+    c.ROI_THRESH = 0.9
+    c.CLASS_THRESH = 0.9
+    c.MASK_THRESH = 0.5
+    c.MODE = ""
+    c.MAX_IMAGE = 400
+    c.MAX_VOLUME = 2000000
+
+    c.NUM_CLASSES = 0
+    c.BATCH_SIZE = 1
+    c.TRAIN_FILELIST = ""
+    c.VAL_FILELIST = ""
+    c.TEST_FILELIST = ""
+    c.TRAINVAL_FILELIST = ""
+    c.KEEP_THRESH = 0.0
+    c.LABEL_MAP = "datagen/fileLists/nyu40labels.csv"
+    c.VOXEL_SIZE = 0.09375
+    c.TRUNCATED = 3.0
+    c.FLIP_TSDF = False
+    c.LOG_TSDF = False
+
+    c.NUM_ANCHORS_LEVEL1 = 9
+    c.NUM_ANCHORS_LEVEL2 = 9
+    c.NUM_ANCHORS_LEVEL3 = 9
+    c.ANCHORS_TYPE_LEVEL1 = "suncg"
+    c.ANCHORS_TYPE_LEVEL2 = "suncg"
+    c.ANCHORS_TYPE_LEVEL3 = "suncg"
+    c.FILTER_ANCHOR_LEVEL1 = ""
+    c.FILTER_ANCHOR_LEVEL2 = ""
+    c.FILTER_ANCHOR_LEVEL3 = ""
+
+    c.LOAD_BACKBONE = False
+    c.USE_BACKBONE = False
+    c.FIX_BACKBONE = False
+    c.LOAD_RPN = False
+    c.USE_RPN = False
+    c.FIX_RPN = False
+    c.LOAD_CLASS = False
+    c.USE_CLASS = False
+    c.FIX_CLASS = False
+    c.USE_MASK = True
+    c.FIX_ENET = True
+    c.NET = "overfitting_net"
+    c.MASK_BACKBONE = ""
+
+    c.USE_IMAGES = False
+    c.ONLY_IMAGES = False
+    c.USE_IMAGES_GT = True
+    c.NUM_2D_CLASSES = 41
+    c.NUM_IMAGES = 1
+    c.RANDOM_NUM_IMAGES = False
+    c.BASE_IMAGE_PATH = "/mnt/local_datasets/SUNCG/suncg_frames"
+    c.PRETRAINED_ENET_PATH = ""
+    c.IMAGE_SHAPE = [328, 256]
+    c.PROJ_DEPTH_MIN = 0.1
+    c.PROJ_DEPTH_MAX = 4.0
+    c.IMAGE_TYPE = "color2"
+    c.IMAGE_EXT = ".jpg"
+    c.DEPTH_SHAPE = [41, 32]
+    c.NUM_IMAGE_CHANNELS = 128
+    c.INTRINSIC = [
+        [35.5070229, 0, 20, 0],
+        [0, 36.9504013, 15.5, 0],
+        [0, 0, 1, 0],
+        [0, 0, 0, 1],
+    ]
+    c.COLOR_MEAN = [0.47083, 0.44685, 0.40733]
+    c.COLOR_STD = [0.27861, 0.27409, 0.28844]
+
+    c.NYUV2_FINETUNE = False
+
+    c.DEBUG = False
+    c.TPU_MAX_GT = 64
+    c.TPU_COMPUTE_DTYPE = "float32"
+    c.TPU_DATA_PARALLEL = 0
+    c.TPU_MASK_CANVAS = [96, 48, 96]
+    c.TPU_TILE_SIZE = [96, 48, 96]
+    c.TPU_TILE_STRIDE = [43, 9, 43]
+    c.TPU_STITCH_NMS_THRESH = 0.25
+    c.TPU_MASK_INFER_CANVAS = [64, 48, 64]
+    c.TPU_MASK_INFER_CANVAS_SMALL = [32, 32, 32]
+    c.TPU_FUSED_PRE_NMS = 1024
+    c.TPU_FUSED_MAX_DETECTIONS = 64
+    c.TPU_FUSED_LARGE_WINDOWS = 12
+    c.TPU_MAX_MASK_ROIS = 16
+    c.TPU_MASK_CANVAS_SMALL = [0, 0, 0]
+    c.TPU_MAX_LARGE_MASK_ROIS = 16
+    c.TPU_MASK_EXTRA_WINDOWS = 4
+    c.TPU_MAX_TILE_VIEWS = 16
+    c.TPU_SCENE_COLOR_RESIDENT = "auto"
+    c.TPU_COLOR_VOLUME_MAX_MB = 2048
+    c.TPU_COLOR_VIEWS_PER_STEP = 1
+    c.TPU_COLOR_SCAN_UNROLL = 8
+    c.TPU_SCENE_MODE = "tiled"
+    c.TPU_SCENE_TILE_PARALLEL = 0
+    c.TPU_COMPACT_TRANSFERS = True
+
+    return c
+
+
+
+def merge_into(overlay: dict, base: Config) -> None:
+    """Strict merge of ``overlay`` into ``base`` in place: unknown keys raise
+    KeyError; type mismatches raise ValueError, except an int for a float
+    or bool default (promoted) and a list for a list."""
+    if not isinstance(overlay, dict):
+        return
+    for k, v in overlay.items():
+        if k not in base:
+            raise KeyError("{} is not a valid config key".format(k))
+        old = base[k]
+        if isinstance(old, dict):
+            if not isinstance(v, dict):
+                raise ValueError("Type mismatch ({} vs. {}) for config key: {}".format(type(old), type(v), k))
+            merge_into(v, old)
+            continue
+        if old is not None and v is not None and type(old) is not type(v):
+            if isinstance(old, float) and isinstance(v, int):
+                v = float(v)
+            elif isinstance(old, bool) and isinstance(v, int):
+                v = bool(v)
+            elif isinstance(old, list) and isinstance(v, list):
+                pass
+            else:
+                raise ValueError("Type mismatch ({} vs. {}) for config key: {}".format(type(old), type(v), k))
+        base[k] = v
+
+
+def cfg_from_file(filename: str, base: Config | None = None) -> Config:
+    """Load a YAML overlay onto the defaults and return the merged Config."""
+    cfg = base if base is not None else default_config()
+    with open(filename, "r") as f:
+        overlay = yaml_subset.load(f.read(), filename)
+    if overlay:
+        merge_into(overlay, cfg)
+    return cfg
+
+
+def cfg_to_file(cfg: Config, filename: str) -> None:
+    with open(filename, "w") as f:
+        f.write(yaml_subset.dump(cfg))
+
+
+def load_label_mapping(label_file: str):
+    """The label-map CSV (``nyu40id,nyu40class,mappedId,mappedIdConsecutive,weight``)
+    -> (nyu40 id -> consecutive id, class weights with the background's
+    0.3280746813009404 first)."""
+    mapping = {}
+    weights_pre = {}
+    weights = [0.3280746813009404]
+    with open(label_file) as csvfile:
+        for row in csv.DictReader(csvfile, delimiter=","):
+            mapping[int(row["nyu40id"])] = int(row["mappedIdConsecutive"])
+            weights_pre[int(row["mappedIdConsecutive"])] = float(row["weight"])
+    for key in sorted(weights_pre.keys()):
+        weights.append(weights_pre[key])
+    return mapping, weights
+
+
+def finalize_config(cfg: Config) -> Config:
+    """NUM_CLASSES and NORMALIZE_WEIGHTS from the label map: the weights > 0
+    (background and instance classes) and their count."""
+    if cfg.LABEL_MAP:
+        _, weights = load_label_mapping(cfg.LABEL_MAP)
+        cfg.NORMALIZE_WEIGHTS = [w for w in weights if w > 0]
+        cfg.NUM_CLASSES = len(cfg.NORMALIZE_WEIGHTS)
+    return cfg
 
 
 def _ints(values) -> tuple:
@@ -96,7 +353,7 @@ class DetectorConfig:
     @classmethod
     def from_cfg(cls, cfg) -> "DetectorConfig":
         """Read the detector's, the scene path's and the color stream's keys
-        from a ``tpu3dsis`` ``Config``."""
+        from a ``Config``."""
         test = cfg.TEST
         return cls(
             NUM_CLASSES=int(cfg.NUM_CLASSES),

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import threading
 import time
 
 import numpy as np
@@ -165,16 +166,20 @@ class SceneInference:
         self._upload_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._color_cache = None  # (frames dict, prep) of the last scene's frames
         self._color_prefetch = {}  # id(frames) -> (frames, future of _prepare_color)
+        # guards both prefetch dicts and the upload thread's start: a driver
+        # may prefetch from its loader thread while this one infers
+        self._prefetch_lock = threading.Lock()
         self.last_fused = False  # did the fused path serve the last infer()?
         self.host_path_scenes = 0  # infer() calls an overflow sent to detect + predict_masks
 
     def close(self) -> None:
         """Stop the upload thread, if one was started."""
-        if self._upload_exec is not None:
-            self._upload_exec.shutdown(wait=True)
-            self._upload_exec = None
-        self._prefetch.clear()
-        self._color_prefetch.clear()
+        with self._prefetch_lock:
+            if self._upload_exec is not None:
+                self._upload_exec.shutdown(wait=True)
+                self._upload_exec = None
+            self._prefetch.clear()
+            self._color_prefetch.clear()
 
     # --- the scene on the device -------------------------------------------
     def _bucket_shape(self, scene_shape):
@@ -201,17 +206,19 @@ class SceneInference:
     def prefetch_scene(self, scene_data: np.ndarray) -> None:
         """Start the scene's padding and upload in the background, so that a
         stream of scenes uploads scene i+1 while scene i computes. No-op if
-        the scene is resident or already in flight."""
+        the scene is resident or already in flight. Safe to call from another
+        thread than the one that infers."""
         if self._scene_cache is not None and self._scene_cache[0] is scene_data:
             return
-        if id(scene_data) in self._prefetch:
-            return
-        if len(self._prefetch) >= 4:  # bound the device memory of unread prefetches
-            self._prefetch.pop(next(iter(self._prefetch)))[1].result()
-        self._prefetch[id(scene_data)] = (scene_data, self._uploader().submit(self._upload_scene, scene_data))
+        with self._prefetch_lock:
+            if id(scene_data) in self._prefetch:
+                return
+            if len(self._prefetch) >= 4:  # bound the device memory of unread prefetches
+                self._prefetch.pop(next(iter(self._prefetch)))[1].result()
+            self._prefetch[id(scene_data)] = (scene_data, self._uploader().submit(self._upload_scene, scene_data))
 
     def _uploader(self) -> concurrent.futures.ThreadPoolExecutor:
-        """The one upload thread, started at first use."""
+        """The one upload thread, started at first use (under the prefetch lock)."""
         if self._upload_exec is None:
             self._upload_exec = concurrent.futures.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="scene-upload")
@@ -224,7 +231,8 @@ class SceneInference:
         cached = self._scene_cache
         if cached is not None and cached[0] is scene_data:
             return cached[1], cached[2]
-        entry = self._prefetch.pop(id(scene_data), None)
+        with self._prefetch_lock:
+            entry = self._prefetch.pop(id(scene_data), None)
         if entry is not None and entry[0] is scene_data:
             data, scene_dev, ready = entry[1].result()
         else:
@@ -295,17 +303,19 @@ class SceneInference:
         the upload thread, so that a stream of scenes prepares scene i+1's
         views while scene i computes. ``scene_shape`` is the scene's (X, Y,
         Z). At most 4 preps are in flight; no-op for a geometry-only
-        detector, or if these frames are current or already in flight."""
+        detector, or if these frames are current or already in flight. Safe to
+        call from another thread than the one that infers."""
         if self.det.color_projector is None or frames is None:
             return
         if self._color_cache is not None and self._color_cache[0] is frames:
             return
-        if id(frames) in self._color_prefetch:
-            return
-        if len(self._color_prefetch) >= 4:  # bound the device memory of unread preps
-            self._color_prefetch.pop(next(iter(self._color_prefetch)))[1].result()
-        fut = self._uploader().submit(self._prepare_color, frames, tuple(int(d) for d in scene_shape[:3]))
-        self._color_prefetch[id(frames)] = (frames, fut)
+        with self._prefetch_lock:
+            if id(frames) in self._color_prefetch:
+                return
+            if len(self._color_prefetch) >= 4:  # bound the device memory of unread preps
+                self._color_prefetch.pop(next(iter(self._color_prefetch)))[1].result()
+            fut = self._uploader().submit(self._prepare_color, frames, tuple(int(d) for d in scene_shape[:3]))
+            self._color_prefetch[id(frames)] = (frames, fut)
 
     def _device_color(self, frames: dict, scene_shape) -> dict:
         """The prep of these frames, made once per frames dict: a pending
@@ -316,7 +326,8 @@ class SceneInference:
         if cached is not None and cached[0] is frames:
             prep = cached[1]
         else:
-            entry = self._color_prefetch.pop(id(frames), None)
+            with self._prefetch_lock:
+                entry = self._color_prefetch.pop(id(frames), None)
             if entry is not None and entry[0] is frames:
                 prep, ready = entry[1].result()
             else:
