@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's chunk and whole-scene paths and its test and
-benchmark drivers on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's chunk and whole-scene paths, its test and
+benchmark drivers and its training on one NVIDIA card.
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
@@ -64,10 +64,29 @@ result):
      samples with frames (every count set to 0 before, read after; K3's
      call of one room held against its plain version); driver scenes/min
      and ms per scene of read and encode, infer, artifact writes and mAP
-     for both streams.
+     for both streams;
+  9. training: one geometry step on the card against the CPU (float32,
+     TF32 off, the same weights, batch and draws; losses within 1e-3, the
+     updated parameters within 1e-4); ``build_train_step`` at full width,
+     bf16, on a fixed batch of ``bench.py::bench_train``'s synthetic chunks,
+     30 steps of ``scannet_train_config()`` at batch 8 and of its color
+     variant (5 views a chunk, frozen ENet, K3) at batch 4, every count set
+     to 0 before and read after (K1, K1b, K2, and K3 for color must rise),
+     total_loss falling and every step finite; s/iter and chunks/s (the
+     CUDA-event median), peak memory, ms by stage (forward, targets,
+     backward, update) and the idle share of a profile; every kernel call
+     of one step of each held against its plain version; K1b in float32
+     and bf16 on the training calls, phase 2's rois and its edge cases
+     (ties, empty bins, map edges, overlapping rois; disjoint bins
+     exactly), its time, plain time and bytes bound; then ``python -m
+     tpu3dsis_torch.main --mode train`` on a corpus of `.chunk` files
+     (pretrained from phase 6's weights), a second run that resumes from
+     its snapshot, and ``--mode test --step`` on that snapshot.
 
-The last three lines are the kernels' JSON, the card's name and power limit
-as ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
+``--phases 9`` (a comma-separated list) runs only those phases after 0 and
+1, for work on one phase, and prints no result line. The last three lines
+of a whole run are the kernels' JSON, the card's name and power limit as
+``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -454,12 +473,14 @@ def load_detectors(dev):
 def device_launches():
     lib = _build.load_library()
     return {"roi_pool3d_cuda": lib.tpu3dsis_roi_pool3d_launches(), "nms3d_cuda": lib.tpu3dsis_nms3d_launches(),
-            "fuse_views_cuda": lib.tpu3dsis_fuse_views_launches()}
+            "fuse_views_cuda": lib.tpu3dsis_fuse_views_launches(),
+            "roi_pool3d_backward_cuda": lib.tpu3dsis_roi_pool3d_bwd_launches()}
 
 
 def reset_launch_counts():
     """Every wrapper's launch count to 0 (just before a path is driven)."""
     rp.roi_pool3d_cuda.launches = 0
+    rp.roi_pool3d_backward_cuda.launches = 0
     nms.nms3d_cuda.launches = 0
     nms.nms3d_cuda.class_aware_launches = 0
     projection.fuse_views_cuda.launches = 0
@@ -734,12 +755,13 @@ def recorded_kernel_calls(si, scene, frames=None, fused=True):
 
 @contextlib.contextmanager
 def recording_kernel_calls():
-    """Within the block, every call to K1's, K2's and K3's wrappers, from any
+    """Within the block, every call to K1's, K1b's, K2's and K3's wrappers, from any
     thread, with copies of its arguments, in call order: [(kind, {argument:
     value})], kind the wrapper's name or "class-aware" for K2 with classes.
     The wrappers are wrapped for the block only."""
     calls = []
-    wrapped = ((rp, "roi_pool3d_cuda"), (nms, "nms3d_cuda"), (projection, "fuse_views_cuda"))
+    wrapped = ((rp, "roi_pool3d_cuda"), (rp, "roi_pool3d_backward_cuda"), (nms, "nms3d_cuda"),
+               (projection, "fuse_views_cuda"))
     originals = [getattr(mod, name) for mod, name in wrapped]
 
     def recorder(fn):
@@ -1639,12 +1661,13 @@ import json, runpy, sys
 from tpu3dsis_torch.ops import nms, roi_pool3d as rp
 from tpu3dsis_torch.geometry import projection
 rp.roi_pool3d_cuda.launches = nms.nms3d_cuda.launches = nms.nms3d_cuda.class_aware_launches = 0
-projection.fuse_views_cuda.launches = 0
+projection.fuse_views_cuda.launches = rp.roi_pool3d_backward_cuda.launches = 0
 sys.argv = ["tpu3dsis_torch.main", *json.loads(sys.argv[1])]
 runpy.run_module("tpu3dsis_torch.main", run_name="__main__", alter_sys=True)
 print("LAUNCHES " + json.dumps({"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
                                 "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches,
-                                "fuse_views_cuda": projection.fuse_views_cuda.launches}))
+                                "fuse_views_cuda": projection.fuse_views_cuda.launches,
+                                "roi_pool3d_backward_cuda": rp.roi_pool3d_backward_cuda.launches}))
 """
 # every artifact loaded by a process in which torch cannot be imported
 _LOAD_WITHOUT_TORCH = """
@@ -1702,9 +1725,10 @@ def write_overlay(path, **changes):
     return path
 
 
-def run_entry(args, timeout=600):
+def run_entry(args, timeout=600, stdout=None):
     """The entry module in a process of its own: (its launch counts, the mAP
-    dict it printed or None, wall seconds)."""
+    dict it printed or None, wall seconds); its output's lines are added to
+    the list ``stdout`` where one is given."""
     t0 = time.time()
     res = subprocess.run([sys.executable, "-c", _ENTRY, json.dumps(args)], cwd=ROOT, capture_output=True, text=True,
                          timeout=timeout)
@@ -1713,6 +1737,8 @@ def run_entry(args, timeout=600):
         log(res.stderr[-4000:])
     check(res.returncode == 0, f"python -m tpu3dsis_torch.main {' '.join(args)} exited {res.returncode}")
     lines = res.stdout.splitlines()
+    if stdout is not None:
+        stdout.extend(lines)
     launches = json.loads(next(l for l in lines if l.startswith("LAUNCHES "))[len("LAUNCHES "):])
     maps = [ast.literal_eval(l) for l in lines if l.startswith("{'mAP_")]
     return launches, (maps[0] if maps else None), wall
@@ -1925,8 +1951,427 @@ def phase_drivers(dev, params, cparams, cscenes, cgts, cframes, scene_t, color_t
     return res
 
 
-def main() -> int:
+# --- phase 9: training --------------------------------------------------------------
+
+TRAIN_STEPS = 30
+TRAIN_BATCH = {"geometry": 8, "color": 4}  # bench.py:bench_train's batches
+
+
+def train_batch(rng, n, cfg, color=False):
+    """``bench.py:bench_train``'s make_batch, copied: n chunks of noise, four
+    gt boxes each with their canvas filled; with color, NUM_IMAGES views a
+    chunk of random images (floats in [0, 1), taken as normalised) and
+    depths, identity cameras 1 m in front of the grid."""
+    max_gt = int(cfg.TPU_MAX_GT)
+    gt = np.full((n, max_gt, 7), -1e4, np.float32)
+    gt[..., 3:6] = gt[..., :3] + 1.0
+    gt[..., 6] = 0.0
+    valid = np.zeros((n, max_gt), bool)
+    canvas = np.zeros((n, *SHAPE), np.float32)
+    for i in range(n):
+        for j in range(4):
+            x0 = rng.randint(8, SHAPE[0] - 22)
+            y0 = rng.randint(4, SHAPE[1] - 14)
+            z0 = rng.randint(8, SHAPE[2] - 22)
+            sx, sy, sz = rng.randint(6, 14, 3)
+            gt[i, j] = [x0, y0, z0, x0 + sx, y0 + sy, z0 + sz, 3 + (j % 4) * 4]
+            valid[i, j] = True
+            canvas[i, x0:x0 + sx, y0:y0 + sy, z0:z0 + sz] = 1.0
+    batch = {"data": rng.randn(n, *SHAPE, 2).astype(np.float32), "gt_box": gt, "gt_valid": valid,
+             "mask_canvas": canvas}
+    if color:
+        v = int(cfg.NUM_IMAGES)
+        w_img, h_img = cfg.IMAGE_SHAPE
+        w_d, h_d = cfg.DEPTH_SHAPE
+        batch["images"] = rng.randint(0, 255, (n, v, h_img, w_img, 3)).astype(np.float32) / 255.0
+        batch["depths"] = rng.uniform(0.4, 4.0, (n, v, h_d, w_d)).astype(np.float32)
+        poses = np.tile(np.eye(4, dtype=np.float32), (n, v, 1, 1))
+        poses[..., 2, 3] = -1.0
+        batch["poses"] = poses
+        batch["view_valid"] = np.ones((n, v), bool)
+        vs = float(cfg.VOXEL_SIZE)
+        w2g = np.diag([1 / vs] * 3 + [1.0]).astype(np.float32)
+        w2g[:3, 3] = [SHAPE[0] / 2, 0.0, SHAPE[2] / 2]
+        batch["world_to_grid"] = np.tile(w2g, (n, 1, 1))
+    return batch
+
+
+def train_detector(dev, cfg, seed=0):
+    """A detector with float32 master weights from a seeded generator."""
+    from tpu3dsis_torch.config import DetectorConfig
+
+    det = Detector(DetectorConfig.from_cfg(cfg), device=dev, param_dtype=torch.float32)
+    return det.init_params(torch.Generator().manual_seed(seed))
+
+
+def k1b_bound(feats, rois, batch_idx, level_idx, scales, pooled):
+    """K1b's bound in ms, its bytes and their arithmetic: the gradient maps
+    written once in the maps' dtype, and what K1 reads and writes read once
+    (the covered voxels, the rois and indices, the (M, C, P^3) cotangent),
+    over the HBM rate. A compare per covered voxel and channel and an add
+    per share take far less at the float32 rate, so bytes bound it."""
+    _, k1_bytes = k1_bound(feats, rois, batch_idx, level_idx, scales, pooled)
+    itemsize = feats[0].element_size()
+    grads = sum(f.numel() for f in feats) * itemsize
+    nbytes = k1_bytes + grads
+    m, c = rois.shape[0], feats[0].shape[-1]
+    cot = m * c * pooled**3 * itemsize
+    text = (f"grad maps {' + '.join('x'.join(map(str, f.shape)) for f in feats)} x {itemsize} B = {grads:,} B "
+            f"written; cotangent {m}x{c}x{pooled}^3 x {itemsize} B = {cot:,} B, covered voxels, rois and indices "
+            f"{k1_bytes - cot:,} B read; {nbytes:,} B / 3.35e12 B/s")
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, text
+
+
+def _k1b_case(name, feats, args, grad_out, exact=False, phase=9):
+    """K1b against its plain version on one input. The tolerance: 1e-6 of
+    the largest gradient in float32, where only the order of the float32
+    atomic adds differs; one bf16 ulp of each cast result in bfloat16;
+    ``torch.equal`` where no voxel lies in two bins (``exact``). Returns
+    (max abs error, plain ms)."""
+    got = rp.roi_pool3d_backward_cuda(feats, **args, grad_out=grad_out)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = rp.roi_pool3d_backward_plain(feats, **args, grad_out=grad_out)
+    end.record()
+    end.synchronize()
+    err, ok, shares = 0.0, True, 0
+    for a, w in zip(got, want):
+        a32, w32 = a.float(), w.float()
+        diff = (a32 - w32).abs()
+        err = max(err, float(diff.max()))
+        shares += int((w32 != 0).sum())
+        if exact:
+            ok &= torch.equal(a, w)
+        elif w.dtype == torch.float32:
+            ok &= float(diff.max()) <= 1e-6 * float(w32.abs().max())
+        else:
+            mag = torch.maximum(a32.abs(), w32.abs()).clamp(min=torch.finfo(torch.float32).tiny)
+            ok &= bool((diff <= torch.exp2(torch.floor(torch.log2(mag)) - 7)).all())
+    scale = max(float(w.float().abs().max()) for w in want)
+    rule = "torch.equal" if exact else ("1e-6 relative" if feats[0].dtype == torch.float32 else "one bf16 ulp")
+    log(f"[{phase}] K1b {name} {str(feats[0].dtype).split('.')[-1]}, {args['rois'].shape[0]} rois on "
+        f"{[tuple(f.shape) for f in feats]}: max_abs_err={err} of max |grad| {scale:.4g} ({rule}: "
+        f"{'ok' if ok else 'FAILED'}), nonzero grads {shares}, plain {start.elapsed_time(end):.1f} ms [{CARD}]")
+    check(ok, f"K1b {name} differs from its plain version beyond {rule}")
+    return err, start.elapsed_time(end)
+
+
+def k1b_edge_cases(dev, rng):
+    """K1b's edges on (4, 24, 12, 24, 128) maps: ties (post-ReLU zeros and
+    plateaus of 0.5), empty bins (rois past the volume or thinner than a
+    voxel), rois at the map's edges, overlapping rois (one roi and copies of
+    it shifted by 1-4 voxels), and rois whose bins share no voxel, one per
+    map (exact). Yields (name, feats, args, exact)."""
+    g = torch.Generator().manual_seed(3)
+    base = torch.randn((2, 4, 24, 12, 24, 128), generator=g)
+    ties = torch.relu(torch.round(base * 2) / 2)
+
+    def args(rois, bidx, lidx):
+        return {"rois": torch.tensor(np.asarray(rois, np.float32)).to(dev),
+                "batch_idx": torch.tensor(np.asarray(bidx, np.int32)).to(dev),
+                "level_idx": torch.tensor(np.asarray(lidx, np.int32)).to(dev), "scales": [0.25, 0.25], "pooled": 4}
+
+    mixed = _rois(rng, 4, 32)
+    yield "ties (ReLU zeros, 0.5 plateaus)", ties, {**{k: v.to(dev) for k, v in mixed.items()},
+                                                    "scales": [0.25, 0.25], "pooled": 4}, False
+    edge = [[100, 50, 100, 140, 80, 140], [90, 40, 90, 140, 80, 140], [-20, -8, -20, 6, 3, 6],
+            [10.5, 3.2, 7.9, 10.6, 3.3, 8.0], [17, 9, 33, 17, 9, 33], [0, 0, 0, 96, 48, 96], [95, 47, 95, 96, 48, 96],
+            [0, 40, 0, 12, 48, 96], [84, 0, 84, 96, 48, 96]]
+    yield "empty bins and map edges", base, args(edge * 2, [0] * 9 + [3] * 9, [0] * 9 + [1] * 9), False
+    one = np.array([20, 8, 20, 52, 30, 60], np.float32)
+    shifted = [one + [dx, dy, dz, dx, dy, dz] for dx, dy, dz in
+               [(0, 0, 0), (0, 0, 0), (1, 0, 0), (0, 1, 2), (4, 4, 4), (-2, 0, 3), (3, 2, 1), (0, 0, 4)]]
+    yield "overlapping rois", ties, args(shifted, [1] * 8, [0, 1] * 4), False
+    yield "disjoint bins", base, args([[0, 0, 0, 64, 32, 64]] * 4 + [[32, 16, 32, 96, 48, 96]] * 4,
+                                      [0, 1, 2, 3] * 2, [0] * 4 + [1] * 4), True
+
+
+def profile_steps(fn, steps=3):
+    """Device busy ms per step, the window's ms per step and the top kernels,
+    from torch.profiler over `steps` calls of fn (after the caller's
+    warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for _ in range(steps):
+            fn()
+        end.record()
+        end.synchronize()
+    by_name = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3 / steps
+    return sum(by_name.values()), start.elapsed_time(end) / steps, sorted(by_name.items(), key=lambda kv: -kv[1])
+
+
+def train_card_vs_cpu(dev):
+    """One geometry step on the card and on the CPU, float32 with TF32 off,
+    the same weights, batch and draws: every loss term within 1e-3
+    relative, every updated parameter within 1e-4 of its largest magnitude.
+    Batch 2 and 4 mask rois a chunk (not 8), to bound the CPU's time."""
+    from tpu3dsis_torch.checkpoint import module_params
+    from tpu3dsis_torch.config import scannet_train_config
+    from tpu3dsis_torch.train.trainstep import anchor_count, build_train_step, make_draws
+
+    cfg = scannet_train_config()
+    cfg.TPU_COMPUTE_DTYPE = "float32"
+    cfg.TPU_MAX_MASK_ROIS = 4
+    n = 2
+    card = train_detector(dev, cfg, seed=3)
+    cpu = load_jax_params(train_detector("cpu", cfg), module_params(card))
+    batch = train_batch(np.random.RandomState(11), n, cfg)
+    draws = make_draws(n, anchor_count(card, SHAPE), int(cfg.TRAIN.RPN_POST_NMS_TOP_N) + int(cfg.TPU_MAX_GT),
+                       torch.Generator().manual_seed(5), "cpu")
+    out = {}
+    for name, det in (("card", card), ("cpu", cpu)):
+        opt_init, step = build_train_step(det, cfg, SHAPE)
+        opt = opt_init()
+        t0 = time.time()
+        m = step(opt, batch, draws=draws)
+        out[name] = ({k: float(v) for k, v in m.items()}, time.time() - t0)
+    (mc, t_card), (mp, t_cpu) = out["card"], out["cpu"]
+    rel = {k: abs(mc[k] - v) / max(abs(v), 1e-6) for k, v in mp.items()}
+    pc, pp = module_params(card), module_params(cpu)
+    prel = {k: float(np.abs(pc[k] - v).max() / max(np.abs(v).max(), 1e-30)) for k, v in pp.items()}
+    worst = max(prel, key=prel.get)
+    log(f"[9] one geometry step, card vs CPU (float32, TF32 off, batch {n}, 4 mask rois): losses card "
+        + json.dumps({k: round(v, 6) for k, v in mc.items()}) + f"; largest relative difference "
+        f"{max(rel.values()):.3g} ({max(rel, key=rel.get)}); updated parameters: largest max-norm relative "
+        f"difference {prel[worst]:.3g} ({worst}); card {t_card:.2f} s (first step), CPU {t_cpu:.2f} s [{CARD}]")
+    check(mc["step_finite"] == 1.0 and mp["step_finite"] == 1.0, "a card-vs-CPU step was not finite")
+    check(all(v <= 1e-3 for v in rel.values()), f"card and CPU losses differ beyond 1e-3: {rel}")
+    check(prel[worst] <= 1e-4, f"card and CPU updated {worst} differ by {prel[worst]:.3g} of its max")
+    return {"loss_rel": max(rel.values()), "param_rel": prel[worst]}
+
+
+def train_run(dev, name, cfg, n, steps=TRAIN_STEPS):
+    """The training main path: ``build_train_step`` on a fixed batch of n
+    synthetic chunks for `steps` steps, every wrapper's count set to 0 just
+    before and read just after; then the timings."""
+    from tpu3dsis_torch.train.trainstep import StageTimer, build_train_step
+
+    color = name == "color"
+    det = train_detector(dev, cfg)
+    opt_init, step = build_train_step(det, cfg, SHAPE)
+    opt = opt_init()
+    batch = train_batch(np.random.RandomState(7), n, cfg, color)
+    # on the card once, as bench_train keeps its batch (the poses and
+    # world-to-grid matrices stay on the host, where the view fusion reads them)
+    batch = {k: (v if k in ("poses", "world_to_grid") else torch.from_numpy(v).to(dev)) for k, v in batch.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.time()
+    step(opt, batch, generator=gen)  # warm-up: cuDNN's plans, the allocator
+    torch.cuda.synchronize()
+    first = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    before = device_launches()
+    events, metrics = [], []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(step(opt, batch, generator=gen))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches,
+                "roi_pool3d_backward_cuda": rp.roi_pool3d_backward_cuda.launches,
+                "nms3d_cuda": nms.nms3d_cuda.launches, "fuse_views_cuda": projection.fuse_views_cuda.launches}
+    kernel_launches = {k: v - before[k] for k, v in device_launches().items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(m["total_loss"]) for m in metrics]
+    finite = [float(m["step_finite"]) for m in metrics]
+    ms = [s.elapsed_time(e) for s, e in events]
+    s_iter = statistics.median(ms[5:]) / 1e3
+    stages = []
+    for _ in range(3):
+        timer = StageTimer(det.device)
+        step(opt, batch, generator=gen, timer=timer)
+        stages.append(timer.ms())
+    stage_ms = {k: statistics.median(t[k] for t in stages) for k in stages[0]}
+    stage_ms["forward_without_targets"] = stage_ms["forward"] - stage_ms.get("targets", 0.0)
+    busy, window, top = profile_steps(lambda: step(opt, batch, generator=gen))
+    res = {"s_per_iter": s_iter, "chunks_per_s": n / s_iter, "peak_gb": peak / 1e9, "first_step_s": first,
+           "stage_ms": stage_ms, "idle_share": 1 - busy / window, "busy_ms": busy, "window_ms": window,
+           "launches": launches, "kernel_launches": kernel_launches, "first_loss": losses[0], "last_loss": losses[-1]}
+    log(f"[9] {name} training, bf16, batch {n}, {steps} steps on one batch: total_loss {losses[0]:.5f} -> "
+        f"{losses[-1]:.5f} (first five {np.mean(losses[:5]):.5f}, last five {np.mean(losses[-5:]):.5f}), "
+        f"step_finite {sum(finite):.0f}/{steps}; wrapper calls {launches}, kernel launches {kernel_launches} "
+        f"[{CARD}]")
+    log(f"[9] {name} training: {s_iter:.4f} s/iter, {n / s_iter:.2f} chunks/s (CUDA-event median of steps 6-{steps}; "
+        f"first step {first:.1f} s), peak memory {peak / 1e9:.2f} GB; ms per step by stage (median of 3, "
+        f"forward includes the targets) " + json.dumps({k: round(v, 3) for k, v in stage_ms.items()})
+        + f"; profile of 3 steps: device busy {busy:.3f} ms of a {window:.3f} ms window, idle share "
+        f"{1 - busy / window:.3f}; top kernels (ms per step): "
+        + json.dumps({k[:60]: round(v, 3) for k, v in top[:10]}) + f" [{CARD}]")
+    check(all(f == 1.0 for f in finite), f"{name}: a training step was not finite")
+    check(np.mean(losses[-5:]) < np.mean(losses[:5]), f"{name}: total_loss did not fall: {losses}")
+    want = ["roi_pool3d_cuda", "roi_pool3d_backward_cuda", "nms3d_cuda"] + (["fuse_views_cuda"] if color else [])
+    for k in want:
+        check(launches[k] > 0 and kernel_launches[k] > 0, f"{name} training did not launch {k}")
+    return res, det, opt, step, batch, gen
+
+
+def write_train_chunks(tmp, n=6):
+    """n 96x48x96 chunks of four objects (make_chunks' draws), as `.chunk`
+    files with nyu40 labels and full box masks; the filelist's path."""
+    from tpu3dsis_torch.io import write_chunk_file
+
+    paths = []
+    rng = np.random.RandomState(60)
+    for i in range(n):
+        sdf = np.full(SHAPE, 8.0, np.float32)
+        boxes, kinds = [], []
+        for kind in ("sofa", "chair", "chair", "table"):
+            placed = len(boxes)
+            _add_object(sdf, boxes, rng, kind)
+            kinds += [kind] * (len(boxes) - placed)
+        boxes = np.asarray(boxes, np.float32)
+        path = os.path.join(tmp, f"scene{i:04d}_00__{i}__.chunk")
+        write_chunk_file(path, sdf, boxes, np.asarray([KIND_NYU40[k] for k in kinds], np.uint32),
+                         [np.ones(tuple((b[3:] - b[:3]).astype(int)), np.uint16) for b in boxes],
+                         np.ones(len(boxes), np.float32), np.eye(4, dtype=np.float32), np.zeros(0, np.uint32))
+        paths.append(path)
+    filelist = os.path.join(tmp, "train.txt")
+    with open(filelist, "w") as f:
+        f.write("".join(p + "\n" for p in paths))
+    return filelist
+
+
+def phase_train_entry(params):
+    """``python -m tpu3dsis_torch.main --mode train`` on a small `.chunk`
+    corpus (bf16; pretrained from a ``param:`` snapshot of phase 6's
+    weights through ``partial_update``): a snapshot is written; a second run
+    resumes from it; ``--mode test --step <that snapshot>`` loads it and
+    runs a scene."""
+    from tpu3dsis_torch.io import write_chunk_file
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        filelist = write_train_chunks(tmp)
+        sdf, boxes, kinds = scene_objects(np.random.RandomState(70), extent=(144, 48, 144), n_objects=8)
+        scene = os.path.join(tmp, "scene0100_00__synthetic.scene")
+        write_chunk_file(scene, sdf, boxes, np.asarray([KIND_NYU40[k] for k in kinds], np.uint32),
+                         [np.ones(tuple((b[3:] - b[:3]).astype(int)), np.uint16) for b in boxes],
+                         np.ones(len(boxes), np.float32), np.eye(4, dtype=np.float32), np.zeros(0, np.uint32))
+        scenes = os.path.join(tmp, "scenes.txt")
+        with open(scenes, "w") as f:
+            f.write(scene + "\n")
+        pretrained = os.path.join(tmp, "pretrained.npz")
+        np.savez(pretrained, **{f"param:{k}": v for k, v in params.items()})
+        cfg = write_overlay(os.path.join(tmp, "train_overlay"), USE_IMAGES=False, TRAIN_FILELIST=filelist,
+                            VAL_FILELIST="", TRAINVAL_FILELIST="", VAL_TIME=0.0, DISPLAY=1, SNAPSHOT_KEPT=0,
+                            TPU_COMPUTE_DTYPE="bfloat16", TPU_MASK_CANVAS=[64, 48, 64], TEST_FILELIST=scenes,
+                            TEST_SAVE_DIR=os.path.join(tmp, "test"))
+        out_root = os.path.join(tmp, "out")
+        ckpt_dir = os.path.join(out_root, cfg, "checkpoints")  # main.py joins --output_dir and --cfg
+        common = ["--cfg", cfg, "--output_dir", out_root]
+        lines = []
+        launches, _, wall = run_entry([*common, "--mode", "train", "--max_steps", "3", "--step", pretrained],
+                                      stdout=lines)
+        losses = [l for l in lines if l.startswith("epoch ")]
+        log(f"[9] python -m tpu3dsis_torch.main --mode train --max_steps 3 --step <phase 6 weights>: {wall:.1f} s "
+            f"with start-up; launches {launches}; {losses}; snapshots {sorted(os.listdir(ckpt_dir))} [{CARD}]")
+        check(os.path.isfile(os.path.join(ckpt_dir, "step_3.npz")), "--mode train wrote no step_3.npz")
+        for k in ("roi_pool3d_cuda", "roi_pool3d_backward_cuda", "nms3d_cuda"):
+            check(launches[k] > 0, f"--mode train did not launch {k}")
+        res["launches"] = launches
+        lines = []
+        launches2, _, wall = run_entry([*common, "--mode", "train", "--max_steps", "2"], stdout=lines)
+        restored = [l for l in lines if l.startswith("restored from")]
+        log(f"[9] a second --mode train --max_steps 2: {wall:.1f} s; {restored}; snapshots "
+            f"{sorted(os.listdir(ckpt_dir))} [{CARD}]")
+        check(restored and restored[0].endswith("step_3.npz at step 3"), f"the second run did not resume: {restored}")
+        check(os.path.isfile(os.path.join(ckpt_dir, "step_5.npz")), "the resumed run wrote no step_5.npz")
+        launches3, test_map, wall = run_entry([*common, "--mode", "test", "--step",
+                                               os.path.join(ckpt_dir, "step_5.npz")])
+        log(f"[9] --mode test --step step_5.npz on one {(144, 48, 144)} scene: {wall:.1f} s; launches {launches3}; "
+            f"{test_map} [{CARD}]")
+        check(test_map is not None and all(np.isfinite(v) for v in test_map.values()), f"test mode mAP {test_map}")
+        check(launches3["roi_pool3d_cuda"] > 0 and launches3["nms3d_cuda"] > 0, "test mode launched no K1 or K2")
+    return res
+
+
+def phase_train(dev, kernel_data, params):
+    """Phase 9: K1b against its plain version, one step card vs CPU, the
+    geometry and color training paths at full width, the entry module."""
+    from tpu3dsis_torch.config import scannet_train_config
+
+    t_phase = time.time()
+    rng = np.random.RandomState(9)
+    res = {"k1b_err": 0.0}
+    card_cpu = train_card_vs_cpu(dev)
+
+    runs = {}
+    for name in ("geometry", "color"):
+        cfg = scannet_train_config(color=name == "color")
+        runs[name] = train_run(dev, name, cfg, TRAIN_BATCH[name])
+        _, det, opt, step, batch, gen = runs[name]
+        # every kernel call of one step, held against its plain version
+        with recording_kernel_calls() as calls:
+            step(opt, batch, generator=gen)
+        torch.cuda.synchronize()
+        kinds = [k for k, _ in calls]
+        errs = check_recorded_k1_k2(calls, f"{name} training step", phase=9)
+        res["k1_err"] = max(res.get("k1_err", 0.0), errs["k1_err"])
+        res["k2_err"] = max(res.get("k2_err", 0.0), errs["k2_err"])
+        for kind, args in calls:
+            if kind == "fuse_views_cuda":
+                res["k3_err"] = max(res.get("k3_err", 0.0), _k3_case(f"{name} training step", args, quiet=True,
+                                                                      phase=9)[0])
+            if kind == "roi_pool3d_backward_cuda":
+                args = dict(args)
+                feats, g = args.pop("feats"), args.pop("grad_out")
+                if name == "geometry":
+                    res["training_call"] = (feats, args, g)
+                for dt in (torch.bfloat16, torch.float32):
+                    err, plain_ms = _k1b_case(f"{name} training call", [f.to(dt) for f in feats], args, g.to(dt))
+                    res["k1b_err"] = max(res["k1b_err"], err)
+                    if dt == torch.bfloat16 and name == "geometry":
+                        res["k1b_plain_ms"] = plain_ms
+        log(f"[9] {name} step's kernel calls: {kinds}")
+        runs[name] = runs[name][0]
+
+    feats_k, k1, _ = kernel_data
+    g = torch.Generator().manual_seed(4)
+    for dt in (torch.float32, torch.bfloat16):
+        f = list(feats_k.to(dt).unbind(0))
+        cot = torch.randn((k1["rois"].shape[0], 128, 4, 4, 4), generator=g).to(dev, dt)
+        err, _ = _k1b_case("phase 2's rois", f, k1, cot)
+        res["k1b_err"] = max(res["k1b_err"], err)
+        for case, feats, args, exact in k1b_edge_cases(dev, rng):
+            cot = torch.randn((args["rois"].shape[0], 128, 4, 4, 4), generator=g).to(dev, dt)
+            err, _ = _k1b_case(case, list(feats.to(dev, dt).unbind(0)), args, cot, exact=exact)
+            res["k1b_err"] = max(res["k1b_err"], err)
+
+    # K1b's time, plain time and bound on the geometry training call (bf16)
+    feats, args, g = res.pop("training_call")
+    res["k1b_ms"] = device_ms(lambda: rp.roi_pool3d_backward_cuda(feats, **args, grad_out=g), 20)
+    res["k1b_bound_ms"], nbytes, arithmetic = k1b_bound(feats, **args)
+    log(f"[9] K1b on the {str(feats[0].dtype).split('.')[-1]} training call ({args['rois'].shape[0]} rois on "
+        f"{[tuple(f.shape) for f in feats]}): {res['k1b_ms']:.4f} ms device time (zeroed float32 maps, the "
+        f"kernel and the cast), plain {res['k1b_plain_ms']:.1f} ms, bound {res['k1b_bound_ms']:.5f} ms ({arithmetic}),"
+        f" {res['k1b_bound_ms'] / res['k1b_ms']:.3f} of it; launches per training step "
+        f"{runs['geometry']['launches']['roi_pool3d_backward_cuda'] / TRAIN_STEPS:.0f} [{CARD}]")
+    res["entry"] = phase_train_entry(params)
+    res.update(runs=runs, card_vs_cpu=card_cpu)
+    log(f"[9] phase 9 in {time.time() - t_phase:.1f} s")
+    return res
+
+
+def main(argv=None) -> int:
     global CARD, CLOCK_MHZ
+    import argparse
+
+    parser = argparse.ArgumentParser(description="the port's paths on one NVIDIA card")
+    parser.add_argument("--phases", default="2,3,4,5,6,7,8,9",
+                        help="comma-separated phases to run after 0 and 1 (all by default; a subset prints no "
+                             "result line)")
+    phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on an NVIDIA card", file=sys.stderr)
         return 1
@@ -1953,6 +2398,12 @@ def main() -> int:
             log(f"[1]   {line.strip()}")
 
     rng = np.random.RandomState(0)
+    if phases != {2, 3, 4, 5, 6, 7, 8, 9}:
+        # a subset, for working on one phase: phase 9 takes phase 2's inputs and phase 6's weights
+        if 9 in phases:
+            phase_train(dev, kernel_inputs(dev, rng), scene_params())
+        log(f"[done] phases {sorted(phases)} passed in {time.time() - t_start:.1f} s; no result line for a subset")
+        return 0
     kernel_res, kernel_data = phase_kernels(dev, rng)
 
     scenes, gts = make_chunks(np.random.RandomState(1), BATCH)
@@ -1977,6 +2428,8 @@ def main() -> int:
     del csis
 
     drv = phase_drivers(dev, params, cparams, cscenes, cgts, cframes, scene_t, color_t)
+    train = phase_train(dev, kernel_data, params)
+    geo, col = train["runs"]["geometry"], train["runs"]["color"]
 
     k1, k2 = kernel_res["roi_pool3d_cuda"], kernel_res["nms3d_cuda"]
     # K1 at the bench's compute dtype, bf16, and K2 at N = 400, thresh 0.1
@@ -1988,16 +2441,27 @@ def main() -> int:
          "launches_per_scene": per_scene["roi_pool3d_cuda"], "launches_color_path": color_launches["roi_pool3d_cuda"],
          "launches_driver_path": drv["launches"]["roi_pool3d_cuda"],
          "launches_driver_color_path": drv["color"]["launches"]["roi_pool3d_cuda"],
-         "max_abs_err": max(k1["err"], k2c["k1_err"], k3r["k1_err"]),
+         "launches_train_path": geo["launches"]["roi_pool3d_cuda"],
+         "launches_train_color_path": col["launches"]["roi_pool3d_cuda"],
+         "max_abs_err": max(k1["err"], k2c["k1_err"], k3r["k1_err"], train["k1_err"]),
          "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"],
          "bound_ms": kernels["k1_bfloat16_bound"], "bound_by": "bytes", "library_ms": None},
+        {"name": "roi_pool3d_backward_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/roi_pool3d_bwd.cu",
+         "replaces": "tpu3dsis/ops/roi_pool3d.py:350", "launches": geo["launches"]["roi_pool3d_backward_cuda"],
+         "launches_per_step": geo["launches"]["roi_pool3d_backward_cuda"] / TRAIN_STEPS,
+         "launches_train_color_path": col["launches"]["roi_pool3d_backward_cuda"],
+         "launches_entry_train": train["entry"]["launches"]["roi_pool3d_backward_cuda"],
+         "max_abs_err": train["k1b_err"], "ms": train["k1b_ms"], "plain_ms": train["k1b_plain_ms"],
+         "bound_ms": train["k1b_bound_ms"], "bound_by": "bytes", "library_ms": None},
         {"name": "nms3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
          "replaces": "tpu3dsis/ops/nms.py:86", "launches": launches["nms3d_cuda"],
          "launches_per_batch": per_batch["nms3d_cuda"], "launches_scene_path": scene_launches["nms3d_cuda"],
          "launches_per_scene": per_scene["nms3d_cuda"], "launches_color_path": color_launches["nms3d_cuda"],
          "launches_driver_path": drv["launches"]["nms3d_cuda"],
          "launches_driver_color_path": drv["color"]["launches"]["nms3d_cuda"],
-         "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"]),
+         "launches_train_path": geo["launches"]["nms3d_cuda"],
+         "launches_train_color_path": col["launches"]["nms3d_cuda"],
+         "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"], train["k2_err"]),
          "ms": kernels["k2_400_0.1"], "plain_ms": kernels["k2_plain_0.1"],
          "bound_ms": kernels["k2_400_bound"], "bound_by": kernels["k2_400_bound_by"], "library_ms": None},
         {"name": "nms3d_cuda (class-aware, scene stitch)", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
@@ -2013,7 +2477,8 @@ def main() -> int:
          "replaces": "tpu3dsis/geometry/projection.py:369", "launches": color_launches["fuse_views_cuda"],
          "launches_per_scene": color_per_scene["fuse_views_cuda"],
          "launches_driver_color_path": drv["color"]["launches"]["fuse_views_cuda"],
-         "max_abs_err": max(k3r["err"], drv["color"]["k3_err"]),
+         "launches_train_color_path": col["launches"]["fuse_views_cuda"],
+         "max_abs_err": max(k3r["err"], drv["color"]["k3_err"], train.get("k3_err", 0.0)),
          "ms": color_t["bfloat16"]["k3_ms"], "plain_ms": color_t["bfloat16"]["k3_plain_ms"],
          "bound_ms": color_t["bfloat16"]["k3_bound_ms"], "bound_by": color_t["bfloat16"]["k3_bound_by"],
          "library_ms": None, "cull_kept_share": k3r["kept_share"]},

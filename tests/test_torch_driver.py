@@ -189,7 +189,7 @@ def test_main_entry_matches_run_scenes(runs, tmp_path, monkeypatch):
     """``python -m tpu3dsis_torch.main --mode test`` in-process, on an overlay
     of benchmark.yml with a ``param:`` snapshot of the weights: the config
     dump, the mAP and every artifact of ``run_scenes`` with those weights.
-    ``--mode train`` and a SUNCG config raise."""
+    ``--mode train`` with ``FIX_ENET: False`` and a SUNCG config raise."""
     monkeypatch.chdir(ROOT)
     with open(BENCHMARK_YML) as f:
         overlay = yaml_subset.load(f.read())
@@ -211,8 +211,13 @@ def test_main_entry_matches_run_scenes(runs, tmp_path, monkeypatch):
     for path in runs["paths"]:
         name = os.path.basename(path)[:12]
         assert_same_artifacts(str(tmp_path / "main" / name), os.path.join(runs["cfg"].TEST_SAVE_DIR, name))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        main.main(args + ["--mode", "train"])
+    # train mode is ported; what it refuses is ENet training (FIX_ENET False: K3b)
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # JSONL logs only
+    with open(tmp_path / "enet.yml", "w") as f:
+        f.write(yaml_subset.dump({**overlay, "USE_IMAGES": True, "FIX_ENET": False}))
+    with pytest.raises(NotImplementedError, match="K3b"):
+        main.main(["--cfg", str(tmp_path / "enet"), "--mode", "train", "--device", "cpu", "--output_dir",
+                   str(tmp_path / "out")])
     with pytest.raises(NotImplementedError, match="SUNCG"):
         main.main(["--cfg", "SUNCG/rpn_class_mask_5", "--mode", "test", "--device", "cpu", "--output_dir",
                    str(tmp_path / "out")])

@@ -1,6 +1,7 @@
 """The port's paths (chunk, scene, color scene, the test and benchmark
-drivers and their entry module) import no JAX, YAML, PIL or JAX package;
-the probe's cuts still fit the kernel sources; its kernels on the card."""
+drivers, training and their entry module) import no JAX, YAML, PIL or JAX
+package (nor ``ml_dtypes``, in training); the probe's cuts still fit the
+kernel sources; its kernels on the card."""
 
 import os
 import subprocess
@@ -112,6 +113,57 @@ def test_drivers_import_no_jax_yaml_or_pil():
     assert line == ["MODULES "], f"imported: {line}"
 
 
+_TINY_TRAIN = """
+import os, sys, tempfile
+import numpy as np
+sys.modules["torch.utils.tensorboard"] = None  # TensorBoard imports TensorFlow where installed, and it JAX
+from tpu3dsis_torch import main, yaml_subset
+from tpu3dsis_torch.io import write_chunk_file
+from tpu3dsis_torch.infer import validate
+from tpu3dsis_torch.io import pipeline
+from tpu3dsis_torch.train import loop, losses, solver, targets, trainstep
+from tpu3dsis_torch.utils import logger
+
+tmp = tempfile.mkdtemp()
+rng = np.random.RandomState(0)
+paths = []
+for i in range(2):
+    sdf = (rng.randn(32, 16, 32) * 2).astype(np.float32)
+    sdf[4:12, 3:10, 5:13] = 0.2
+    paths.append(os.path.join(tmp, f"s{i}__0__.chunk"))
+    write_chunk_file(paths[-1], sdf, np.array([[4, 3, 5, 12, 10, 13]], np.float64), np.array([5], np.uint32),
+                     [np.ones((8, 7, 8), np.uint16)], np.ones(1, np.float32), np.eye(4, dtype=np.float32),
+                     np.zeros(0, np.uint32))
+with open(os.path.join(tmp, "list.txt"), "w") as f:
+    f.write("".join(p + "\\n" for p in paths))
+with open("experiments/cfgs/ScanNet/tiny_ci.yml") as f:
+    cfg = yaml_subset.load(f.read())
+cfg.update(TRAIN_FILELIST=os.path.join(tmp, "list.txt"), VAL_FILELIST=os.path.join(tmp, "list.txt"), VAL_TIME=1e-9,
+           TPU_MASK_CANVAS=[16, 16, 16], TEST_SAVE_DIR=os.path.join(tmp, "out"))
+with open(os.path.join(tmp, "tiny.yml"), "w") as f:
+    f.write(yaml_subset.dump(cfg))
+args = ["--cfg", os.path.join(tmp, "tiny"), "--mode", "train", "--device", "cpu", "--output_dir", tmp, "--max_steps", "2"]
+assert main.main(args) == {"step": 2}
+assert sorted(os.listdir(os.path.join(tmp, "tiny", "checkpoints")))[-1] == "step_2.npz"
+print("MODULES", " ".join(m for m in sys.modules
+                          if m in ("jax", "jaxlib", "yaml", "PIL", "ml_dtypes") or m.startswith(("tpu3dsis.", "PIL."))
+                          or m == "tpu3dsis"))
+"""
+
+
+def test_training_imports_no_jax_yaml_pil_or_ml_dtypes():
+    """The entry module's train mode on two tiny chunks, validation
+    included (VAL_TIME passes at once), and every training module."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run(
+        [sys.executable, "-c", _TINY_TRAIN], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert res.returncode == 0, res.stderr
+    line = [l for l in res.stdout.splitlines() if l.startswith("MODULES")]
+    assert line == ["MODULES "], f"imported: {line}"
+
+
 def test_probe_cuts_match_the_kernel_sources():
     """Each phase the probe cuts out of a kernel is found, once, in its
     source, so a kernel edit cannot leave the probe timing a stale cut."""
@@ -126,7 +178,7 @@ def test_probe_cuts_match_the_kernel_sources():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_the_card():
-    """K1, K2 and K3 against their plain versions, on CUDA tensors (run on a
+    """K1, K1b, K2 and K3 against their plain versions, on CUDA tensors (run on a
     machine with an NVIDIA card and nvcc: ``python -m pytest -m gpu``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -146,6 +198,17 @@ def test_kernels_match_plain_versions_on_the_card():
         want = rp.roi_pool3d_plain(f, rois, bidx, lidx, [0.25, 0.125], 4)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+        # K1b: float32 within 1e-6 of the largest gradient (atomic order), bf16 within one ulp
+        g = torch.from_numpy(rng.randn(300, 128, 4, 4, 4).astype(np.float32)).to(dev, dt)
+        got = rp.roi_pool3d_backward_cuda(f, rois, bidx, lidx, [0.25, 0.125], 4, g)
+        torch.cuda.synchronize()
+        for a, w in zip(got, rp.roi_pool3d_backward_plain(f, rois, bidx, lidx, [0.25, 0.125], 4, g)):
+            a, w = a.float(), w.float()
+            if dt == torch.float32:
+                assert (a - w).abs().max() <= 1e-6 * w.abs().max()
+            else:
+                ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(a.abs(), w.abs()).clamp(min=1e-30))) - 7)
+                assert bool(((a - w).abs() <= ulp).all())
 
     for n in (400, 1024):
         lo = rng.uniform(0, 60, (4, n, 3))

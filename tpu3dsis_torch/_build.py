@@ -20,7 +20,8 @@ from pathlib import Path
 from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "roi_pool3d.cu", _PKG / "csrc" / "nms3d.cu", _PKG / "csrc" / "fuse_views.cu")
+SOURCES = (_PKG / "csrc" / "roi_pool3d.cu", _PKG / "csrc" / "roi_pool3d_bwd.cu", _PKG / "csrc" / "nms3d.cu",
+           _PKG / "csrc" / "fuse_views.cu")
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: the IoU, the bin bounds and the projections must round exactly
 # as the plain PyTorch versions do, which never contract a multiply and an add
@@ -39,6 +40,10 @@ _SIGNATURES = {
     "tpu3dsis_roi_pool3d": ([_I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P], _I),
     "tpu3dsis_roi_pool3d_smem": ([_I, _I, _I], _LL),
     "tpu3dsis_roi_pool3d_launches": ([], _LL),
+    "tpu3dsis_roi_pool3d_bwd": ([_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _P], _I),
+    "tpu3dsis_roi_pool3d_bwd_threads": ([_I], _I),
+    "tpu3dsis_roi_pool3d_bwd_smem": ([_I, _I], _LL),
+    "tpu3dsis_roi_pool3d_bwd_launches": ([], _LL),
     "tpu3dsis_nms3d": ([_P, _P, _P, _I, _I, _F, _P, _P], _I),
     "tpu3dsis_nms3d_smem": ([_I, _I], _LL),
     "tpu3dsis_nms3d_launches": ([], _LL),

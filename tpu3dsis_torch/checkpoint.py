@@ -13,9 +13,19 @@ The loading half of the JAX package's checkpoints is copied too, so that
 into the detector's parameters by the name-partitioned ``partial_update``.
 ``module_params`` gives a module's parameters under the JAX names and
 layouts, which ``partial_update`` takes and ``load_jax_params`` loads back.
+
+The snapshot half (``save_snapshot``, ``find_previous``,
+``prune_snapshots``, ``snapshot_step``) writes and finds the same
+``step_<N>.npz`` files as the JAX package (``param:`` and ``momentum:``
+arrays in the JAX layouts, ``opt_step``), so a snapshot written by either
+package loads in the other.
 """
 
 from __future__ import annotations
+
+import glob
+import os
+import re
 
 import numpy as np
 import torch
@@ -74,8 +84,14 @@ def module_params(module: nn.Module) -> dict:
     as float32 numpy: the inverse of ``params_to_torch_state_dict``, so
     that ``load_jax_params(module, module_params(module))`` changes
     nothing."""
+    return tensors_to_params(module.state_dict())
+
+
+def tensors_to_params(tensors: dict) -> dict:
+    """{torch name: tensor in torch layout} (a state_dict, or momentum
+    buffers keyed like one) -> the JAX names' layouts, float32 numpy."""
     out = {}
-    for name, value in module.state_dict().items():
+    for name, value in tensors.items():
         arr = value.detach().to("cpu", torch.float32).numpy()
         if name.endswith(".weight") and arr.ndim == 5:
             arr = arr.transpose(2, 3, 4, 1, 0)  # (out, in, kx, ky, kz) -> (kx, ky, kz, in, out)
@@ -133,3 +149,46 @@ def load_snapshot(path: str):
         momentum = {k[len("momentum:"):]: data[k] for k in data.files if k.startswith("momentum:")}
         opt_step = int(data["opt_step"]) if "opt_step" in data.files else 0
     return params, momentum, opt_step
+
+
+# --- native snapshots ---------------------------------------------------------
+
+
+def save_snapshot(checkpoint_dir: str, step: int, params: dict, momentum: dict | None = None,
+                  opt_step: int | None = None) -> str:
+    """Write ``<checkpoint_dir>/step_<step>.npz``: params (and momentum) in
+    the JAX layouts, as ``module_params`` and ``tensors_to_params`` give
+    them, and the solver's update count ``opt_step`` (an int32, as the JAX
+    package stores it)."""
+    os.makedirs(checkpoint_dir, exist_ok=True)
+    path = os.path.join(checkpoint_dir, f"step_{step}.npz")
+    arrays = {f"param:{k}": np.asarray(v) for k, v in params.items()}
+    if momentum is not None:
+        arrays.update({f"momentum:{k}": np.asarray(v) for k, v in momentum.items()})
+        arrays["opt_step"] = np.asarray(opt_step or 0, dtype=np.int32)
+    np.savez(path, **arrays)
+    return path
+
+
+def find_previous(checkpoint_dir: str, stepsizes=()) -> list:
+    """Snapshots oldest first, without the stepsize+1 files
+    (``trainval.py:194-214``)."""
+    files = glob.glob(os.path.join(checkpoint_dir, "step_*.npz"))
+    red = {os.path.join(checkpoint_dir, f"step_{s + 1}.npz") for s in stepsizes}
+    files = [f for f in files if f not in red]
+    files.sort(key=os.path.getmtime)
+    return files
+
+
+def prune_snapshots(checkpoint_dir: str, keep: int) -> None:
+    """Delete the oldest snapshots beyond SNAPSHOT_KEPT (``trainval.py:247-258``)."""
+    if keep <= 0:
+        return
+    files = find_previous(checkpoint_dir)
+    for f in files[:-keep]:
+        os.remove(f)
+
+
+def snapshot_step(path: str) -> int:
+    m = re.search(r"step_(\d+)\.npz$", path)
+    return int(m.group(1)) if m else -1

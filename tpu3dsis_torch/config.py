@@ -469,3 +469,52 @@ def scannet_color_scene_config() -> DetectorConfig:
         USE_IMAGES=True,
         INTRINSIC=((f, 0.0, 20.5, 0.0), (0.0, f, 16.0, 0.0), (0.0, 0.0, 1.0, 0.0), (0.0, 0.0, 0.0, 1.0)),
     )
+
+
+def scannet_train_config(color: bool = False) -> Config:
+    """The training configs of ``bench.py::bench_train``: every key of
+    ``default_config()`` with ``__graft_entry__._scannet_cfg()``'s values (19
+    classes, 3 + 11 anchors, 256 RPN channels, pool 4^3, RPN_BATCHSIZE 64,
+    CLASS_BATCH_SIZE 16, proposals 1000 -> 500 at NMS 0.5, USE_MASK with 8
+    mask rois), bfloat16 and the 64x48x64 mask canvas; with ``color`` the
+    color stream of the shipped configs (USE_IMAGES with the ENet, frozen:
+    FIX_ENET, 5 views a chunk)."""
+    c = default_config()
+    c.NUM_CLASSES = 19
+    c.NORMALIZE_WEIGHTS = [0.328] + [1.0] * 18
+    c.LABEL_MAP = ""
+    c.NET = "ScanNet_Backbone"
+    c.MASK_BACKBONE = "MaskBackbone"
+    c.NUM_ANCHORS_LEVEL1 = 3
+    c.NUM_ANCHORS_LEVEL2 = 11
+    c.NUM_ANCHORS_LEVEL3 = 0
+    c.ANCHORS_TYPE_LEVEL1 = "scannet14_3.txt"
+    c.ANCHORS_TYPE_LEVEL2 = "scannet14_11.txt"
+    c.CLASS_POOLING_SIZE = 4
+    c.USE_BACKBONE = True
+    c.USE_RPN = True
+    c.USE_CLASS = True
+    c.USE_MASK = True
+    c.USE_IMAGES = False
+    c.RPN_BATCHSIZE = 64
+    c.RPN_POSITIVE_OVERLAP = 0.35
+    c.RPN_NEGATIVE_OVERLAP = 0.15
+    c.CLASS_BATCH_SIZE = 16
+    c.FG_FRACTION = 0.5
+    c.FG_THRESH = 0.5
+    c.BG_THRESH = 0.2
+    c.BG_THRESH_LO = 0.0
+    c.TRAIN.RPN_NMS_THRESH = 0.5
+    c.TRAIN.RPN_PRE_NMS_TOP_N = 1000
+    c.TRAIN.RPN_POST_NMS_TOP_N = 500
+    c.TEST.RPN_PRE_NMS_TOP_N = 400
+    c.TEST.RPN_POST_NMS_TOP_N = 200
+    c.TEST.RPN_NMS_THRESH = 0.1
+    c.TPU_MAX_MASK_ROIS = 8
+    c.TPU_COMPUTE_DTYPE = "bfloat16"
+    c.TPU_MASK_CANVAS = [64, 48, 64]
+    if color:
+        c.USE_IMAGES = True
+        c.USE_IMAGES_GT = False
+        c.NUM_IMAGES = 5
+    return c

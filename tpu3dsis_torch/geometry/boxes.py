@@ -5,13 +5,56 @@ function takes any leading batch dimensions and keeps the JAX version's
 operation order. ``clip_boxes`` and ``nms_overlap`` agree with it to the last
 bit on the CPU; ``bbox_transform_inv`` goes through ``exp``, where XLA's and
 torch's may round an ulp apart, so its coordinates agree to a few float32
-ulps of the decode's largest intermediate.
-``bbox_transform`` and ``bbox_overlap`` serve training and wait for it.
+ulps of the decode's largest intermediate. ``bbox_overlap`` agrees to the
+last bit; ``bbox_transform`` (the training targets' encoding) goes through
+``log``, so its size deltas may differ by an ulp.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def bbox_transform(anchor_rois: torch.Tensor, gt_rois: torch.Tensor) -> torch.Tensor:
+    """Encode (..., 6) gt boxes against (..., 6) anchors -> (..., 6) center
+    and log-size deltas, with the reference's epsilon placement (1e-14 in
+    the log argument and on the denominators)."""
+    aw = anchor_rois[..., 3] - anchor_rois[..., 0]
+    ah = anchor_rois[..., 4] - anchor_rois[..., 1]
+    al = anchor_rois[..., 5] - anchor_rois[..., 2]
+    acx = anchor_rois[..., 0] + 0.5 * aw
+    acy = anchor_rois[..., 1] + 0.5 * ah
+    acz = anchor_rois[..., 2] + 0.5 * al
+
+    gw = gt_rois[..., 3] - gt_rois[..., 0]
+    gh = gt_rois[..., 4] - gt_rois[..., 1]
+    gl = gt_rois[..., 5] - gt_rois[..., 2]
+    gcx = gt_rois[..., 0] + 0.5 * gw
+    gcy = gt_rois[..., 1] + 0.5 * gh
+    gcz = gt_rois[..., 2] + 0.5 * gl
+
+    dx = (gcx - acx) / (aw + 1e-14)
+    dy = (gcy - acy) / (ah + 1e-14)
+    dz = (gcz - acz) / (al + 1e-14)
+    dw = torch.log(gw / (aw + 1e-14) + 1e-14)
+    dh = torch.log(gh / (ah + 1e-14) + 1e-14)
+    dl = torch.log(gl / (al + 1e-14) + 1e-14)
+    return torch.stack([dx, dy, dz, dw, dh, dl], dim=-1)
+
+
+def bbox_overlap(boxes: torch.Tensor, query_boxes: torch.Tensor) -> torch.Tensor:
+    """(..., N, 6) x (..., K, 6) -> (..., N, K) 3D IoU with plain extents
+    (``lib/utils/overlap.py:5-25``), the convention of target assignment."""
+    va = (boxes[..., 3] - boxes[..., 0]) * (boxes[..., 4] - boxes[..., 1]) * (boxes[..., 5] - boxes[..., 2])
+    vb = ((query_boxes[..., 3] - query_boxes[..., 0]) * (query_boxes[..., 4] - query_boxes[..., 1])
+          * (query_boxes[..., 5] - query_boxes[..., 2]))
+    q = query_boxes[..., None, :, :]
+    iw = torch.clamp(torch.minimum(boxes[..., 3:4], q[..., 3]) - torch.maximum(boxes[..., 0:1], q[..., 0]), min=0)
+    ih = torch.clamp(torch.minimum(boxes[..., 4:5], q[..., 4]) - torch.maximum(boxes[..., 1:2], q[..., 1]), min=0)
+    il = torch.clamp(torch.minimum(boxes[..., 5:6], q[..., 5]) - torch.maximum(boxes[..., 2:3], q[..., 2]), min=0)
+    inter = iw * ih * il
+    union = va[..., :, None] + vb[..., None, :] - inter
+    return inter / union
 
 
 def bbox_transform_inv(boxes: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:

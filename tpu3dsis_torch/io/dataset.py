@@ -7,8 +7,9 @@ reproduces the reference's ``lib/datasets/dataset.py:45-218``: the TSDF
 encodings, floor/ceil box rounding, the label remap, the KEEP_THRESH
 filter, the nearest-image frames, the ``world2grid`` padding and the height
 crop (480 voxels in benchmark mode, else 48). Volumes are channels-last
-(X, Y, Z, C) numpy arrays. The training-only helpers (``load_fast_padded``,
-``paint_mask_canvas``, ``pad_sample``) come with the training slice.
+(X, Y, Z, C) numpy arrays. The training helpers ``paint_mask_canvas`` and
+``pad_sample`` are copies too; the JAX package's native-decoder fast path
+(``load_fast_padded``) is not ported.
 """
 
 from __future__ import annotations
@@ -208,3 +209,76 @@ class SceneDataset:
             depths=depths,
             poses=poses,
         )
+
+
+def paint_mask_canvas(sample: Sample, shape=None) -> np.ndarray:
+    """Paint per-instance masks into one binary volume, in gt-box order.
+
+    Matches the canvas built by the reference mask target layer
+    (``mask_target_layer.py:26-29``): later boxes overwrite earlier ones
+    (including their zeros), so a single canvas loses instance identity — the
+    training target is a binary crop of this canvas.
+    """
+    if shape is None:
+        shape = sample.data.shape[:3]
+    canvas = np.zeros(shape, dtype=np.float32)
+    for box, mask in zip(sample.gt_box, sample.gt_mask):
+        x0, y0, z0, x1, y1, z1 = [int(v) for v in box[:6]]
+        x0c, y0c, z0c = max(x0, 0), max(y0, 0), max(z0, 0)
+        x1c = min(x1, shape[0])
+        y1c = min(y1, shape[1])
+        z1c = min(z1, shape[2])
+        if x1c <= x0c or y1c <= y0c or z1c <= z0c:
+            continue
+        sub = mask[
+            x0c - x0 : x1c - x0, y0c - y0 : y1c - y0, z0c - z0 : z1c - z0
+        ].astype(np.float32)
+        canvas[x0c:x1c, y0c:y1c, z0c:z1c] = sub
+    return canvas
+
+
+def pad_sample(sample: Sample, cfg: Config, with_mask_canvas: bool = True):
+    """Fixed-capacity arrays: gt boxes padded to TPU_MAX_GT.
+
+    Returns a dict of numpy arrays ready for the train step:
+      data (X, Y, Z, 2) | gt_box (MAX_GT, 7) | gt_valid (MAX_GT,) bool
+      mask_canvas (X, Y, Z) float32 (optional)
+    Overflowing gt boxes are dropped (logged by the caller).
+    """
+    max_gt = int(cfg.TPU_MAX_GT)
+    n = min(sample.gt_box.shape[0], max_gt)
+    gt_box = np.zeros((max_gt, 7), dtype=np.float32)
+    # degenerate padding boxes far outside the volume so IoU against them is 0
+    gt_box[:, :3] = -1e4
+    gt_box[:, 3:6] = -1e4 + 1.0
+    gt_valid = np.zeros((max_gt,), dtype=bool)
+    if n:
+        gt_box[:n] = sample.gt_box[:n]
+        gt_valid[:n] = True
+    out = {
+        "data": sample.data,
+        "gt_box": gt_box,
+        "gt_valid": gt_valid,
+    }
+    if with_mask_canvas:
+        out["mask_canvas"] = paint_mask_canvas(sample)
+    if cfg.USE_IMAGES and sample.images is not None:
+        v = int(cfg.NUM_IMAGES)
+        nv = min(sample.images.shape[0], v)
+        # preserve the source dtype: uint8 under TPU_COMPACT_TRANSFERS
+        images = np.zeros((v, *sample.images.shape[1:]), sample.images.dtype)
+        depths = np.zeros((v, *sample.depths.shape[1:]), np.float32)
+        poses = np.tile(np.eye(4, dtype=np.float32), (v, 1, 1))
+        view_valid = np.zeros((v,), bool)
+        images[:nv] = sample.images[:nv]
+        depths[:nv] = sample.depths[:nv]
+        poses[:nv] = sample.poses[:nv]
+        view_valid[:nv] = True
+        out.update(
+            images=images,
+            depths=depths,
+            poses=poses,
+            view_valid=view_valid,
+            world_to_grid=sample.world_to_grid,
+        )
+    return out

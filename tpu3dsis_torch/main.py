@@ -11,8 +11,13 @@ the detector is built on the CUDA card (``--device cpu`` is for tests),
 initialised from a ``torch.Generator`` seeded with 0, and ``--step`` loads
 a torch ``.pth`` or a native ``.npz`` snapshot through the name-partitioned
 ``partial_update``; then ``run_scenes`` writes each scene's artifacts into
-``TEST_SAVE_DIR`` and, in test mode, prints the mAP. ``--mode train`` is
-not ported yet.
+``TEST_SAVE_DIR`` and, in test mode, prints the mAP.
+
+``--mode train`` runs ``train/loop.py::Trainer`` on the card over
+``TRAIN_FILELIST`` for ``--epochs`` (or ``--max_steps``), with float32
+master weights and the config's compute dtype, into
+``<output_dir>/<cfg>/checkpoints`` and ``logs``; it resumes from the newest
+snapshot there, else starts from ``--step`` (through ``partial_update``).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from tpu3dsis_torch import checkpoint as ckpt
 from tpu3dsis_torch.config import DetectorConfig, cfg_from_file, cfg_to_file, finalize_config
 from tpu3dsis_torch.infer.driver import run_scenes
 from tpu3dsis_torch.models.detector import Detector
+from tpu3dsis_torch.train.loop import Trainer
 
 
 def parse_args(argv=None):
@@ -45,7 +51,8 @@ def parse_args(argv=None):
 
 
 def main(argv=None) -> dict:
-    """Returns what ``run_scenes`` returns: the mAP dict in test mode."""
+    """Returns what ``run_scenes`` returns (the mAP dict in test mode), or
+    in train mode {"step": the last step}."""
     args = parse_args(argv)
     print("Called with args:")
     print(args)
@@ -62,15 +69,18 @@ def main(argv=None) -> dict:
     if not os.path.isfile(dump):
         cfg_to_file(cfg, dump)
 
-    if args.mode == "train":
-        raise NotImplementedError("--mode train is not ported yet: the port serves --mode test and benchmark")
-    if args.mode not in ("test", "benchmark"):
+    if args.mode not in ("train", "test", "benchmark"):
         raise SystemExit(f"unknown mode {args.mode}")
     cfg.MODE = args.mode
     # a float32 config computes in float32, as the JAX package does; cuDNN
     # would otherwise run float32 convs in TF32 (10-bit mantissas)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.mode == "train":
+        trainer = Trainer(cfg, out_dir, device=args.device)
+        pretrained = args.step if args.step not in ("0", "") else None
+        _, step = trainer.train(args.epochs, max_steps=args.max_steps, pretrained=pretrained)
+        return {"step": step}
     det = Detector(DetectorConfig.from_cfg(cfg), device=args.device)
     det.init_params(torch.Generator().manual_seed(0))
     if args.step not in ("0", ""):

@@ -92,11 +92,14 @@ class MaskBackbone(nn.Module):
 
     Lives on ``device``, the CUDA card unless the caller passes
     ``device="cpu"``; without a CUDA device the default raises. cuDNN runs the
-    convs; the detector keeps the weights in ``torch.channels_last_3d``.
+    convs; the detector keeps the weights in ``torch.channels_last_3d``. It
+    computes in ``compute_dtype``, or in its weights' dtype when that is None.
     """
 
-    def __init__(self, num_classes: int, device: torch.device | str = "cuda"):
+    def __init__(self, num_classes: int, device: torch.device | str = "cuda",
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("MaskBackbone runs on a CUDA device, and none is present; pass device='cpu' for the CPU")
@@ -113,12 +116,13 @@ class MaskBackbone(nn.Module):
         ``region_mask`` (N, X, Y, Z, 1) is applied again after every conv,
         before its ReLU (``backbones.py:278-279``), which makes a zero-padded
         canvas compute what the reference's exact-size crop does. The
-        sigmoid runs only when not training. Everything stays in the
-        weights' dtype, as the JAX package computes in its compute dtype.
+        sigmoid runs only when not training. Everything runs in the compute
+        dtype, as in the JAX package.
         """
         w = self.geometry[0].weight
-        x = scene.to(w.device, w.dtype).permute(0, 4, 1, 2, 3)
-        region = None if region_mask is None else region_mask.to(w.device, w.dtype).permute(0, 4, 1, 2, 3)
+        dt = self.compute_dtype or w.dtype
+        x = scene.to(w.device, dt).permute(0, 4, 1, 2, 3)
+        region = None if region_mask is None else region_mask.to(w.device, dt).permute(0, 4, 1, 2, 3)
         for layer in self.geometry:
             x = layer(x)
             if region is not None and isinstance(layer, Conv):

@@ -35,6 +35,8 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
     Parameters live in ``cfg.TPU_COMPUTE_DTYPE`` (float32 or bfloat16) on
     ``device``, the CUDA card unless the caller passes ``device="cpu"``;
     without a CUDA device the default raises rather than falling back. The
+    trainer passes ``param_dtype=torch.float32``: float32 master weights,
+    which each conv and linear casts to the compute dtype (``models/nn.py``). The
     ENet stays in float32, as the JAX package runs it, and its features are
     cast to the compute dtype. The 5-D conv weights and the volumes run in
     ``torch.channels_last_3d``, so a level map's channels-last view, which
@@ -42,7 +44,7 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
     """
 
     def __init__(self, cfg: DetectorConfig, anchor_dir: str = "experiments/anchors",
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", param_dtype: torch.dtype | None = None):
         nn.Module.__init__(self)
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
@@ -63,11 +65,12 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
         if self.use_class:
             self.classifier_cls_score_net = Linear(FC7_CHANNELS, self.num_classes)
             self.classifier_bbox_pred_net = Linear(FC7_CHANNELS, self.num_classes * 6)
-        self.mask_backbone = MaskBackbone(self.num_classes, device=device) if cfg.USE_MASK else None
+        self.mask_backbone = (MaskBackbone(self.num_classes, device=device, compute_dtype=self.compute_dtype)
+                              if cfg.USE_MASK else None)
         self.anchor_dir = anchor_dir
         self.anchor_files = {1: cfg.ANCHORS_TYPE_LEVEL1, 2: cfg.ANCHORS_TYPE_LEVEL2}
         self._anchor_cache = {}
-        self.to(device=device, dtype=self.compute_dtype, memory_format=torch.channels_last_3d)
+        self.to(device=device, dtype=param_dtype or self.compute_dtype, memory_format=torch.channels_last_3d)
         # added after the cast: the ENet's 2D convs stay float32 and NCHW
         self.enet = ENet2D(cfg.NUM_2D_CLASSES).to(device) if cfg.USE_IMAGES and not cfg.USE_IMAGES_GT else None
         self.color_projector = ColorProjector(cfg, self.enet) if cfg.USE_IMAGES else None

@@ -5,6 +5,13 @@ The JAX package describes its nets as lists of specs named like the torch
 ``nn.Sequential`` of them has exactly those keys. Convs are NCDHW modules;
 the detector runs them in ``torch.channels_last_3d``, so in memory the
 volumes stay channels-last as in the JAX package.
+
+``Conv`` and ``Linear`` compute in their input's dtype: weights of another
+dtype are cast for the op, as the JAX package casts its float32 parameters
+to the compute dtype in each conv and linear (``tpu3dsis/models/nn.py:28``).
+So the trainer keeps float32 master weights and runs the bfloat16 forward
+through them; the inference paths keep their weights in the compute dtype,
+where nothing is cast.
 """
 
 from __future__ import annotations
@@ -13,13 +20,24 @@ import torch
 from torch import nn
 
 Relu = nn.ReLU
-Linear = nn.Linear
+
+
+def _as(t: torch.Tensor | None, dtype: torch.dtype) -> torch.Tensor | None:
+    return t if t is None or t.dtype == dtype else t.to(dtype)
 
 
 class Conv(nn.Conv3d):
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
                  pad: int = 0, bias: bool = True):
         super().__init__(cin, cout, k, stride=stride, padding=pad, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, _as(self.weight, x.dtype), _as(self.bias, x.dtype))
+
+
+class Linear(nn.Linear):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.nn.functional.linear(x, _as(self.weight, x.dtype), _as(self.bias, x.dtype))
 
 
 class MaxPool(nn.MaxPool3d):

@@ -1,16 +1,21 @@
-"""Where K1's, K2's and K3's time goes on the card, without a profiler's counters.
+"""Where K1's, K1b's, K2's and K3's time goes on the card, without a profiler's counters.
 
 Each kernel is timed against copies of itself built with one phase cut out
 (a loop that runs no time, a store that never happens, an early return), on
 the inputs ``chip_smoke.py`` uses: phase 2's 6400 rois and the main path's
 own proposals for K1, 32 x 400 and 32 x 1024 boxes for K2, the views of
-phase 7's 96-view room fused into its 240x48x240 volume for K3. A cut copy
-computes nothing useful; only its time is read. Run from the repository root
-on a machine with a CUDA card and nvcc:
+phase 7's 96-view room fused into its 240x48x240 volume for K3, and for K1b
+the training call's shapes (two 8x24x12x24x128 level maps, 8 x 16 rois) in
+bf16. A cut copy computes nothing useful; only its time is read. K1b's copies
+are cut at its constants: "no recompute of maxima" takes a column's first
+voxel for each plane's max (one load per plane, every row taken as tied),
+"no atomics" stores each share with a plain store; "no output cast" times
+the full kernel without the wrapper's cast of the float32 maps. Run from the
+repository root on a machine with a CUDA card and nvcc:
 
-    python -m tpu3dsis_torch.probe [K1] [K2] [K3]
+    python -m tpu3dsis_torch.probe [K1] [K1b] [K2] [K3]
 
-(all three when none is named). It prints one JSON line per case: the full
+(all four when none is named). It prints one JSON line per case: the full
 kernel's and each cut copy's device time in ms, measured in turns (full,
 cuts, cuts reversed, full); K3's line adds the share of (brick, view) pairs
 its cull keeps.
@@ -36,6 +41,10 @@ CUTS = {
                          "  for (int col = P * P; col < P * P;"),
         "no output stores": ("    __stcs(dst + f, tile[row * pitch + f % kRowUnits]);",
                              "    if (row < 0) __stcs(dst + f, tile[row * pitch + f % kRowUnits]);"),
+    },
+    "roi_pool3d_bwd.cu": {
+        "no recompute of maxima": ("constexpr bool kRecomputeMaxima = true;", "constexpr bool kRecomputeMaxima = false;"),
+        "no atomics": ("constexpr bool kAtomicAdds = true;", "constexpr bool kAtomicAdds = false;"),
     },
     "nms3d.cu": {
         "staging only": ("  cluster.sync();  // also: every block has started before any writes to another\n",
@@ -101,6 +110,25 @@ def call_k1(lib, feats, rois, batch_idx, level_idx, scales, pooled):
     _build.check(err, "probe K1")
 
 
+def call_k1b(lib, feats, rois, batch_idx, level_idx, scales, pooled, grad_out, cast=True):
+    """K1b's wrapper with another library: zeroed float32 maps, the kernel,
+    the cast to the maps' dtype (unless ``cast`` is False)."""
+    n, f0 = len(feats), feats[0]
+    grads = [torch.zeros(f.shape, dtype=torch.float32, device=f.device) for f in feats]
+    zcap = max(f.shape[3] for f in feats)
+    err = lib.tpu3dsis_roi_pool3d_bwd(
+        int(f0.dtype == torch.bfloat16), n, (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats]),
+        (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads]),
+        (ctypes.c_int * (3 * n))(*[d for f in feats for d in f.shape[1:4]]),
+        (ctypes.c_float * n)(*[float(s) for s in scales]), f0.shape[0], f0.shape[-1], rois.data_ptr(),
+        batch_idx.data_ptr(), level_idx.data_ptr(), rois.shape[0], pooled, grad_out.data_ptr(), zcap,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "probe K1b")
+    if cast:
+        for f, g in zip(feats, grads):
+            g.to(f.dtype)
+
+
 def call_k2(lib, boxes, valid, thresh):
     b, n = valid.shape
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
@@ -145,9 +173,9 @@ def in_turns(fns, iters, device_ms):
 
 
 def main(argv=()) -> int:
-    which = set(argv) or {"K1", "K2", "K3"}
-    if not which <= {"K1", "K2", "K3"}:
-        print(f"probe: name K1, K2 or K3, not {sorted(which)}", file=sys.stderr)
+    which = set(argv) or {"K1", "K1b", "K2", "K3"}
+    if not which <= {"K1", "K1b", "K2", "K3"}:
+        print(f"probe: name K1, K1b, K2 or K3, not {sorted(which)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
@@ -159,6 +187,8 @@ def main(argv=()) -> int:
     libs = build_cuts()
     if "K1" in which:
         probe_k1(cs, dev, libs, card)
+    if "K1b" in which:
+        probe_k1b(cs, dev, libs, card)
     if "K2" in which:
         probe_k2(cs, dev, libs, card)
     if "K3" in which:
@@ -178,6 +208,29 @@ def probe_k1(cs, dev, libs, card):
     for case, (levels, kw) in cases.items():
         fns = {k: (lambda lib=lib: call_k1(lib, levels, **kw)) for k, lib in libs["roi_pool3d"].items()}
         print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "card": card}), flush=True)
+
+
+def k1b_inputs(dev):
+    """The training call's shapes in bf16: two (8, 24, 12, 24, 128) post-ReLU
+    level maps, 16 rois a chunk of 4-40 voxels on either level, a random
+    cotangent."""
+    g = torch.Generator().manual_seed(0)
+    feats = [torch.relu(torch.randn((8, 24, 12, 24, 128), generator=g)).to(dev, torch.bfloat16) for _ in range(2)]
+    rng = np.random.RandomState(0)
+    lo = rng.uniform(0, 80, (128, 3)) * [1, 0.5, 1]
+    rois = np.concatenate([lo, lo + rng.uniform(4, 40, (128, 3))], 1).astype(np.float32)
+    return dict(feats=feats, rois=torch.from_numpy(rois).to(dev),
+                batch_idx=torch.arange(8, dtype=torch.int32).repeat_interleave(16).to(dev),
+                level_idx=torch.from_numpy(rng.randint(0, 2, 128).astype(np.int32)).to(dev), scales=[0.25, 0.25],
+                pooled=4, grad_out=torch.randn((128, 128, 4, 4, 4), generator=g).to(dev, torch.bfloat16))
+
+
+def probe_k1b(cs, dev, libs, card):
+    kw = k1b_inputs(dev)
+    fns = {k: (lambda lib=lib: call_k1b(lib, **kw)) for k, lib in libs["roi_pool3d_bwd"].items()}
+    fns["no output cast"] = lambda: call_k1b(libs["roi_pool3d_bwd"]["full"], **kw, cast=False)
+    print(json.dumps({"case": "K1b bf16, the training call's shapes (2 x 8x24x12x24x128, 128 rois)",
+                      "ms": in_turns(fns, 20, cs.device_ms), "card": card}), flush=True)
 
 
 def probe_k2(cs, dev, libs, card):
