@@ -77,8 +77,11 @@ result):
      backward, update) and the idle share of a profile; every kernel call
      of one step of each held against its plain version; K1b in float32
      and bf16 on the training calls, phase 2's rois and its edge cases
-     (ties, empty bins, map edges, overlapping rois; disjoint bins
-     exactly), its time, plain time and bytes bound; then ``python -m
+     (ties, empty bins, map edges, overlapping rois, 2,100 rois on one
+     brick, rois covering the whole map; disjoint bins exactly), two
+     launches bit for bit on the training calls and phase 2's rois, its
+     time on both in both dtypes (and its two kernels' split) beside its
+     bytes bound, its plain time, and what its bricks repeat; then ``python -m
      tpu3dsis_torch.main --mode train`` on a corpus of `.chunk` files
      (pretrained from phase 6's weights), a second run that resumes from
      its snapshot, and ``--mode test --step`` on that snapshot.
@@ -2025,7 +2028,9 @@ def k1b_bound(feats, rois, batch_idx, level_idx, scales, pooled):
 def _k1b_case(name, feats, args, grad_out, exact=False, phase=9):
     """K1b against its plain version on one input. The tolerance: 1e-6 of
     the largest gradient in float32, where only the order of the float32
-    atomic adds differs; one bf16 ulp of each cast result in bfloat16;
+    sums can differ (the kernel sums in autograd's order where the plain
+    version's reductions run in index order); one bf16 ulp of each rounded
+    result in bfloat16;
     ``torch.equal`` where no voxel lies in two bins (``exact``). Returns
     (max abs error, plain ms)."""
     got = rp.roi_pool3d_backward_cuda(feats, **args, grad_out=grad_out)
@@ -2062,7 +2067,9 @@ def k1b_edge_cases(dev, rng):
     plateaus of 0.5), empty bins (rois past the volume or thinner than a
     voxel), rois at the map's edges, overlapping rois (one roi and copies of
     it shifted by 1-4 voxels), and rois whose bins share no voxel, one per
-    map (exact). Yields (name, feats, args, exact)."""
+    map (exact), 2,100 rois of one sample on one brick (more than a block's
+    window of rois, in either dtype) and rois covering the whole map and
+    beyond it. Yields (name, feats, args, exact)."""
     g = torch.Generator().manual_seed(3)
     base = torch.randn((2, 4, 24, 12, 24, 128), generator=g)
     ties = torch.relu(torch.round(base * 2) / 2)
@@ -2085,6 +2092,85 @@ def k1b_edge_cases(dev, rng):
     yield "overlapping rois", ties, args(shifted, [1] * 8, [0, 1] * 4), False
     yield "disjoint bins", base, args([[0, 0, 0, 64, 32, 64]] * 4 + [[32, 16, 32, 96, 48, 96]] * 4,
                                       [0, 1, 2, 3] * 2, [0] * 4 + [1] * 4), True
+    lo = rng.uniform(0, 12, (2100, 3))  # level voxels [0, 3]: every roi meets the brick at the origin
+    yield "many rois on one brick", ties, args(np.concatenate([lo, lo + rng.uniform(16, 60, (2100, 3))], 1),
+                                               [0] * 2100, [0] * 2100), False
+    yield "rois covering the whole map", ties, args([[0, 0, 0, 96, 48, 96], [-40, -20, -40, 140, 70, 140]] * 4,
+                                                    [0, 0, 1, 1, 2, 2, 3, 3], [0, 1] * 4), False
+
+
+def k1b_repeatable(name, feats, args, grad_out, phase=9):
+    """Two launches of K1b on the same inputs give the same bits: each
+    voxel sums its shares in one fixed order, with no atomics."""
+    first = rp.roi_pool3d_backward_cuda(feats, **args, grad_out=grad_out)
+    second = rp.roi_pool3d_backward_cuda(feats, **args, grad_out=grad_out)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"[{phase}] K1b {name} {str(feats[0].dtype).split('.')[-1]}: two launches torch.equal: {same} [{CARD}]")
+    check(same, f"K1b {name}: two launches on the same inputs differ")
+
+
+def k1b_kernel_split(fn):
+    """Device microseconds per call of each of K1b's two kernels (the column
+    pass and the brick pass), from torch.profiler over 10 calls, or over 100
+    or 1000 where a shorter window brought back no kernel (as can happen in a
+    process that has profiled before); {} if none did."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for calls in (10, 100, 1000):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = defaultdict(float)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and "roi_pool3d_bwd" in e.name:
+                split["columns" if "columns" in e.name else "bricks"] += e.time_range.elapsed_us() / calls
+        if split:
+            return dict(split)
+    return {}
+
+
+def k1b_recompute(feats, rois, batch_idx, level_idx, scales, pooled):
+    """What K1b's bricks repeat on this call, for the brick the library was
+    built with: the bricks that stage each column's planes (read from the
+    scratch the column pass wrote once), on average over the columns that
+    pass anything, and the bricks that compute each row's x-max over a
+    column's x-bin (the one stage a brick recomputes: once for each brick
+    its x-bin spans), on average over those rows."""
+    lib = _build.load_library()
+    bx, by, bz = (lib.tpu3dsis_roi_pool3d_bwd_brick(d) for d in range(3))
+    r = rois.detach().to("cpu", torch.float32)
+    bidx, lidx = batch_idx.tolist(), level_idx.tolist()
+    columns = staged = rows = row_maxima = 0
+    for lv, (f, s) in enumerate(zip(feats, scales)):
+        mine = [i for i in range(len(bidx)) if lidx[i] == lv and 0 <= bidx[i] < f.shape[0]]
+        if not mine:
+            continue
+        s = torch.tensor(s, dtype=torch.float32)
+        lo = torch.floor(r[mine, :3] * s).to(torch.int32)
+        hi = torch.ceil(r[mine, 3:] * s).to(torch.int32)
+        (xs, xe), (ys, ye), (zs, ze) = ([t.tolist() for t in rp._bin_bounds(lo[:, d], hi[:, d], pooled, e)]
+                                        for d, e in enumerate(f.shape[1:4]))
+        for k in range(len(mine)):
+            z0, z1 = zs[k][0], ze[k][-1]
+            if z1 <= z0 or ye[k][-1] <= ys[k][0]:
+                continue
+            zb = (z1 - 1) // bz - z0 // bz + 1
+            for px in range(pooled):
+                if xe[k][px] <= xs[k][px]:
+                    continue
+                xb = (xe[k][px] - 1) // bx - xs[k][px] // bx + 1
+                n = (ye[k][-1] - ys[k][0]) * (z1 - z0)
+                rows += n
+                row_maxima += n * xb
+                for py in range(pooled):
+                    if ye[k][py] > ys[k][py]:
+                        columns += 1
+                        staged += xb * ((ye[k][py] - 1) // by - ys[k][py] // by + 1) * zb
+    return staged / max(columns, 1), row_maxima / max(rows, 1)
 
 
 def profile_steps(fn, steps=3):
@@ -2331,32 +2417,54 @@ def phase_train(dev, kernel_data, params):
                 for dt in (torch.bfloat16, torch.float32):
                     err, plain_ms = _k1b_case(f"{name} training call", [f.to(dt) for f in feats], args, g.to(dt))
                     res["k1b_err"] = max(res["k1b_err"], err)
-                    if dt == torch.bfloat16 and name == "geometry":
-                        res["k1b_plain_ms"] = plain_ms
+                    k1b_repeatable(f"{name} training call", [f.to(dt) for f in feats], args, g.to(dt))
+                    if name == "geometry":
+                        res[f"k1b_plain_ms_{str(dt).split('.')[-1]}"] = plain_ms
         log(f"[9] {name} step's kernel calls: {kinds}")
         runs[name] = runs[name][0]
 
     feats_k, k1, _ = kernel_data
     g = torch.Generator().manual_seed(4)
+    cases = {"training call": res.pop("training_call")}
     for dt in (torch.float32, torch.bfloat16):
         f = list(feats_k.to(dt).unbind(0))
         cot = torch.randn((k1["rois"].shape[0], 128, 4, 4, 4), generator=g).to(dev, dt)
-        err, _ = _k1b_case("phase 2's rois", f, k1, cot)
+        err, plain_ms = _k1b_case("phase 2's rois", f, k1, cot)
         res["k1b_err"] = max(res["k1b_err"], err)
+        res[f"k1b_plain_ms_phase2_{str(dt).split('.')[-1]}"] = plain_ms
+        k1b_repeatable("phase 2's rois", f, k1, cot)
+        cases["phase 2's rois"] = (f, k1, cot)
         for case, feats, args, exact in k1b_edge_cases(dev, rng):
             cot = torch.randn((args["rois"].shape[0], 128, 4, 4, 4), generator=g).to(dev, dt)
             err, _ = _k1b_case(case, list(feats.to(dev, dt).unbind(0)), args, cot, exact=exact)
             res["k1b_err"] = max(res["k1b_err"], err)
 
-    # K1b's time, plain time and bound on the geometry training call (bf16)
-    feats, args, g = res.pop("training_call")
-    res["k1b_ms"] = device_ms(lambda: rp.roi_pool3d_backward_cuda(feats, **args, grad_out=g), 20)
-    res["k1b_bound_ms"], nbytes, arithmetic = k1b_bound(feats, **args)
-    log(f"[9] K1b on the {str(feats[0].dtype).split('.')[-1]} training call ({args['rois'].shape[0]} rois on "
-        f"{[tuple(f.shape) for f in feats]}): {res['k1b_ms']:.4f} ms device time (zeroed float32 maps, the "
-        f"kernel and the cast), plain {res['k1b_plain_ms']:.1f} ms, bound {res['k1b_bound_ms']:.5f} ms ({arithmetic}),"
-        f" {res['k1b_bound_ms'] / res['k1b_ms']:.3f} of it; launches per training step "
-        f"{runs['geometry']['launches']['roi_pool3d_backward_cuda'] / TRAIN_STEPS:.0f} [{CARD}]")
+    # K1b's time and bound on the geometry training call and on phase 2's
+    # rois, in both dtypes (the wrapper: maps from torch.empty and the kernel)
+    per_step = runs["geometry"]["launches"]["roi_pool3d_backward_cuda"] / TRAIN_STEPS
+    res["k1b_times"] = {}
+    for case, (feats, args, g) in cases.items():
+        for dt in (torch.bfloat16, torch.float32):
+            f, gd, name = [x.to(dt) for x in feats], g.to(dt), str(dt).split(".")[-1]
+            call = lambda: rp.roi_pool3d_backward_cuda(f, **args, grad_out=gd)  # noqa: E731
+            ms = device_ms(call, 20)
+            split = k1b_kernel_split(call)
+            bound, nbytes, arithmetic = k1b_bound(f, **args)
+            plain = res[f"k1b_plain_ms_{name}" if case == "training call" else f"k1b_plain_ms_phase2_{name}"]
+            res["k1b_times"][f"{case} {name}"] = {"ms": ms, "bound_ms": bound, "plain_ms": plain, "us_by_kernel": split}
+            log(f"[9] K1b on the {case}, {name} ({args['rois'].shape[0]} rois on {[tuple(x.shape) for x in f]}): "
+                f"{ms:.5f} ms device time (maps from torch.empty, the kernels; us by kernel from a profile "
+                f"{ {k: round(v, 2) for k, v in split.items()} if split else 'not captured'}), plain {plain:.1f} ms, "
+                f"bound {bound:.5f} ms "
+                f"({arithmetic}), {bound / ms:.3f} of it; calls per training step {per_step:.0f} [{CARD}]")
+    train_call = res["k1b_times"]["training call bfloat16"]
+    res["k1b_ms"], res["k1b_bound_ms"], res["k1b_plain_ms"] = (train_call["ms"], train_call["bound_ms"],
+                                                               train_call["plain_ms"])
+    feats, args, _ = cases["training call"]
+    res["k1b_recompute"] = k1b_recompute(feats, **args)
+    log(f"[9] K1b's bricks on the training call: each column that passes anything is staged (its planes read "
+        f"from the column pass's scratch) by {res['k1b_recompute'][0]:.3f} bricks on average; each row's x-max over "
+        f"a column's x-bin is computed by {res['k1b_recompute'][1]:.3f} bricks on average")
     res["entry"] = phase_train_entry(params)
     res.update(runs=runs, card_vs_cpu=card_cpu)
     log(f"[9] phase 9 in {time.time() - t_phase:.1f} s")
@@ -2452,7 +2560,9 @@ def main(argv=None) -> int:
          "launches_train_color_path": col["launches"]["roi_pool3d_backward_cuda"],
          "launches_entry_train": train["entry"]["launches"]["roi_pool3d_backward_cuda"],
          "max_abs_err": train["k1b_err"], "ms": train["k1b_ms"], "plain_ms": train["k1b_plain_ms"],
-         "bound_ms": train["k1b_bound_ms"], "bound_by": "bytes", "library_ms": None},
+         "bound_ms": train["k1b_bound_ms"], "bound_by": "bytes", "library_ms": None,
+         "times": train["k1b_times"], "column_stagings_per_column": train["k1b_recompute"][0],
+         "bricks_per_row_max": train["k1b_recompute"][1]},
         {"name": "nms3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
          "replaces": "tpu3dsis/ops/nms.py:86", "launches": launches["nms3d_cuda"],
          "launches_per_batch": per_batch["nms3d_cuda"], "launches_scene_path": scene_launches["nms3d_cuda"],

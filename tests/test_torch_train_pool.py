@@ -5,8 +5,9 @@ package's pool: its forward equals ``roi_pool3d_plain``, its gradient
 equals ``jax.vjp`` of ``tpu3dsis.ops.roi_pool3d.roi_pool3d_multilevel``
 (whose custom VJP differentiates the staged ``_pool_one``), on tie-free
 features and on features with ties, one of which a joint ``amax`` over the
-bin would split otherwise. Kernel K1b's algorithm (its three passes, in
-numpy) against the staged plain gradient, and the CPU dispatch.
+bin would split otherwise. Kernel K1b's algorithm (its bricks, kept rois
+and columns, in numpy) against the staged plain gradient, and the CPU
+dispatch.
 """
 
 import jax
@@ -92,55 +93,110 @@ def test_staged_rule_is_not_the_joint_split():
     assert not np.array_equal(joint.grad[:, :, 0, 0].numpy(), want_staged)
 
 
-def k1b_emulated(feats, rois, bidx, lidx, scales, pooled, g):
-    """K1b's passes (``csrc/roi_pool3d_bwd.cu``) in float32 numpy: per roi
-    and column of bins, the planes' maxima and n_y (pass 1), each z-bin's
-    max, n_z and g / n_z to its tied planes (pass 2), then ct / n_y / n_x
-    to the tied voxels of the tied rows (pass 3)."""
-    grads = [np.zeros(f.shape, np.float32) for f in feats]
-    for m in range(rois.shape[0]):
-        lv, b = int(lidx[m]), int(bidx[m])
-        f = feats[lv][b].astype(np.float32)
+BRICK = (2, 4, 4)  # kBX, kBY, kBZ of csrc/roi_pool3d_bwd.cu
+
+
+def k1b_emulated(feats, rois, bidx, lidx, scales, pooled, g, brick=BRICK):
+    """K1b (``csrc/roi_pool3d_bwd.cu``) in float32 numpy, in its order. The
+    column pass: each plane of a column's z-bins' union, its max over the
+    column's rows of each row's x-max, and n_y; the plane's ct, the sum of
+    g / n_z over the z-bins that hold it and whose max (from the planes) it
+    ties, in z-bin order; ct / n_y. The brick pass:
+    per level, sample and brick, the rois of that sample and level whose
+    bins meet the brick, last to first, and for each the sum over its
+    columns that meet the brick in the order autograd sums the plain
+    version's stages: per px and brick row, the row's x-max and n_x, the
+    sum over py of ct / n_y where the row ties the plane, divided by n_x,
+    to the voxels that tie the row; then over px; then the roi's part is
+    added to the brick. Each brick is written whole, its sums in float32
+    rounded once; the output starts as NaN, so a voxel no brick writes
+    shows."""
+    grads = [np.full(f.shape, np.nan, np.float32) for f in feats]
+    bx, by, bz = brick
+    for lv, f in enumerate(feats):
+        nb, w, h, l, nc = f.shape
         s = torch.tensor(scales[lv], dtype=torch.float32)
-        r = torch.from_numpy(rois[m:m + 1])
+        r = torch.from_numpy(rois)
         lo = torch.floor(r[:, :3] * s).to(torch.int32)
         hi = torch.ceil(r[:, 3:] * s).to(torch.int32)
-        (xs, xe), (ys, ye), (zs, ze) = ((a[0].numpy(), e[0].numpy()) for a, e in
-                                        (rp._bin_bounds(lo[:, d], hi[:, d], pooled, f.shape[d]) for d in range(3)))
-        z0, z1 = zs[0], ze[-1]
-        for px in range(pooled):
-            for py in range(pooled):
-                if xe[px] <= xs[px] or ye[py] <= ys[py] or z1 <= z0:
+        axes = [[t.numpy() for t in rp._bin_bounds(lo[:, d], hi[:, d], pooled, e)] for d, e in enumerate((w, h, l))]
+        mine = [m for m in range(rois.shape[0]) if lidx[m] == lv and 0 <= bidx[m] < nb]
+        fy = np.zeros((rois.shape[0], pooled, pooled, l, nc), np.float32)  # column pass, by absolute z
+        gy = np.zeros_like(fy)
+        for m in mine:
+            (xs, xe), (ys, ye), (zs, ze) = ((st[m], en[m]) for st, en in axes)
+            for px, py in np.ndindex(pooled, pooled):
+                if xe[px] <= xs[px] or ye[py] <= ys[py]:
                     continue
-                col = f[xs[px]:xe[px], ys[py]:ye[py], z0:z1]  # (nx, ny, nz, C)
-                fx = col.max(0)
-                nx = (col == fx).sum(0).astype(np.float32)
-                fy = fx.max(0)
-                ny = (fx == fy).sum(0).astype(np.float32)
-                ct = np.zeros_like(fy)
-                for pz in range(pooled):
-                    if ze[pz] <= zs[pz]:
+                fx = f[bidx[m], xs[px]:xe[px], ys[py]:ye[py], zs[0]:ze[-1]].astype(np.float32).max(0)
+                fy[m, px, py, zs[0]:ze[-1]] = fx.max(0)
+                ny = (fx == fx.max(0)).sum(0).astype(np.float32)
+                ct = np.zeros_like(ny)
+                for z in range(zs[0], ze[-1]):
+                    for pz in range(pooled):
+                        if zs[pz] <= z < ze[pz]:
+                            planes = fy[m, px, py, zs[pz]:ze[pz]]
+                            gz = g[m, :, px, py, pz] / (planes == planes.max(0)).sum(0).astype(np.float32)
+                            ct[z - zs[0]] += np.where(fy[m, px, py, z] == planes.max(0), gz, np.float32(0))
+                gy[m, px, py, zs[0]:ze[-1]] = ct / ny
+        for b in range(nb):
+            fb = f[b].astype(np.float32)
+            for x0, y0, z0 in np.ndindex(-(-w // bx), -(-h // by), -(-l // bz)):
+                x0, y0, z0 = x0 * bx, y0 * by, z0 * bz
+                x1, y1, z1 = min(x0 + bx, w), min(y0 + by, h), min(z0 + bz, l)
+                tile = np.zeros((x1 - x0, y1 - y0, z1 - z0, nc), np.float32)
+                for m in reversed(mine):  # last to first, as autograd accumulates the plain version's rois
+                    if bidx[m] != b:
                         continue
-                    seg = fy[zs[pz] - z0:ze[pz] - z0]
-                    fz = seg.max(0)
-                    gz = g[m, :, px, py, pz] / (seg == fz).sum(0).astype(np.float32)
-                    ct[zs[pz] - z0:ze[pz] - z0] += np.where(seg == fz, gz, np.float32(0))
-                gx = (ct / ny)[None] / nx  # (ny, nz, C)
-                share = np.where((col == fx) & (fx == fy)[None], gx[None], np.float32(0))
-                grads[lv][b, xs[px]:xe[px], ys[py]:ye[py], z0:z1] += share
+                    (xs, xe), (ys, ye), (zs, ze) = ((st[m], en[m]) for st, en in axes)
+                    if ze[-1] <= zs[0] or zs[0] >= z1 or ze[-1] <= z0:
+                        continue  # the z-bins' union misses the brick
+                    pxs = [p for p in range(pooled) if xe[-1] > xs[0] and xe[p] > x0 and xs[p] < x1]
+                    pys = [p for p in range(pooled) if ye[-1] > ys[0] and ye[p] > y0 and ys[p] < y1]
+                    part = np.zeros_like(tile)  # the roi's shares: over py into the row's x-max, / n_x, over px
+                    for px in pxs:
+                        sx, ex = xs[px], xe[px]
+                        if ex <= sx:
+                            continue
+                        for y, z in ((y, z) for y in range(y0, y1) for z in range(max(z0, zs[0]), min(z1, ze[-1]))):
+                            row = fb[sx:ex, y, z]
+                            fx = row.max(0)
+                            t = np.zeros(nc, np.float32)
+                            for py in pys:
+                                if ye[py] > ys[py] and ys[py] <= y < ye[py]:
+                                    t += np.where(fx == fy[m, px, py, z], gy[m, px, py, z], np.float32(0))
+                            for x in range(max(sx, x0), min(ex, x1)):
+                                part[x - x0, y - y0, z - z0] += np.where(
+                                    fb[x, y, z] == fx, t / (row == fx).sum(0).astype(np.float32), np.float32(0))
+                    tile += part
+                grads[lv][b, x0:x1, y0:y1, z0:z1] = tile
     return grads
 
 
-@pytest.mark.parametrize("kind", ["tie_free", "ties", "disjoint"])
+def _many_rois(rng, n=70):
+    """n rois of sample 0, level 0, each overlapping the brick at voxels
+    [0, 2) x [0, 4) x [0, 4) of (2, 8, 4, 8, 6) maps at scale 1/4: far more
+    columns than a block stages at a time."""
+    lo = rng.uniform(-2, 6, (n, 3))
+    return np.concatenate([lo, lo + rng.uniform(4, 20, (n, 3))], 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["tie_free", "ties", "disjoint", "many_rois"])
 def test_k1b_algorithm_matches_staged_plain(kind):
     """The emulated kernel == the plain version's gradient: within 1e-6 of
     the largest share (the order of the float32 sums), and bit for bit
-    where no voxel lies in two bins."""
+    where no voxel lies in two bins; no voxel is left unwritten."""
     rng = np.random.RandomState(5)
-    feats = [_features(rng, "ties" if kind == "ties" else "tie_free", (2, 8, 4, 8, 6)) for _ in range(2)]
+    feats = [_features(rng, "ties" if kind in ("ties", "many_rois") else "tie_free", (2, 8, 4, 8, 6))
+             for _ in range(2)]
     if kind == "disjoint":  # one roi a sample, bins of 2x1x2 voxels
         rois = np.array([[0, 0, 0, 32, 16, 32], [0, 0, 0, 32, 16, 32]], np.float32)
         bidx, lidx = np.array([0, 1]), np.array([0, 1])
+    elif kind == "many_rois":  # 70 rois on one brick, and two on the other sample
+        inner, edge = _rois(rng, 2)
+        rois = np.concatenate([_many_rois(rng), inner])
+        bidx = np.array([0] * 70 + [1, 1])
+        lidx = np.array([0] * 70 + [0, 1])
     else:
         inner, edge = _rois(rng, 12)
         rois = np.concatenate([inner, edge])
@@ -151,6 +207,7 @@ def test_k1b_algorithm_matches_staged_plain(kind):
     want = [w.numpy() for w in rp.roi_pool3d_backward_plain(*args, torch.from_numpy(g))]
     got = k1b_emulated(feats, rois, bidx, lidx, SCALES, 4, g)
     for a, w in zip(got, want):
+        assert not np.isnan(a).any(), "a gradient voxel was left unwritten"
         if kind == "disjoint":
             np.testing.assert_array_equal(a, w)
         else:

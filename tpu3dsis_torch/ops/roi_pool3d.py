@@ -17,10 +17,11 @@ whose VJP ``_roi_pool3d_prod`` uses): the max is taken over x, then over y,
 then over z, and at each stage the cotangent is split evenly among the tied
 maxima, so a voxel's share of a bin's cotangent g is g / n_z / n_y / n_x
 over the stages where it ties. Overlapping bins and rois add up, an empty
-bin passes nothing and the rois get no gradient. On the CPU autograd runs
-through ``roi_pool3d_staged_plain``, the same three masked ``amax`` stages
-(``torch.amax`` splits ties evenly, as JAX's max VJP does); its forward
-equals ``roi_pool3d_plain`` bit for bit.
+bin passes nothing and the rois get no gradient. K1b writes each gradient
+voxel once, in the maps' dtype, summing its shares in a fixed order. On the
+CPU autograd runs through ``roi_pool3d_staged_plain``, the same three
+masked ``amax`` stages (``torch.amax`` splits ties evenly, as JAX's max VJP
+does); its forward equals ``roi_pool3d_plain`` bit for bit.
 """
 
 from __future__ import annotations
@@ -220,9 +221,15 @@ def roi_pool3d_backward_cuda(feats: Sequence[torch.Tensor], rois, batch_idx, lev
     """Kernel K1b; same arguments and result as ``roi_pool3d_backward_plain``.
 
     The maps and the rois are K1's (``roi_pool3d_cuda`` checks them the
-    same way); grad_out is a contiguous (M, C, P, P, P) tensor of the maps'
-    dtype. The shares are added into zeroed float32 maps, which are then
-    cast to the maps' dtype.
+    same way: contiguous, 16-byte aligned, C a multiple of 16 bytes of
+    channels); grad_out is a contiguous (M, C, P, P, P) tensor of the maps'
+    dtype. The gradient maps come from ``torch.empty`` in the maps' dtype:
+    the kernels write every element once, zeros included, and sum each
+    voxel's shares in float32 in the order in which autograd sums the plain
+    version's, so two calls on the same inputs give the same bits. The
+    column pass writes each column's planes (the plane's max and ct / n_y)
+    to an (M, P, P, L, C) scratch allocated here, L the deepest level's;
+    only the planes the rois hold are touched.
     """
     feats = list(feats)
     f0 = feats[0]
@@ -238,8 +245,12 @@ def roi_pool3d_backward_cuda(feats: Sequence[torch.Tensor], rois, batch_idx, lev
             raise ValueError("each level must be a (B, W, H, L, C) map of one batch, width, dtype and device")
         if not f.is_contiguous():
             raise ValueError(f"level map of strides {f.stride()} is not contiguous (B, W, H, L, C)")
+        if f.data_ptr() % 16:
+            raise ValueError("each level map must be 16-byte aligned")
         if f.numel() >= 2**31:
             raise ValueError("a level map is too large for K1b's 32-bit offsets")
+    if c % (16 // f0.element_size()):
+        raise ValueError(f"C={c} must be a multiple of 16 bytes of channels")
     if not 1 <= pooled <= 8:
         raise ValueError(f"pooled={pooled}: K1b takes P = 1 to 8")
     m = rois.shape[0]
@@ -254,27 +265,34 @@ def roi_pool3d_backward_cuda(feats: Sequence[torch.Tensor], rois, batch_idx, lev
     for t in (rois, batch_idx, level_idx, grad_out):
         if t.device != f0.device:
             raise ValueError("all tensors must be on the features' device")
-    grads = [torch.zeros(f.shape, dtype=torch.float32, device=f.device) for f in feats]
-    if m:
-        lib = _build.load_library()
-        n = len(feats)
-        zcap = max(f.shape[3] for f in feats)
-        threads = lib.tpu3dsis_roi_pool3d_bwd_threads(c)
-        smem = lib.tpu3dsis_roi_pool3d_bwd_smem(c, zcap)
-        if smem > torch.cuda.get_device_properties(f0.device).shared_memory_per_block_optin:
-            raise ValueError(f"roi_pool3d_backward_cuda: L={zcap} x {threads} threads needs {smem} bytes of shared memory")
-        with torch.cuda.device(f0.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.tpu3dsis_roi_pool3d_bwd(
-                int(f0.dtype == torch.bfloat16), n, (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats]),
-                (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads]),
-                (ctypes.c_int * (3 * n))(*[d for f in feats for d in f.shape[1:4]]),
-                (ctypes.c_float * n)(*[float(s) for s in scales]), b, c, rois.data_ptr(), batch_idx.data_ptr(),
-                level_idx.data_ptr(), m, pooled, grad_out.data_ptr(), zcap, stream,
-            )
-        _build.check(err, "roi_pool3d_backward_cuda")
-        roi_pool3d_backward_cuda.launches += 1
-    return [g if f.dtype == torch.float32 else g.to(f.dtype) for f, g in zip(feats, grads)]
+    lib = _build.load_library()
+    is_bf16 = int(f0.dtype == torch.bfloat16)
+    threads = lib.tpu3dsis_roi_pool3d_bwd_threads(is_bf16, c)
+    if threads > 512:
+        raise ValueError(f"roi_pool3d_backward_cuda: C={c} needs {threads} threads a block, more than 512")
+    smem = lib.tpu3dsis_roi_pool3d_bwd_smem(is_bf16, c)
+    if smem > torch.cuda.get_device_properties(f0.device).shared_memory_per_block_optin:
+        raise ValueError(f"roi_pool3d_backward_cuda: C={c} needs {smem} bytes of shared memory a block")
+    if m * pooled**2 * c >= 2**31:
+        raise ValueError("roi_pool3d_backward_cuda: too many rois for K1b's 32-bit column index")
+    grads = [torch.empty_like(f) for f in feats]
+    zcap = max(f.shape[3] for f in feats)
+    plane_max = torch.empty((m, pooled, pooled, zcap, c), dtype=f0.dtype, device=f0.device)
+    plane_grad = torch.empty((m, pooled, pooled, zcap, c), dtype=torch.float32, device=f0.device)
+    n = len(feats)
+    with torch.cuda.device(f0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tpu3dsis_roi_pool3d_bwd(
+            is_bf16, n, (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats]),
+            (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads]),
+            (ctypes.c_int * (3 * n))(*[d for f in feats for d in f.shape[1:4]]),
+            (ctypes.c_float * n)(*[float(s) for s in scales]), b, c, rois.data_ptr(), batch_idx.data_ptr(),
+            level_idx.data_ptr(), m, pooled, grad_out.data_ptr(), plane_max.data_ptr(), plane_grad.data_ptr(), zcap,
+            stream,
+        )
+    _build.check(err, "roi_pool3d_backward_cuda")
+    roi_pool3d_backward_cuda.launches += 1
+    return grads
 
 
 roi_pool3d_backward_cuda.launches = 0

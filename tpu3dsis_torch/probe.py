@@ -6,12 +6,17 @@ the inputs ``chip_smoke.py`` uses: phase 2's 6400 rois and the main path's
 own proposals for K1, 32 x 400 and 32 x 1024 boxes for K2, the views of
 phase 7's 96-view room fused into its 240x48x240 volume for K3, and for K1b
 the training call's shapes (two 8x24x12x24x128 level maps, 8 x 16 rois) in
-bf16. A cut copy computes nothing useful; only its time is read. K1b's copies
-are cut at its constants: "no recompute of maxima" takes a column's first
-voxel for each plane's max (one load per plane, every row taken as tied),
-"no atomics" stores each share with a plain store; "no output cast" times
-the full kernel without the wrapper's cast of the float32 maps. Run from the
-repository root on a machine with a CUDA card and nvcc:
+bf16 and float32 (and phase 2's rois). A cut copy computes nothing useful;
+only its time is read. K1b's copies are cut at its constants: "zeros only"
+stores every brick as zeros without the column pass or a scan of the rois
+(the write floor), "no column walk" takes each plane's max from one voxel
+in the column pass, "no stage recompute" takes each row's x-max from one
+voxel in the brick pass (the one stage a brick recomputes); two copies
+change its shape, not its result ("bricks 4x4x4", "16 columns staged");
+"float32 zero and cast alone" times zeroed float32 maps and their cast to
+the maps' dtype, the traffic a wrapper that sums in float32 maps pays
+around its kernel. Run from the repository root on a machine with a CUDA
+card and nvcc:
 
     python -m tpu3dsis_torch.probe [K1] [K1b] [K2] [K3]
 
@@ -43,8 +48,11 @@ CUTS = {
                              "    if (row < 0) __stcs(dst + f, tile[row * pitch + f % kRowUnits]);"),
     },
     "roi_pool3d_bwd.cu": {
-        "no recompute of maxima": ("constexpr bool kRecomputeMaxima = true;", "constexpr bool kRecomputeMaxima = false;"),
-        "no atomics": ("constexpr bool kAtomicAdds = true;", "constexpr bool kAtomicAdds = false;"),
+        "zeros only": ("constexpr bool kZerosOnly = false;", "constexpr bool kZerosOnly = true;"),
+        "no column walk": ("constexpr bool kColumnWalk = true;", "constexpr bool kColumnWalk = false;"),
+        "no stage recompute": ("constexpr bool kStageRecompute = true;", "constexpr bool kStageRecompute = false;"),
+        "bricks 4x4x4": ("constexpr int kBX = 2, kBY = 4, kBZ = 4;", "constexpr int kBX = 4, kBY = 4, kBZ = 4;"),
+        "16 columns staged": ("constexpr int kPairs = 8; ", "constexpr int kPairs = 16;"),
     },
     "nms3d.cu": {
         "staging only": ("  cluster.sync();  // also: every block has started before any writes to another\n",
@@ -71,12 +79,15 @@ def build_cuts():
     nvcc = _build._nvcc()
     out = _build.BUILD_DIR / "probe"
     out.mkdir(parents=True, exist_ok=True)
+    for src in _build.SOURCES:
+        text = src.read_text()
+        for name, (anchor, _) in CUTS[src.name].items():
+            if anchor not in text:
+                raise RuntimeError(f"{src.name}: the probe's anchor for '{name}' is gone; update CUTS")
     jobs = []
     for src in _build.SOURCES:
         text = src.read_text()
         for name, cut in {"full": None, **CUTS[src.name]}.items():
-            if cut and cut[0] not in text:
-                raise RuntimeError(f"{src.name}: the probe's anchor for '{name}' is gone; update CUTS")
             variant = out / f"{src.stem}_{name.replace(' ', '_')}.cu"
             variant.write_text(text if cut is None else text.replace(cut[0], cut[1]))
             lib = variant.with_suffix(".so")
@@ -110,23 +121,30 @@ def call_k1(lib, feats, rois, batch_idx, level_idx, scales, pooled):
     _build.check(err, "probe K1")
 
 
-def call_k1b(lib, feats, rois, batch_idx, level_idx, scales, pooled, grad_out, cast=True):
-    """K1b's wrapper with another library: zeroed float32 maps, the kernel,
-    the cast to the maps' dtype (unless ``cast`` is False)."""
+def call_k1b(lib, feats, rois, batch_idx, level_idx, scales, pooled, grad_out):
+    """K1b's wrapper with another library: maps and scratch from
+    ``torch.empty``, the kernels."""
     n, f0 = len(feats), feats[0]
-    grads = [torch.zeros(f.shape, dtype=torch.float32, device=f.device) for f in feats]
+    grads = [torch.empty_like(f) for f in feats]
     zcap = max(f.shape[3] for f in feats)
+    shape = (rois.shape[0], pooled, pooled, zcap, f0.shape[-1])
+    plane_max = torch.empty(shape, dtype=f0.dtype, device=f0.device)
+    plane_grad = torch.empty(shape, dtype=torch.float32, device=f0.device)
     err = lib.tpu3dsis_roi_pool3d_bwd(
         int(f0.dtype == torch.bfloat16), n, (ctypes.c_void_p * n)(*[f.data_ptr() for f in feats]),
         (ctypes.c_void_p * n)(*[g.data_ptr() for g in grads]),
         (ctypes.c_int * (3 * n))(*[d for f in feats for d in f.shape[1:4]]),
         (ctypes.c_float * n)(*[float(s) for s in scales]), f0.shape[0], f0.shape[-1], rois.data_ptr(),
-        batch_idx.data_ptr(), level_idx.data_ptr(), rois.shape[0], pooled, grad_out.data_ptr(), zcap,
-        torch.cuda.current_stream().cuda_stream)
+        batch_idx.data_ptr(), level_idx.data_ptr(), rois.shape[0], pooled, grad_out.data_ptr(), plane_max.data_ptr(),
+        plane_grad.data_ptr(), zcap, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "probe K1b")
-    if cast:
-        for f, g in zip(feats, grads):
-            g.to(f.dtype)
+
+
+def zero_and_cast(feats):
+    """Zeroed float32 maps and their cast to the maps' dtype: what a wrapper
+    that sums the gradient in float32 maps pays around its kernel."""
+    for f in feats:
+        torch.zeros(f.shape, dtype=torch.float32, device=f.device).to(f.dtype)
 
 
 def call_k2(lib, boxes, valid, thresh):
@@ -210,27 +228,34 @@ def probe_k1(cs, dev, libs, card):
         print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "card": card}), flush=True)
 
 
-def k1b_inputs(dev):
-    """The training call's shapes in bf16: two (8, 24, 12, 24, 128) post-ReLU
-    level maps, 16 rois a chunk of 4-40 voxels on either level, a random
+def k1b_inputs(dev, dtype=torch.bfloat16):
+    """The training call's shapes: two (8, 24, 12, 24, 128) post-ReLU level
+    maps, 16 rois a chunk of 4-40 voxels on either level, a random
     cotangent."""
     g = torch.Generator().manual_seed(0)
-    feats = [torch.relu(torch.randn((8, 24, 12, 24, 128), generator=g)).to(dev, torch.bfloat16) for _ in range(2)]
+    feats = [torch.relu(torch.randn((8, 24, 12, 24, 128), generator=g)).to(dev, dtype) for _ in range(2)]
     rng = np.random.RandomState(0)
     lo = rng.uniform(0, 80, (128, 3)) * [1, 0.5, 1]
     rois = np.concatenate([lo, lo + rng.uniform(4, 40, (128, 3))], 1).astype(np.float32)
     return dict(feats=feats, rois=torch.from_numpy(rois).to(dev),
                 batch_idx=torch.arange(8, dtype=torch.int32).repeat_interleave(16).to(dev),
                 level_idx=torch.from_numpy(rng.randint(0, 2, 128).astype(np.int32)).to(dev), scales=[0.25, 0.25],
-                pooled=4, grad_out=torch.randn((128, 128, 4, 4, 4), generator=g).to(dev, torch.bfloat16))
+                pooled=4, grad_out=torch.randn((128, 128, 4, 4, 4), generator=g).to(dev, dtype))
 
 
 def probe_k1b(cs, dev, libs, card):
-    kw = k1b_inputs(dev)
-    fns = {k: (lambda lib=lib: call_k1b(lib, **kw)) for k, lib in libs["roi_pool3d_bwd"].items()}
-    fns["no output cast"] = lambda: call_k1b(libs["roi_pool3d_bwd"]["full"], **kw, cast=False)
-    print(json.dumps({"case": "K1b bf16, the training call's shapes (2 x 8x24x12x24x128, 128 rois)",
-                      "ms": in_turns(fns, 20, cs.device_ms), "card": card}), flush=True)
+    feats, k1, _ = cs.kernel_inputs(dev, np.random.RandomState(0))
+    cases = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        cases[f"K1b {name}, the training call's shapes (2 x 8x24x12x24x128, 128 rois)"] = k1b_inputs(dev, dt)
+        cot = torch.randn((k1["rois"].shape[0], 128, 4, 4, 4), generator=torch.Generator().manual_seed(4))
+        cases[f"K1b {name}, phase 2's rois (2 x 32x24x12x24x128, 6400 rois)"] = dict(
+            feats=list(feats.to(dt).unbind(0)), **k1, grad_out=cot.to(dev, dt))
+    for case, kw in cases.items():
+        fns = {k: (lambda lib=lib: call_k1b(lib, **kw)) for k, lib in libs["roi_pool3d_bwd"].items()}
+        fns["float32 zero and cast alone"] = lambda: zero_and_cast(kw["feats"])
+        print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "card": card}), flush=True)
 
 
 def probe_k2(cs, dev, libs, card):
