@@ -2133,46 +2133,6 @@ def k1b_kernel_split(fn):
     return {}
 
 
-def k1b_recompute(feats, rois, batch_idx, level_idx, scales, pooled):
-    """What K1b's bricks repeat on this call, for the brick the library was
-    built with: the bricks that stage each column's planes (read from the
-    scratch the column pass wrote once), on average over the columns that
-    pass anything, and the bricks that compute each row's x-max over a
-    column's x-bin (the one stage a brick recomputes: once for each brick
-    its x-bin spans), on average over those rows."""
-    lib = _build.load_library()
-    bx, by, bz = (lib.tpu3dsis_roi_pool3d_bwd_brick(d) for d in range(3))
-    r = rois.detach().to("cpu", torch.float32)
-    bidx, lidx = batch_idx.tolist(), level_idx.tolist()
-    columns = staged = rows = row_maxima = 0
-    for lv, (f, s) in enumerate(zip(feats, scales)):
-        mine = [i for i in range(len(bidx)) if lidx[i] == lv and 0 <= bidx[i] < f.shape[0]]
-        if not mine:
-            continue
-        s = torch.tensor(s, dtype=torch.float32)
-        lo = torch.floor(r[mine, :3] * s).to(torch.int32)
-        hi = torch.ceil(r[mine, 3:] * s).to(torch.int32)
-        (xs, xe), (ys, ye), (zs, ze) = ([t.tolist() for t in rp._bin_bounds(lo[:, d], hi[:, d], pooled, e)]
-                                        for d, e in enumerate(f.shape[1:4]))
-        for k in range(len(mine)):
-            z0, z1 = zs[k][0], ze[k][-1]
-            if z1 <= z0 or ye[k][-1] <= ys[k][0]:
-                continue
-            zb = (z1 - 1) // bz - z0 // bz + 1
-            for px in range(pooled):
-                if xe[k][px] <= xs[k][px]:
-                    continue
-                xb = (xe[k][px] - 1) // bx - xs[k][px] // bx + 1
-                n = (ye[k][-1] - ys[k][0]) * (z1 - z0)
-                rows += n
-                row_maxima += n * xb
-                for py in range(pooled):
-                    if ye[k][py] > ys[k][py]:
-                        columns += 1
-                        staged += xb * ((ye[k][py] - 1) // by - ys[k][py] // by + 1) * zb
-    return staged / max(columns, 1), row_maxima / max(rows, 1)
-
-
 def profile_steps(fn, steps=3):
     """Device busy ms per step, the window's ms per step and the top kernels,
     from torch.profiler over `steps` calls of fn (after the caller's
@@ -2460,11 +2420,6 @@ def phase_train(dev, kernel_data, params):
     train_call = res["k1b_times"]["training call bfloat16"]
     res["k1b_ms"], res["k1b_bound_ms"], res["k1b_plain_ms"] = (train_call["ms"], train_call["bound_ms"],
                                                                train_call["plain_ms"])
-    feats, args, _ = cases["training call"]
-    res["k1b_recompute"] = k1b_recompute(feats, **args)
-    log(f"[9] K1b's bricks on the training call: each column that passes anything is staged (its planes read "
-        f"from the column pass's scratch) by {res['k1b_recompute'][0]:.3f} bricks on average; each row's x-max over "
-        f"a column's x-bin is computed by {res['k1b_recompute'][1]:.3f} bricks on average")
     res["entry"] = phase_train_entry(params)
     res.update(runs=runs, card_vs_cpu=card_cpu)
     log(f"[9] phase 9 in {time.time() - t_phase:.1f} s")
@@ -2561,8 +2516,7 @@ def main(argv=None) -> int:
          "launches_entry_train": train["entry"]["launches"]["roi_pool3d_backward_cuda"],
          "max_abs_err": train["k1b_err"], "ms": train["k1b_ms"], "plain_ms": train["k1b_plain_ms"],
          "bound_ms": train["k1b_bound_ms"], "bound_by": "bytes", "library_ms": None,
-         "times": train["k1b_times"], "column_stagings_per_column": train["k1b_recompute"][0],
-         "bricks_per_row_max": train["k1b_recompute"][1]},
+         "times": train["k1b_times"]},
         {"name": "nms3d_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
          "replaces": "tpu3dsis/ops/nms.py:86", "launches": launches["nms3d_cuda"],
          "launches_per_batch": per_batch["nms3d_cuda"], "launches_scene_path": scene_launches["nms3d_cuda"],

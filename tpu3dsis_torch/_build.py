@@ -43,8 +43,8 @@ _SIGNATURES = {
     "tpu3dsis_roi_pool3d_bwd": ([_I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P], _I),
     "tpu3dsis_roi_pool3d_bwd_threads": ([_I, _I], _I),
     "tpu3dsis_roi_pool3d_bwd_smem": ([_I, _I], _LL),
-    "tpu3dsis_roi_pool3d_bwd_brick": ([_I], _I),
     "tpu3dsis_roi_pool3d_bwd_launches": ([], _LL),
+    "tpu3dsis_roi_pool3d_bwd_counts": ([_P], _I),
     "tpu3dsis_nms3d": ([_P, _P, _P, _I, _I, _F, _P, _P], _I),
     "tpu3dsis_nms3d_smem": ([_I, _I], _LL),
     "tpu3dsis_nms3d_launches": ([], _LL),

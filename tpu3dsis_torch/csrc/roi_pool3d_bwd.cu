@@ -88,8 +88,29 @@ constexpr int kColumnThreads = 128;
 constexpr bool kZerosOnly = false;
 constexpr bool kColumnWalk = true;
 constexpr bool kStageRecompute = true;
+// the probe's counting build: each block adds up what it computes into its
+// slot of g_counts (the column pass: columns, row x-maxima; the brick pass:
+// column stagings, row x-maxima), read by tpu3dsis_roi_pool3d_bwd_counts
+constexpr bool kCount = false;
+constexpr int kCountSlots = 1 << 17;  // blocks counted per kernel
 
 long long g_launches = 0;
+__device__ unsigned long long g_counts[4][kCount ? kCountSlots : 1];
+
+// Counting build: the sums of a and b over the block's threads into slot
+// blockIdx.x of counters k and k + 1 (one bit at a time, by barrier counts;
+// every thread of the block calls it).
+__device__ __forceinline__ void count_block(int k, unsigned a, unsigned b) {
+  unsigned long long sa = 0, sb = 0;
+  for (int bit = 0; bit < 32; ++bit) {
+    sa += static_cast<unsigned long long>(__syncthreads_count((a >> bit) & 1u)) << bit;
+    sb += static_cast<unsigned long long>(__syncthreads_count((b >> bit) & 1u)) << bit;
+  }
+  if (threadIdx.x == 0 && blockIdx.x < kCountSlots) {
+    g_counts[k][blockIdx.x] = sa;
+    g_counts[k + 1][blockIdx.x] = sb;
+  }
+}
 
 struct Levels {
   const void* feats[kMaxLevels];  // (B, W, H, L, C) channels-last, contiguous
@@ -286,10 +307,12 @@ roi_pool3d_bwd_columns(Levels lv, int C, int P, int zcap, const float* __restric
   const int local = threadIdx.x / per_col, columns = blockDim.x / per_col;
   float* gzs = reinterpret_cast<float*>(bins_raw) + local * P * C + chan;
   T* fzs = reinterpret_cast<T*>(reinterpret_cast<float*>(bins_raw) + columns * P * C) + local * P * C + chan;
+  unsigned row_maxima = 0;  // counting build
 
   // each plane's max over the column's rows, and n_y
   for (int z = zu0 + part; live && z < zu1; z += kSplit) {
     float fy[V], ny[V];
+    if (kCount && chan == 0) row_maxima += ey - sy;
     if (kColumnWalk) {
       plane_max(map + z * C, H * L * C, L * C, sx, ex, sy, ey, fy, ny);
     } else {
@@ -367,6 +390,7 @@ roi_pool3d_bwd_columns(Levels lv, int C, int P, int zcap, const float* __restric
           make_float4(ct[k] / n.x, ct[k + 1] / n.y, ct[k + 2] / n.z, ct[k + 3] / n.w);
     }
   }
+  if (kCount) count_block(0, live && part == 0 && chan == 0, row_maxima);
 }
 
 // A brick: its level, sample and voxels [x0, x1) x [y0, y1) x [z0, z1).
@@ -490,6 +514,7 @@ roi_pool3d_bwd_bricks(Levels lv, int C, int P, int zcap, const float* __restrict
   const int row = threadIdx.x / lanes, chan = (threadIdx.x % lanes) * V;
   const int bricks = lv.first[lv.num];
   bool planes_ready = false;
+  unsigned stagings = 0, row_maxima = 0;  // counting build
 
   for (int brick = blockIdx.x; brick < bricks; brick += gridDim.x) {
     const Place q = place_of(lv, brick);
@@ -566,6 +591,7 @@ roi_pool3d_bwd_bricks(Levels lv, int C, int P, int zcap, const float* __restrict
       }
       __syncthreads();
 
+      if (kCount && threadIdx.x == 0) stagings += npairs;
       if (npairs > 0 && !planes_ready) {  // the column pass, launched before, has written every plane
         asm volatile("griddepcontrol.wait;" ::: "memory");
         planes_ready = true;
@@ -641,6 +667,7 @@ roi_pool3d_bwd_bricks(Levels lv, int C, int P, int zcap, const float* __restrict
             if (!nonzero) continue;  // the plane ties no z-bin's max in any of these channels
             Lane<T>::unpack(*reinterpret_cast<const uint4*>(s_fy + at), fy);
             if (!rs.have_row) {
+              if (kCount && chan == 0) ++row_maxima;
               if (kStageRecompute) {
                 if (rs.sx >= x0 && rs.ex <= x1) {  // from the staged voxels
                   for (int x = rs.sx; x < rs.ex; ++x) {
@@ -695,6 +722,7 @@ roi_pool3d_bwd_bricks(Levels lv, int C, int P, int zcap, const float* __restrict
       }
     }
   }
+  if (kCount) count_block(2, stagings, row_maxima);
 }
 
 int vec_of(int is_bf16) { return is_bf16 ? Lane<__nv_bfloat16>::V : Lane<float>::V; }
@@ -713,14 +741,23 @@ cudaError_t launch(const Levels& lv, int C, int P, int zcap, const float* rois, 
                    const int* level_idx, int M, const T* cot, T* plane_max, float* plane_grad, int threads,
                    cudaStream_t s) {
   const int per_block = max(1, kColumnThreads / (kSplit * (C / Lane<T>::V))), columns = M * P * P;
+  cudaError_t err = cudaSuccess;
+  if (kCount) {
+    void* counts = nullptr;
+    err = cudaGetSymbolAddress(&counts, g_counts);
+    if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, sizeof(g_counts), s);
+    if (err != cudaSuccess) return err;
+  }
   if (columns > 0 && !kZerosOnly) {
     const size_t bins = static_cast<size_t>(per_block) * P * C * (sizeof(float) + sizeof(T));
     roi_pool3d_bwd_columns<T><<<(columns + per_block - 1) / per_block, per_block * kSplit * (C / Lane<T>::V), bins,
                                 s>>>(lv, C, P, zcap, rois, batch_idx, level_idx, M, cot, plane_max, plane_grad);
+    err = cudaGetLastError();  // else the brick pass would read a scratch never written
+    if (err != cudaSuccess) return err;
   }
   const long long smem = smem_of(std::is_same<T, __nv_bfloat16>::value, C);
   int per_sm = 0, sms = 0, dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(roi_pool3d_bwd_bricks<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -760,12 +797,27 @@ extern "C" int tpu3dsis_roi_pool3d_bwd_threads(int is_bf16, int C) { return thre
 // them against the card's limit.
 extern "C" long long tpu3dsis_roi_pool3d_bwd_smem(int is_bf16, int C) { return smem_of(is_bf16, C); }
 
-// The brick a block writes at a time, along axis d (0: x, 1: y, 2: z).
-extern "C" int tpu3dsis_roi_pool3d_bwd_brick(int d) { return d == 0 ? kBX : (d == 1 ? kBY : kBZ); }
-
 // Calls that launched the kernels so far (the column pass, when there are
 // rois, and the brick pass: two kernels a call).
 extern "C" long long tpu3dsis_roi_pool3d_bwd_launches() { return g_launches; }
+
+// The probe's counting build (kCount), after a call: out[0] the columns the
+// column pass computed, out[1] the row x-maxima it computed, out[2] the
+// columns the brick pass staged (one per brick that meets the column), out[3]
+// the row x-maxima the brick pass recomputed; the first kCountSlots blocks of
+// each kernel. Waits for the card. Returns the cudaError_t
+// (cudaErrorNotSupported in a build that does not count).
+extern "C" int tpu3dsis_roi_pool3d_bwd_counts(long long* out) {
+  if (!kCount) return static_cast<int>(cudaErrorNotSupported);
+  static unsigned long long host[4][kCount ? kCountSlots : 1];
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(host, g_counts, sizeof(host));
+  for (int k = 0; k < 4; ++k) {
+    out[k] = 0;
+    for (int i = 0; err == cudaSuccess && i < (kCount ? kCountSlots : 1); ++i) out[k] += host[k][i];
+  }
+  return static_cast<int>(err);
+}
 
 // feats: num_levels pointers to (batch, W, H, L, C) contiguous maps, float32
 // or bfloat16, 16-byte aligned, C a multiple of 16 bytes of channels; grads:

@@ -229,7 +229,11 @@ def roi_pool3d_backward_cuda(feats: Sequence[torch.Tensor], rois, batch_idx, lev
     version's, so two calls on the same inputs give the same bits. The
     column pass writes each column's planes (the plane's max and ct / n_y)
     to an (M, P, P, L, C) scratch allocated here, L the deepest level's;
-    only the planes the rois hold are touched.
+    only the planes the rois hold are touched. The scratch takes
+    M * P^2 * L * C * (itemsize + 4) bytes: 37.7 MB on a training step's
+    call (128 rois, P = 4, L = 24, C = 128, bf16), 1.9 GB on 6,400 such
+    rois. A call whose scratch would exceed a quarter of the card's memory
+    raises.
     """
     feats = list(feats)
     f0 = feats[0]
@@ -275,8 +279,12 @@ def roi_pool3d_backward_cuda(feats: Sequence[torch.Tensor], rois, batch_idx, lev
         raise ValueError(f"roi_pool3d_backward_cuda: C={c} needs {smem} bytes of shared memory a block")
     if m * pooled**2 * c >= 2**31:
         raise ValueError("roi_pool3d_backward_cuda: too many rois for K1b's 32-bit column index")
-    grads = [torch.empty_like(f) for f in feats]
     zcap = max(f.shape[3] for f in feats)
+    scratch = m * pooled**2 * zcap * c * (f0.element_size() + 4)
+    if scratch > torch.cuda.get_device_properties(f0.device).total_memory // 4:
+        raise ValueError(f"roi_pool3d_backward_cuda: {m} rois at P={pooled} need a {scratch:,} B column scratch, "
+                         "more than a quarter of the card's memory")
+    grads = [torch.empty_like(f) for f in feats]
     plane_max = torch.empty((m, pooled, pooled, zcap, c), dtype=f0.dtype, device=f0.device)
     plane_grad = torch.empty((m, pooled, pooled, zcap, c), dtype=torch.float32, device=f0.device)
     n = len(feats)

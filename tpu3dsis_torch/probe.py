@@ -5,9 +5,10 @@ Each kernel is timed against copies of itself built with one phase cut out
 the inputs ``chip_smoke.py`` uses: phase 2's 6400 rois and the main path's
 own proposals for K1, 32 x 400 and 32 x 1024 boxes for K2, the views of
 phase 7's 96-view room fused into its 240x48x240 volume for K3, and for K1b
-the training call's shapes (two 8x24x12x24x128 level maps, 8 x 16 rois) in
-bf16 and float32 (and phase 2's rois). A cut copy computes nothing useful;
-only its time is read. K1b's copies are cut at its constants: "zeros only"
+a geometry training step's own call (recorded from the step), the training
+call's shapes (two 8x24x12x24x128 level maps, 8 x 16 rois) and phase 2's
+rois, each in bf16 and float32. A cut copy computes nothing useful; only
+its time is read. K1b's copies are cut at its constants: "zeros only"
 stores every brick as zeros without the column pass or a scan of the rois
 (the write floor), "no column walk" takes each plane's max from one voxel
 in the column pass, "no stage recompute" takes each row's x-max from one
@@ -15,15 +16,24 @@ voxel in the brick pass (the one stage a brick recomputes); two copies
 change its shape, not its result ("bricks 4x4x4", "16 columns staged");
 "float32 zero and cast alone" times zeroed float32 maps and their cast to
 the maps' dtype, the traffic a wrapper that sums in float32 maps pays
-around its kernel. Run from the repository root on a machine with a CUDA
-card and nvcc:
+around its kernel. A K1b copy built to count (not timed) adds to each
+K1b line what the kernels computed on that input: the columns the column
+pass computed and their row x-maxima, the columns the brick pass staged
+(once per brick that meets a column) and the row x-maxima it recomputed.
+Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python -m tpu3dsis_torch.probe [K1] [K1b] [K2] [K3]
+    python -m tpu3dsis_torch.probe [K1] [K1b] [K2] [K3] [--against DIR ...]
 
 (all four when none is named). It prints one JSON line per case: the full
 kernel's and each cut copy's device time in ms, measured in turns (full,
 cuts, cuts reversed, full); K3's line adds the share of (brick, view) pairs
-its cull keeps.
+its cull keeps. ``--against DIR`` (with K1b) also times the whole K1b
+wrapper, ``ops/roi_pool3d.py::roi_pool3d_backward_cuda``, of another
+checkout of the repository (DIR holds its ``tpu3dsis_torch``, for example
+an earlier commit unpacked with ``git archive``) against this checkout's,
+on the same K1b inputs, each in a process started in its checkout, in
+turns (the others, this one, this one, the others reversed): one JSON line
+per case with each checkout's median ms.
 """
 
 from __future__ import annotations
@@ -33,11 +43,14 @@ import json
 import statistics
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from tpu3dsis_torch import _build
+
+COUNTING = "counting"  # K1b's copy that counts what its kernels compute; built, not timed
 
 # per source: cut name -> (text in the source, its replacement)
 CUTS = {
@@ -53,6 +66,7 @@ CUTS = {
         "no stage recompute": ("constexpr bool kStageRecompute = true;", "constexpr bool kStageRecompute = false;"),
         "bricks 4x4x4": ("constexpr int kBX = 2, kBY = 4, kBZ = 4;", "constexpr int kBX = 4, kBY = 4, kBZ = 4;"),
         "16 columns staged": ("constexpr int kPairs = 8; ", "constexpr int kPairs = 16;"),
+        COUNTING: ("constexpr bool kCount = false;", "constexpr bool kCount = true;"),
     },
     "nms3d.cu": {
         "staging only": ("  cluster.sync();  // also: every block has started before any writes to another\n",
@@ -140,6 +154,70 @@ def call_k1b(lib, feats, rois, batch_idx, level_idx, scales, pooled, grad_out):
     _build.check(err, "probe K1b")
 
 
+def k1b_counts(lib, kw):
+    """What the counting copy of K1b computes on one input (see the note at
+    the top), and the ratios: column stagings per column, and row x-maxima
+    the brick pass recomputes per row x-max of the column pass."""
+    call_k1b(lib, **kw)
+    out = (ctypes.c_longlong * 4)()
+    _build.check(lib.tpu3dsis_roi_pool3d_bwd_counts(out), "probe K1b counts")
+    columns, column_rows, stagings, brick_rows = list(out)
+    return {"columns": columns, "column_pass_row_maxima": column_rows, "brick_pass_stagings": stagings,
+            "brick_pass_row_maxima": brick_rows, "stagings_per_column": stagings / max(columns, 1),
+            "brick_row_maxima_per_column_row_max": brick_rows / max(column_rows, 1)}
+
+
+# Run in another checkout's root by against(): the K1b wrapper of that
+# checkout on the saved inputs, each case's device time in ms (as
+# chip_smoke.device_ms measures it: calls queued behind a device sleep).
+_WRAPPER_TIMER = r"""
+import json, sys
+import torch
+from tpu3dsis_torch.ops.roi_pool3d import roi_pool3d_backward_cuda
+
+def device_ms(fn, iters=20):
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+out = {}
+for case, kw in torch.load(sys.argv[1]).items():
+    kw = {k: [t.cuda() for t in v] if k == "feats" else v.cuda() if torch.is_tensor(v) else v for k, v in kw.items()}
+    out[case] = device_ms(lambda: roi_pool3d_backward_cuda(**kw))
+print(json.dumps(out))
+"""
+
+
+def against(cases, others, card):
+    """The whole K1b wrapper of each checkout in `others` and of this one on
+    the same inputs, each checkout in its own processes, in turns; one JSON
+    line per case with each checkout's median ms."""
+    here = str(Path(__file__).resolve().parents[1])
+    saved = _build.BUILD_DIR / "probe" / "k1b_cases.pt"
+    saved.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({case: {k: [t.cpu() for t in v] if k == "feats" else v.cpu() if torch.is_tensor(v) else v
+                       for k, v in kw.items()} for case, kw in cases.items()}, saved)
+    times = {root: [] for root in [*others, here]}
+    for root in [*others, here, here, *others[::-1]]:
+        res = subprocess.run([sys.executable, "-c", _WRAPPER_TIMER, str(saved)], cwd=root, capture_output=True,
+                             text=True)
+        if res.returncode:
+            raise RuntimeError(f"probe: K1b's wrapper in {root} failed:\n{res.stderr[-4000:]}")
+        times[root].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    for case in cases:
+        ms = {("this checkout" if root == here else root): round(statistics.median(t[case] for t in runs), 5)
+              for root, runs in times.items()}
+        print(json.dumps({"case": f"{case}: the whole wrapper", "ms": ms, "card": card}), flush=True)
+
+
 def zero_and_cast(feats):
     """Zeroed float32 maps and their cast to the maps' dtype: what a wrapper
     that sums the gradient in float32 maps pays around its kernel."""
@@ -191,9 +269,17 @@ def in_turns(fns, iters, device_ms):
 
 
 def main(argv=()) -> int:
+    argv, others = list(argv), []
+    while "--against" in argv:
+        at = argv.index("--against")
+        if at + 1 == len(argv):
+            print("probe: --against takes a directory", file=sys.stderr)
+            return 2
+        others.append(str(Path(argv.pop(at + 1)).resolve()))
+        argv.pop(at)
     which = set(argv) or {"K1", "K1b", "K2", "K3"}
-    if not which <= {"K1", "K1b", "K2", "K3"}:
-        print(f"probe: name K1, K1b, K2 or K3, not {sorted(which)}", file=sys.stderr)
+    if not which <= {"K1", "K1b", "K2", "K3"} or (others and "K1b" not in which):
+        print(f"probe: name K1, K1b, K2 or K3 (K1b with --against), not {sorted(which)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
@@ -206,7 +292,7 @@ def main(argv=()) -> int:
     if "K1" in which:
         probe_k1(cs, dev, libs, card)
     if "K1b" in which:
-        probe_k1b(cs, dev, libs, card)
+        probe_k1b(cs, dev, libs, card, others)
     if "K2" in which:
         probe_k2(cs, dev, libs, card)
     if "K3" in which:
@@ -243,19 +329,50 @@ def k1b_inputs(dev, dtype=torch.bfloat16):
                 pooled=4, grad_out=torch.randn((128, 128, 4, 4, 4), generator=g).to(dev, dtype))
 
 
-def probe_k1b(cs, dev, libs, card):
+def k1b_training_call(cs, dev):
+    """K1b's arguments on a geometry training step (``chip_smoke``'s
+    training config, batch 8, seeded weights), recorded from its second
+    step."""
+    from tpu3dsis_torch.config import scannet_train_config
+    from tpu3dsis_torch.train.trainstep import build_train_step
+
+    cfg = scannet_train_config(color=False)
+    det = cs.train_detector(dev, cfg)
+    opt_init, step = build_train_step(det, cfg, cs.SHAPE)
+    opt = opt_init()
+    batch = cs.train_batch(np.random.RandomState(7), cs.TRAIN_BATCH["geometry"], cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step(opt, batch, generator=gen)
+    with cs.recording_kernel_calls() as calls:
+        step(opt, batch, generator=gen)
+    torch.cuda.synchronize()
+    return dict(next(args for kind, args in calls if kind == "roi_pool3d_backward_cuda"))
+
+
+def probe_k1b(cs, dev, libs, card, others=()):
     feats, k1, _ = cs.kernel_inputs(dev, np.random.RandomState(0))
+    step_call = k1b_training_call(cs, dev)
     cases = {}
     for dt in (torch.bfloat16, torch.float32):
         name = str(dt).split(".")[-1]
+        m = step_call["rois"].shape[0]
+        cases[f"K1b {name}, a geometry training step's call (2 x 8x24x12x24x128, {m} rois)"] = {
+            k: [f.to(dt) for f in v] if k == "feats" else v.to(dt) if k == "grad_out" else v
+            for k, v in step_call.items()}
         cases[f"K1b {name}, the training call's shapes (2 x 8x24x12x24x128, 128 rois)"] = k1b_inputs(dev, dt)
         cot = torch.randn((k1["rois"].shape[0], 128, 4, 4, 4), generator=torch.Generator().manual_seed(4))
         cases[f"K1b {name}, phase 2's rois (2 x 32x24x12x24x128, 6400 rois)"] = dict(
             feats=list(feats.to(dt).unbind(0)), **k1, grad_out=cot.to(dev, dt))
+    copies = dict(libs["roi_pool3d_bwd"])
+    counting = copies.pop(COUNTING)
     for case, kw in cases.items():
-        fns = {k: (lambda lib=lib: call_k1b(lib, **kw)) for k, lib in libs["roi_pool3d_bwd"].items()}
+        fns = {k: (lambda lib=lib: call_k1b(lib, **kw)) for k, lib in copies.items()}
         fns["float32 zero and cast alone"] = lambda: zero_and_cast(kw["feats"])
-        print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "card": card}), flush=True)
+        print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "counts": k1b_counts(counting, kw),
+                          "card": card}), flush=True)
+    if others:
+        against(cases, list(others), card)
 
 
 def probe_k2(cs, dev, libs, card):
