@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's chunk and whole-scene paths, its test and
-benchmark drivers and its training on one NVIDIA card.
+benchmark drivers and its training (the ENet's and SUNCG's included) on one
+NVIDIA card.
 
 Run from the repository root, on a machine with a CUDA device and nvcc:
 
@@ -84,7 +85,24 @@ result):
      bytes bound, its plain time, and what its bricks repeat; then ``python -m
      tpu3dsis_torch.main --mode train`` on a corpus of `.chunk` files
      (pretrained from phase 6's weights), a second run that resumes from
-     its snapshot, and ``--mode test --step`` on that snapshot.
+     its snapshot, and ``--mode test --step`` on that snapshot;
+ 10. training the ENet through the view fusion (``FIX_ENET: False``) and
+     SUNCG: K3b against its plain version (autograd of ``fuse_views_plain``,
+     within 1e-5 of the largest gradient) on every call of a recorded
+     trainable-ENet step (bench_train's color batch, 5 views, 96x48x96x128,
+     float32), on edge cases (tied duplicated views, exact zeros, an
+     invalid view) and on a 32-view room of phase 7 with exact-zero
+     features; its time beside its bound and its plain time, its kernels'
+     microseconds from a profile, and whether two launches are
+     ``torch.equal``; one float32 step card vs CPU (phase 9's contract, the
+     ENet's parameters included); 30 bf16 steps of
+     ``scannet_train_config(color=True)`` with ``FIX_ENET: False`` at batch
+     4, counted (K3 and K3b every step), finite with a falling loss, with
+     s/iter, stages, peak memory and the idle share; then
+     ``suncg_train_config()`` (the shipped SUNCG yml): 10 bf16 steps at
+     batch 4, finite, counted; its chunk detection with the color stream on
+     one chunk's frames, card vs CPU in float32, and bf16 chunks/s at batch
+     32.
 
 ``--phases 9`` (a comma-separated list) runs only those phases after 0 and
 1, for work on one phase, and prints no result line. The last three lines
@@ -477,7 +495,8 @@ def device_launches():
     lib = _build.load_library()
     return {"roi_pool3d_cuda": lib.tpu3dsis_roi_pool3d_launches(), "nms3d_cuda": lib.tpu3dsis_nms3d_launches(),
             "fuse_views_cuda": lib.tpu3dsis_fuse_views_launches(),
-            "roi_pool3d_backward_cuda": lib.tpu3dsis_roi_pool3d_bwd_launches()}
+            "roi_pool3d_backward_cuda": lib.tpu3dsis_roi_pool3d_bwd_launches(),
+            "fuse_views_backward_cuda": lib.tpu3dsis_fuse_views_bwd_launches()}
 
 
 def reset_launch_counts():
@@ -487,6 +506,7 @@ def reset_launch_counts():
     nms.nms3d_cuda.launches = 0
     nms.nms3d_cuda.class_aware_launches = 0
     projection.fuse_views_cuda.launches = 0
+    projection.fuse_views_backward_cuda.launches = 0
 
 
 def phase_main_path(dev, scenes, gts, dets, batches=3):
@@ -546,10 +566,11 @@ def _match_rows(a_rois, a_lvl, b_rois, b_lvl, tol):
     return pairs
 
 
-def phase_card_vs_cpu(scene, dets, cpu_det, outs):
-    cfg32, det32 = dets[0]
-    card = {k: v.cpu() for k, v in build_inference_fn(det32, cfg32, SHAPE)(torch.from_numpy(scene)).items()}
-    cpu = build_inference_fn(cpu_det, cfg32, SHAPE)(torch.from_numpy(scene))
+def compare_chunk_outputs(card, cpu, label, phase):
+    """One chunk's detections on the card and the CPU, float32 with TF32
+    off: the same valid proposals (order-free), rois and boxes within 1e-3
+    voxels, class probabilities and confidences within 1e-4."""
+    card = {k: v.cpu() for k, v in card.items()}
     vc, vp = card["valid"].numpy(), cpu["valid"].numpy()
     check(np.array_equal(vc, vp), f"valid differs: {vc.sum()} on the card, {vp.sum()} on the CPU")
     rc, rpu = card["rois"].numpy()[vc], cpu["rois"].numpy()[vp]
@@ -563,8 +584,16 @@ def phase_card_vs_cpu(scene, dets, cpu_det, outs):
         d = np.abs(card[key].numpy()[vc][ic] - cpu[key].numpy()[vp][ip]).max(initial=0)
         errs[key] = float(d)
         check(d <= tol, f"card vs CPU {key} differs by {d} > {tol}")
-    log(f"[4] card vs CPU, one chunk, float32, TF32 off: {int(vc.sum())} valid proposals, "
+    log(f"[{phase}] card vs CPU, {label}, float32, TF32 off: {int(vc.sum())} valid proposals, "
         f"same order={in_order}, max abs diff {errs} [{CARD}]")
+    return errs
+
+
+def phase_card_vs_cpu(scene, dets, cpu_det, outs):
+    cfg32, det32 = dets[0]
+    card = build_inference_fn(det32, cfg32, SHAPE)(torch.from_numpy(scene))
+    cpu = build_inference_fn(cpu_det, cfg32, SHAPE)(torch.from_numpy(scene))
+    compare_chunk_outputs(card, cpu, "one chunk", phase=4)
 
     # bfloat16 against float32 on the card: the contract of
     # test_bf16_stability.py:53-88, over the batch as one scene (its slack,
@@ -758,13 +787,13 @@ def recorded_kernel_calls(si, scene, frames=None, fused=True):
 
 @contextlib.contextmanager
 def recording_kernel_calls():
-    """Within the block, every call to K1's, K1b's, K2's and K3's wrappers, from any
+    """Within the block, every call to K1's, K1b's, K2's, K3's and K3b's wrappers, from any
     thread, with copies of its arguments, in call order: [(kind, {argument:
     value})], kind the wrapper's name or "class-aware" for K2 with classes.
     The wrappers are wrapped for the block only."""
     calls = []
     wrapped = ((rp, "roi_pool3d_cuda"), (rp, "roi_pool3d_backward_cuda"), (nms, "nms3d_cuda"),
-               (projection, "fuse_views_cuda"))
+               (projection, "fuse_views_cuda"), (projection, "fuse_views_backward_cuda"))
     originals = [getattr(mod, name) for mod, name in wrapped]
 
     def recorder(fn):
@@ -2000,11 +2029,18 @@ def train_batch(rng, n, cfg, color=False):
 
 
 def train_detector(dev, cfg, seed=0):
-    """A detector with float32 master weights from a seeded generator."""
+    """A detector with float32 master weights from a seeded generator; an
+    ENet that trains (FIX_ENET False) starts, as the shipped configs'
+    PRETRAINED_ENET_PATH has it, from a trained ENet: the color fixture's
+    (its BatchNorm statistics and biases are not the zeros of a fresh
+    init, whose one-step values would be their gradients alone)."""
     from tpu3dsis_torch.config import DetectorConfig
 
     det = Detector(DetectorConfig.from_cfg(cfg), device=dev, param_dtype=torch.float32)
-    return det.init_params(torch.Generator().manual_seed(seed))
+    det.init_params(torch.Generator().manual_seed(seed))
+    if det.enet is not None and not bool(cfg.FIX_ENET):
+        load_jax_params(det.enet, {k[len("enet."):]: v for k, v in color_params().items() if k.startswith("enet.")})
+    return det
 
 
 def k1b_bound(feats, rois, batch_idx, level_idx, scales, pooled):
@@ -2154,37 +2190,39 @@ def profile_steps(fn, steps=3):
     return sum(by_name.values()), start.elapsed_time(end) / steps, sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
-def train_card_vs_cpu(dev):
-    """One geometry step on the card and on the CPU, float32 with TF32 off,
-    the same weights, batch and draws: every loss term within 1e-3
-    relative, every updated parameter within 1e-4 of its largest magnitude.
-    Batch 2 and 4 mask rois a chunk (not 8), to bound the CPU's time."""
+def train_card_vs_cpu(dev, name="geometry", cfg=None, phase=9):
+    """One step on the card and on the CPU, float32 with TF32 off, the same
+    weights, batch and draws: every loss term within 1e-3 relative, every
+    updated parameter within 1e-4 of its largest magnitude. Geometry, or
+    another config (the color stream's batch where it has one; a trained
+    ENet starts from the pretrained one). Batch 2 and 4 mask rois a chunk
+    (not 8), to bound the CPU's time."""
     from tpu3dsis_torch.checkpoint import module_params
     from tpu3dsis_torch.config import scannet_train_config
     from tpu3dsis_torch.train.trainstep import anchor_count, build_train_step, make_draws
 
-    cfg = scannet_train_config()
+    cfg = scannet_train_config() if cfg is None else cfg
     cfg.TPU_COMPUTE_DTYPE = "float32"
     cfg.TPU_MAX_MASK_ROIS = 4
     n = 2
     card = train_detector(dev, cfg, seed=3)
     cpu = load_jax_params(train_detector("cpu", cfg), module_params(card))
-    batch = train_batch(np.random.RandomState(11), n, cfg)
+    batch = train_batch(np.random.RandomState(11), n, cfg, color=bool(cfg.USE_IMAGES))
     draws = make_draws(n, anchor_count(card, SHAPE), int(cfg.TRAIN.RPN_POST_NMS_TOP_N) + int(cfg.TPU_MAX_GT),
                        torch.Generator().manual_seed(5), "cpu")
     out = {}
-    for name, det in (("card", card), ("cpu", cpu)):
+    for where, det in (("card", card), ("cpu", cpu)):
         opt_init, step = build_train_step(det, cfg, SHAPE)
         opt = opt_init()
         t0 = time.time()
         m = step(opt, batch, draws=draws)
-        out[name] = ({k: float(v) for k, v in m.items()}, time.time() - t0)
+        out[where] = ({k: float(v) for k, v in m.items()}, time.time() - t0)
     (mc, t_card), (mp, t_cpu) = out["card"], out["cpu"]
     rel = {k: abs(mc[k] - v) / max(abs(v), 1e-6) for k, v in mp.items()}
     pc, pp = module_params(card), module_params(cpu)
     prel = {k: float(np.abs(pc[k] - v).max() / max(np.abs(v).max(), 1e-30)) for k, v in pp.items()}
     worst = max(prel, key=prel.get)
-    log(f"[9] one geometry step, card vs CPU (float32, TF32 off, batch {n}, 4 mask rois): losses card "
+    log(f"[{phase}] one {name} step, card vs CPU (float32, TF32 off, batch {n}, 4 mask rois): losses card "
         + json.dumps({k: round(v, 6) for k, v in mc.items()}) + f"; largest relative difference "
         f"{max(rel.values()):.3g} ({max(rel, key=rel.get)}); updated parameters: largest max-norm relative "
         f"difference {prel[worst]:.3g} ({worst}); card {t_card:.2f} s (first step), CPU {t_cpu:.2f} s [{CARD}]")
@@ -2194,13 +2232,16 @@ def train_card_vs_cpu(dev):
     return {"loss_rel": max(rel.values()), "param_rel": prel[worst]}
 
 
-def train_run(dev, name, cfg, n, steps=TRAIN_STEPS):
+def train_run(dev, name, cfg, n, steps=TRAIN_STEPS, phase=9):
     """The training main path: ``build_train_step`` on a fixed batch of n
     synthetic chunks for `steps` steps, every wrapper's count set to 0 just
-    before and read just after; then the timings."""
+    before and read just after; then the timings. Every step must be finite
+    and the loss fall; K1, K1b and K2 must launch, K3 with the color stream
+    and K3b where the ENet trains."""
     from tpu3dsis_torch.train.trainstep import StageTimer, build_train_step
 
-    color = name == "color"
+    color = bool(cfg.USE_IMAGES)
+    train_enet = color and not bool(cfg.FIX_ENET)
     det = train_detector(dev, cfg)
     opt_init, step = build_train_step(det, cfg, SHAPE)
     opt = opt_init()
@@ -2226,7 +2267,8 @@ def train_run(dev, name, cfg, n, steps=TRAIN_STEPS):
     torch.cuda.synchronize()
     launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches,
                 "roi_pool3d_backward_cuda": rp.roi_pool3d_backward_cuda.launches,
-                "nms3d_cuda": nms.nms3d_cuda.launches, "fuse_views_cuda": projection.fuse_views_cuda.launches}
+                "nms3d_cuda": nms.nms3d_cuda.launches, "fuse_views_cuda": projection.fuse_views_cuda.launches,
+                "fuse_views_backward_cuda": projection.fuse_views_backward_cuda.launches}
     kernel_launches = {k: v - before[k] for k, v in device_launches().items()}
     peak = torch.cuda.max_memory_allocated()
     losses = [float(m["total_loss"]) for m in metrics]
@@ -2244,11 +2286,11 @@ def train_run(dev, name, cfg, n, steps=TRAIN_STEPS):
     res = {"s_per_iter": s_iter, "chunks_per_s": n / s_iter, "peak_gb": peak / 1e9, "first_step_s": first,
            "stage_ms": stage_ms, "idle_share": 1 - busy / window, "busy_ms": busy, "window_ms": window,
            "launches": launches, "kernel_launches": kernel_launches, "first_loss": losses[0], "last_loss": losses[-1]}
-    log(f"[9] {name} training, bf16, batch {n}, {steps} steps on one batch: total_loss {losses[0]:.5f} -> "
+    log(f"[{phase}] {name} training, bf16, batch {n}, {steps} steps on one batch: total_loss {losses[0]:.5f} -> "
         f"{losses[-1]:.5f} (first five {np.mean(losses[:5]):.5f}, last five {np.mean(losses[-5:]):.5f}), "
         f"step_finite {sum(finite):.0f}/{steps}; wrapper calls {launches}, kernel launches {kernel_launches} "
         f"[{CARD}]")
-    log(f"[9] {name} training: {s_iter:.4f} s/iter, {n / s_iter:.2f} chunks/s (CUDA-event median of steps 6-{steps}; "
+    log(f"[{phase}] {name} training: {s_iter:.4f} s/iter, {n / s_iter:.2f} chunks/s (CUDA-event median of steps 6-{steps}; "
         f"first step {first:.1f} s), peak memory {peak / 1e9:.2f} GB; ms per step by stage (median of 3, "
         f"forward includes the targets) " + json.dumps({k: round(v, 3) for k, v in stage_ms.items()})
         + f"; profile of 3 steps: device busy {busy:.3f} ms of a {window:.3f} ms window, idle share "
@@ -2257,6 +2299,7 @@ def train_run(dev, name, cfg, n, steps=TRAIN_STEPS):
     check(all(f == 1.0 for f in finite), f"{name}: a training step was not finite")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]), f"{name}: total_loss did not fall: {losses}")
     want = ["roi_pool3d_cuda", "roi_pool3d_backward_cuda", "nms3d_cuda"] + (["fuse_views_cuda"] if color else [])
+    want += ["fuse_views_backward_cuda"] if train_enet else []
     for k in want:
         check(launches[k] > 0 and kernel_launches[k] > 0, f"{name} training did not launch {k}")
     return res, det, opt, step, batch, gen
@@ -2426,12 +2469,249 @@ def phase_train(dev, kernel_data, params):
     return res
 
 
+# --- phase 10: ENet training through the view fusion (K3b), and SUNCG --------------------
+
+ENET_STEPS = 30
+SUNCG_STEPS = 10
+K3B_TOL = 1e-5  # of the largest gradient: a pixel's float32 shares summed in another order (atomics)
+
+
+def enet_train_config():
+    """``scannet_train_config(color=True)`` with the ENet trained (FIX_ENET False)."""
+    from tpu3dsis_torch.config import scannet_train_config
+
+    cfg = scannet_train_config(color=True)
+    cfg.FIX_ENET = False
+    return cfg
+
+
+def k3b_bound(args):
+    """K3b's bound in ms, its bound_by, its bytes and the voxels that some
+    valid view accepts: the cotangent rows of those voxels (the only rows
+    the gradient reads) read once, the feature maps, depths, matrices and
+    flags read once and the (V, H, W, C) float32 gradient written once
+    (bytes), or K3's projections for the (brick, view) pairs its cull keeps
+    (operations, at K3_OPS_PER_PROJECTION a projection)."""
+    feats2d, depths = args["feats2d"], args["depths"]
+    v, h, w, c = feats2d.shape
+    ones = torch.ones((v, h, w, 1), device=feats2d.device)
+    kw = {k: args[k] for k in ("poses", "world_to_grid", "intrinsic", "volume_dims", "depth_min", "depth_max",
+                               "voxel_size", "view_valid")}
+    touched = int((projection.fuse_views_plain(ones, depths, **kw) > 0).sum())
+    lo, hi = projection.brick_bounds(args["volume_dims"], depths.device)
+    projections = int(((hi - lo + 1).prod(1) * k3_kept(args).sum(1)).sum())
+    nbytes = touched * c * 4 + 2 * feats2d.numel() * 4 + depths.numel() * 4 + v * (12 * 4 + 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, projections * K3_OPS_PER_PROJECTION / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"), nbytes, touched
+
+
+def _k3b_case(name, args, phase=10):
+    """K3b against its plain version (autograd of ``fuse_views_plain``) on
+    one call's arguments: max abs error within K3B_TOL of the largest
+    gradient. Returns (max abs err, plain ms, the plain gradient)."""
+    got = projection.fuse_views_backward_cuda(**args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = projection.fuse_views_backward_plain(**args)
+    end.record()
+    end.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    ok = err <= K3B_TOL * scale
+    log(f"[{phase}] K3b {name}: {tuple(args['feats2d'].shape)} from {tuple(args['grad_out'].shape)}, "
+        f"{int(torch.as_tensor(args['view_valid']).sum()) if args.get('view_valid') is not None else args['feats2d'].shape[0]} "
+        f"valid views: max_abs_err={err} of max |grad| {scale:.4g} ({K3B_TOL:g} relative: {'ok' if ok else 'FAILED'}), "
+        f"nonzero grads {int((want != 0).sum())}, plain {start.elapsed_time(end):.1f} ms [{CARD}]")
+    check(scale > 0, f"K3b {name}: the gradient is all 0")
+    check(ok, f"K3b {name} differs from its plain version beyond {K3B_TOL:g} of its largest gradient")
+    return err, start.elapsed_time(end), want
+
+
+def k3b_edge_cases(args, rng):
+    """K3b's edges on the training call's views: exact ties (views 1 and 2
+    copies of view 0, view 4 of view 3), features exactly 0 and plateaus
+    (ReLU of values rounded to halves), an invalid view, and both at once.
+    Yields (name, args)."""
+    feats, depths, poses = args["feats2d"], args["depths"], torch.as_tensor(args["poses"]).cpu().numpy().copy()
+    dup_f, dup_d, dup_p = feats.clone(), depths.clone(), poses.copy()
+    for i, j in ((1, 0), (2, 0), (4, 3)):
+        dup_f[i], dup_d[i], dup_p[i] = feats[j], depths[j], poses[j]
+    zeros = torch.relu(torch.round(feats * 2) / 2)
+    v = feats.shape[0]
+    invalid = torch.ones(v, dtype=torch.bool, device=feats.device)
+    invalid[1] = False
+    yield "duplicated views (ties of 3 and 2)", dict(args, feats2d=dup_f, depths=dup_d, poses=dup_p)
+    yield "exact zeros and plateaus", dict(args, feats2d=zeros)
+    yield "an invalid view", dict(args, view_valid=invalid)
+    yield "duplicated views, exact zeros, view 1 invalid", dict(args, feats2d=torch.relu(torch.round(dup_f * 2) / 2),
+                                                                 depths=dup_d, poses=dup_p, view_valid=invalid)
+
+
+def k3b_room_case(dev, rng, n_views=32):
+    """K3b's arguments on one of phase 7's rooms (cameras standing in it,
+    so the cull drops most (brick, view) pairs), its whole 240x48x240
+    volume: features of exact zeros and plateaus (ties at 0 between views
+    that accept a voxel and views culled for its brick), a random
+    cotangent."""
+    _, _, frames = make_color_scene(rng, n_views)
+    cfg = scannet_color_scene_config()
+    g = torch.Generator(device=dev).manual_seed(5)
+    feats = torch.relu(torch.round(torch.randn((n_views, 32, 41, 128), generator=g, device=dev) * 2) / 2)
+    return dict(grad_out=torch.randn((*SCENE_EXTENT, 128), generator=g, device=dev), feats2d=feats,
+                depths=torch.from_numpy(frames["depths"]).to(dev), poses=frames["poses"],
+                world_to_grid=frames["world_to_grid"], intrinsic=cfg.INTRINSIC, volume_dims=SCENE_EXTENT,
+                depth_min=cfg.PROJ_DEPTH_MIN, depth_max=cfg.PROJ_DEPTH_MAX, voxel_size=cfg.VOXEL_SIZE,
+                view_valid=torch.ones(n_views, dtype=torch.bool, device=dev))
+
+
+def k3b_kernel_split(fn):
+    """Device microseconds per call of each kernel a K3b call runs (the
+    gradient's zero fill and K3b), from torch.profiler over 10 calls, or
+    100 where 10 brought back none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for calls in (10, 100):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        split = defaultdict(float)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                split["K3b" if "fuse_views_bwd" in e.name else e.name[:40]] += e.time_range.elapsed_us() / calls
+        if split:
+            return dict(split)
+    return {}
+
+
+def phase_suncg(dev):
+    """SUNCG (``suncg_train_config()``, the shipped yml): 10 bf16 training
+    steps at batch 4, finite, the loss falling; chunk detection with the color stream on one
+    chunk with its frames, card against CPU in float32 (TF32 off), on the
+    trained weights; bf16 chunks/s at batch 32 on the card."""
+    from tpu3dsis_torch.checkpoint import module_params
+    from tpu3dsis_torch.config import DetectorConfig, suncg_train_config
+
+    cfg = suncg_train_config()
+    run, det, _, _, batch, _ = train_run(dev, "SUNCG", cfg, TRAIN_BATCH["color"], steps=SUNCG_STEPS, phase=10)
+    params = module_params(det)
+    dcfg = DetectorConfig.from_cfg(cfg)
+    cfg32 = dcfg.replace(TPU_COMPUTE_DTYPE="float32")
+    det32 = load_jax_params(Detector(cfg32, device=dev), params)
+    cpu = load_jax_params(Detector(cfg32, device="cpu"), params)
+    scenes, _ = make_chunks(np.random.RandomState(12), BATCH)
+    frames = {k: (batch[k][0].cpu().numpy() if torch.is_tensor(batch[k]) else batch[k][0])
+              for k in ("images", "depths", "poses", "world_to_grid", "view_valid")}
+    card = build_inference_fn(det32, cfg32, SHAPE)(torch.from_numpy(scenes[:1]), frames=frames)
+    t0 = time.time()
+    want = build_inference_fn(cpu, cfg32, SHAPE)(torch.from_numpy(scenes[:1]), frames=frames)
+    cpu_s = time.time() - t0
+    errs = compare_chunk_outputs(card, want, "one SUNCG chunk with its 5 views (ENet, K3)", phase=10)
+    det16 = load_jax_params(Detector(dcfg, device=dev), params)
+    infer16 = build_inference_fn(det16, dcfg, SHAPE)
+    with torch.inference_mode():
+        vol = det16.project_frames(frames, SHAPE)  # one chunk's fused volume, bf16, for every chunk of the batch
+    x = torch.from_numpy(scenes).to(dev)
+    imageft = vol[None].expand(BATCH, *vol.shape).contiguous()
+    reset_launch_counts()
+    out = infer16(x, imageft=imageft)
+    torch.cuda.synchronize()
+    check(bool(out["valid"].any()), "SUNCG detection kept no proposal")
+    launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches}
+    check(all(v > 0 for v in launches.values()), f"SUNCG detection did not launch K1 and K2: {launches}")
+    ms = cuda_ms(lambda: infer16(x, imageft=imageft), 5)
+    log(f"[10] SUNCG chunk detection, bf16, batch {BATCH} (one chunk's fused color volume for each): {ms:.3f} ms a "
+        f"batch, {BATCH / ms * 1e3:.1f} chunks/s (median of 5, CUDA events); launches {launches}; card vs CPU "
+        f"{errs}, CPU {cpu_s:.1f} s [{CARD}]")
+    return {"train": run, "chunks_per_s_bf16": BATCH / ms * 1e3, "batch_ms": ms, "card_vs_cpu": errs}
+
+
+def phase_enet(dev):
+    """Phase 10: K3b against its plain version (a training step's calls,
+    edge cases, a room), its time and bound; one float32 step with the ENet
+    trained, card against CPU; 30 bf16 steps with the ENet trained; SUNCG."""
+    t_phase = time.time()
+    rng = np.random.RandomState(10)
+    res = {"k3b_err": 0.0}
+    res["card_vs_cpu"] = train_card_vs_cpu(dev, "trainable-ENet color", enet_train_config(), phase=10)
+
+    run, det, opt, step, batch, gen = train_run(dev, "trainable-ENet color", enet_train_config(),
+                                                TRAIN_BATCH["color"], steps=ENET_STEPS, phase=10)
+    per_step = {k: run["launches"][k] / ENET_STEPS for k in ("fuse_views_cuda", "fuse_views_backward_cuda")}
+    check(all(v > 0 for v in per_step.values()), f"K3 or K3b did not launch every step: {per_step}")
+    with recording_kernel_calls() as calls:
+        step(opt, batch, generator=gen)
+    torch.cuda.synchronize()
+    errs = check_recorded_k1_k2(calls, "trainable-ENet training step", phase=10)
+    res["k1_err"], res["k2_err"] = errs["k1_err"], errs["k2_err"]
+    k3b_calls = []
+    for kind, args in calls:
+        if kind == "fuse_views_cuda":
+            res["k3_err"] = max(res.get("k3_err", 0.0), _k3_case("trainable-ENet training step", args, quiet=True,
+                                                                  phase=10)[0])
+        if kind == "fuse_views_backward_cuda":
+            k3b_calls.append(args)
+    log(f"[10] trainable-ENet step's kernel calls: {[k for k, _ in calls]}")
+    check(len(k3b_calls) == TRAIN_BATCH["color"], f"{len(k3b_calls)} K3b calls in a step of {TRAIN_BATCH['color']}")
+    for i, args in enumerate(k3b_calls):
+        err, plain_ms, _ = _k3b_case(f"training step's call {i}", args)
+        res["k3b_err"] = max(res["k3b_err"], err)
+        if i == 0:
+            res["k3b_plain_ms"] = plain_ms
+    training = k3b_calls[0]
+    for name, case in k3b_edge_cases(training, rng):
+        res["k3b_err"] = max(res["k3b_err"], _k3b_case(name, case)[0])
+    room = k3b_room_case(dev, rng)
+    err, room_plain_ms, _ = _k3b_case("a 32-view room, exact zeros and plateaus", room)
+    res["k3b_err"] = max(res["k3b_err"], err)
+
+    # time, bound, repeatability on the training call and the room
+    res["k3b_times"] = {}
+    for case, args in (("training call", training), ("32-view room", room)):
+        call = lambda: projection.fuse_views_backward_cuda(**args)  # noqa: E731
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        same = torch.equal(first, second)
+        del first, second
+        ms = device_ms(call, 20)
+        host_ms = cuda_ms(call, 20)
+        split = k3b_kernel_split(call)
+        bound, bound_by, nbytes, touched = k3b_bound(args)
+        full_cot = int(np.prod(args["volume_dims"])) * args["feats2d"].shape[-1] * 4
+        plain = res["k3b_plain_ms"] if case == "training call" else room_plain_ms
+        res["k3b_times"][case] = {"ms": ms, "ms_with_host": host_ms, "bound_ms": bound, "bound_by": bound_by,
+                                  "plain_ms": plain, "us_by_kernel": split, "launches_equal": same,
+                                  "touched_voxels": touched}
+        log(f"[10] K3b on the {case} ({tuple(args['feats2d'].shape)} float32 from {tuple(args['grad_out'].shape)}): "
+            f"{ms:.5f} ms device time of the wrapper's kernels (20 calls queued behind a device sleep: the "
+            f"gradient's zero fill, the rank, K3b); {host_ms:.5f} ms the median of CUDA events around each call, "
+            f"its host work included; us by kernel "
+            f"{ {k: round(v, 2) for k, v in split.items()} if split else 'not captured'}; plain {plain:.1f} ms, "
+            f"bound {bound:.5f} ms by {bound_by} ({nbytes:,} B: the cotangent rows of the {touched:,} voxels some "
+            f"view accepts, features read and gradient written, depths; the whole cotangent would add "
+            f"{(full_cot - touched * args['feats2d'].shape[-1] * 4) / HBM_BYTES_PER_S * 1e3:.5f} ms), "
+            f"{bound / ms:.3f} of it; two launches torch.equal: {same}; calls per training step "
+            f"{per_step['fuse_views_backward_cuda']:.0f} [{CARD}]")
+    train_call = res["k3b_times"]["training call"]
+    res["k3b_ms"], res["k3b_bound_ms"], res["k3b_bound_by"] = (train_call["ms"], train_call["bound_ms"],
+                                                               train_call["bound_by"])
+    res.update(run=run, per_step=per_step)
+    del det, opt, step, batch, calls, k3b_calls, training, room
+    torch.cuda.empty_cache()
+    res["suncg"] = phase_suncg(dev)
+    log(f"[10] phase 10 in {time.time() - t_phase:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     global CARD, CLOCK_MHZ
     import argparse
 
     parser = argparse.ArgumentParser(description="the port's paths on one NVIDIA card")
-    parser.add_argument("--phases", default="2,3,4,5,6,7,8,9",
+    parser.add_argument("--phases", default="2,3,4,5,6,7,8,9,10",
                         help="comma-separated phases to run after 0 and 1 (all by default; a subset prints no "
                              "result line)")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -2461,10 +2741,12 @@ def main(argv=None) -> int:
             log(f"[1]   {line.strip()}")
 
     rng = np.random.RandomState(0)
-    if phases != {2, 3, 4, 5, 6, 7, 8, 9}:
+    if phases != {2, 3, 4, 5, 6, 7, 8, 9, 10}:
         # a subset, for working on one phase: phase 9 takes phase 2's inputs and phase 6's weights
         if 9 in phases:
             phase_train(dev, kernel_inputs(dev, rng), scene_params())
+        if 10 in phases:
+            phase_enet(dev)
         log(f"[done] phases {sorted(phases)} passed in {time.time() - t_start:.1f} s; no result line for a subset")
         return 0
     kernel_res, kernel_data = phase_kernels(dev, rng)
@@ -2493,6 +2775,8 @@ def main(argv=None) -> int:
     drv = phase_drivers(dev, params, cparams, cscenes, cgts, cframes, scene_t, color_t)
     train = phase_train(dev, kernel_data, params)
     geo, col = train["runs"]["geometry"], train["runs"]["color"]
+    enet = phase_enet(dev)
+    ent = enet["run"]["launches"]
 
     k1, k2 = kernel_res["roi_pool3d_cuda"], kernel_res["nms3d_cuda"]
     # K1 at the bench's compute dtype, bf16, and K2 at N = 400, thresh 0.1
@@ -2506,13 +2790,15 @@ def main(argv=None) -> int:
          "launches_driver_color_path": drv["color"]["launches"]["roi_pool3d_cuda"],
          "launches_train_path": geo["launches"]["roi_pool3d_cuda"],
          "launches_train_color_path": col["launches"]["roi_pool3d_cuda"],
-         "max_abs_err": max(k1["err"], k2c["k1_err"], k3r["k1_err"], train["k1_err"]),
+         "launches_train_enet_path": ent["roi_pool3d_cuda"],
+         "max_abs_err": max(k1["err"], k2c["k1_err"], k3r["k1_err"], train["k1_err"], enet["k1_err"]),
          "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"],
          "bound_ms": kernels["k1_bfloat16_bound"], "bound_by": "bytes", "library_ms": None},
         {"name": "roi_pool3d_backward_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/roi_pool3d_bwd.cu",
          "replaces": "tpu3dsis/ops/roi_pool3d.py:350", "launches": geo["launches"]["roi_pool3d_backward_cuda"],
          "launches_per_step": geo["launches"]["roi_pool3d_backward_cuda"] / TRAIN_STEPS,
          "launches_train_color_path": col["launches"]["roi_pool3d_backward_cuda"],
+         "launches_train_enet_path": ent["roi_pool3d_backward_cuda"],
          "launches_entry_train": train["entry"]["launches"]["roi_pool3d_backward_cuda"],
          "max_abs_err": train["k1b_err"], "ms": train["k1b_ms"], "plain_ms": train["k1b_plain_ms"],
          "bound_ms": train["k1b_bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -2525,7 +2811,8 @@ def main(argv=None) -> int:
          "launches_driver_color_path": drv["color"]["launches"]["nms3d_cuda"],
          "launches_train_path": geo["launches"]["nms3d_cuda"],
          "launches_train_color_path": col["launches"]["nms3d_cuda"],
-         "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"], train["k2_err"]),
+         "launches_train_enet_path": ent["nms3d_cuda"],
+         "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"], train["k2_err"], enet["k2_err"]),
          "ms": kernels["k2_400_0.1"], "plain_ms": kernels["k2_plain_0.1"],
          "bound_ms": kernels["k2_400_bound"], "bound_by": kernels["k2_400_bound_by"], "library_ms": None},
         {"name": "nms3d_cuda (class-aware, scene stitch)", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
@@ -2542,10 +2829,16 @@ def main(argv=None) -> int:
          "launches_per_scene": color_per_scene["fuse_views_cuda"],
          "launches_driver_color_path": drv["color"]["launches"]["fuse_views_cuda"],
          "launches_train_color_path": col["launches"]["fuse_views_cuda"],
-         "max_abs_err": max(k3r["err"], drv["color"]["k3_err"], train.get("k3_err", 0.0)),
+         "launches_train_enet_path": ent["fuse_views_cuda"],
+         "max_abs_err": max(k3r["err"], drv["color"]["k3_err"], train.get("k3_err", 0.0), enet.get("k3_err", 0.0)),
          "ms": color_t["bfloat16"]["k3_ms"], "plain_ms": color_t["bfloat16"]["k3_plain_ms"],
          "bound_ms": color_t["bfloat16"]["k3_bound_ms"], "bound_by": color_t["bfloat16"]["k3_bound_by"],
          "library_ms": None, "cull_kept_share": k3r["kept_share"]},
+        {"name": "fuse_views_backward_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/fuse_views_bwd.cu",
+         "replaces": "tpu3dsis/geometry/projection.py:173", "launches": ent["fuse_views_backward_cuda"],
+         "launches_per_step": enet["per_step"]["fuse_views_backward_cuda"], "max_abs_err": enet["k3b_err"],
+         "ms": enet["k3b_ms"], "plain_ms": enet["k3b_plain_ms"], "bound_ms": enet["k3b_bound_ms"],
+         "bound_by": enet["k3b_bound_by"], "library_ms": None, "times": enet["k3b_times"]},
     ]}
     log(f"[done] all phases passed in {time.time() - t_start:.1f} s")
     print(json.dumps(record))

@@ -4,9 +4,10 @@
 fixture; (b) ENet's features, with the on-device normalisation; (c) the
 plain version of K3 (``fuse_views_plain``) and the resident-volume builder
 against the JAX package's ``fuse_views`` and ``make_color_volume_fn``, and
-the plain version's own NaN and view-validity semantics; (d) chunk
-detection fed a color crop, or the chunk's frames, against the JAX
-``build_inference_fn``. Inputs come from numpy seeds.
+the plain version's own NaN and view-validity semantics; (d) on the
+ScanNet and the SUNCG backbone, the JAX package's params loaded strictly,
+and chunk detection fed a color crop, or the chunk's frames, against the
+JAX ``build_inference_fn``. Inputs come from numpy seeds.
 """
 
 import importlib.util
@@ -24,6 +25,7 @@ from tpu3dsis.models import build_inference_fn as jax_build_inference_fn
 from tpu3dsis.models.color import ColorProjector as JaxColorProjector
 from tpu3dsis.models.enet2d import ENet2D as JaxENet2D
 from tpu3dsis_torch import Detector, DetectorConfig, build_inference_fn, load_jax_params, scannet_color_scene_config
+from tpu3dsis_torch import checkpoint as ckpt
 from tpu3dsis_torch.geometry.projection import fuse_views_plain
 from tpu3dsis_torch.infer.color_volume import build_color_volume
 from tpu3dsis_torch.models.color import ColorProjector
@@ -279,13 +281,17 @@ def test_fuse_views_plain_propagates_nan_rows_and_skips_invalid_views():
 SMALL = (32, 16, 32)
 
 
-@pytest.fixture(scope="module")
-def color_pair():
-    """The JAX color detector (ground-truth 128-channel feature images) with
-    its params, and the port's detector holding the same weights."""
+@pytest.fixture(scope="module", params=["ScanNet_Backbone", "SUNCG_Backbone"])
+def color_pair(request):
+    """The JAX color detector (ground-truth 128-channel feature images) on
+    the ScanNet or the SUNCG backbone (its 3 + 6 anchors) with its params,
+    and the port's detector holding the same weights, loaded strictly."""
     from __graft_entry__ import _scannet_cfg
 
     cfg = _scannet_cfg()
+    if request.param == "SUNCG_Backbone":
+        cfg.NET, cfg.NUM_ANCHORS_LEVEL2 = "SUNCG_Backbone", 6
+        cfg.ANCHORS_TYPE_LEVEL1, cfg.ANCHORS_TYPE_LEVEL2 = "suncg9_3.txt", "suncg9_6.txt"
     cfg.USE_IMAGES, cfg.USE_IMAGES_GT, cfg.NUM_IMAGE_CHANNELS = True, True, 128
     cfg.DEPTH_SHAPE, cfg.INTRINSIC = list(DEPTH_WH), K.tolist()
     cfg.VOXEL_SIZE, cfg.PROJ_DEPTH_MIN, cfg.PROJ_DEPTH_MAX = VOXEL, DEPTH_MIN, DEPTH_MAX
@@ -295,6 +301,20 @@ def color_pair():
                            {k: np.asarray(v) for k, v in params.items()})
     assert tdet.enet is None and tdet.color is not None
     return cfg, jdet, params, tdet
+
+
+def test_jax_params_load_strictly_into_the_backbone(color_pair):
+    """Every parameter of the JAX package's ``init_params`` (ScanNet's or
+    SUNCG's backbone, RPN, classifier) is the port's of the same name, in
+    the torch layout, and nothing else is."""
+    cfg, jdet, params, tdet = color_pair
+    assert set(tdet.state_dict()) == set(params)
+    want = ckpt.params_to_torch_state_dict({k: np.asarray(v) for k, v in params.items()})
+    for k, v in tdet.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), want[k], err_msg=k)
+    if cfg.NET == "SUNCG_Backbone":  # no max-pools; geometry2 reads the two 64-channel streams
+        assert not any(isinstance(m, torch.nn.MaxPool3d) for m in tdet.modules())
+        assert tdet.geometry2[0].weight.shape[1] == 128 and tdet.color[3].weight.shape[:2] == (64, 64)
 
 
 @pytest.mark.parametrize("color_input", ["imageft", "frames"])

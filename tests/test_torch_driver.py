@@ -189,7 +189,9 @@ def test_main_entry_matches_run_scenes(runs, tmp_path, monkeypatch):
     """``python -m tpu3dsis_torch.main --mode test`` in-process, on an overlay
     of benchmark.yml with a ``param:`` snapshot of the weights: the config
     dump, the mAP and every artifact of ``run_scenes`` with those weights.
-    ``--mode train`` with ``FIX_ENET: False`` and a SUNCG config raise."""
+    ``--mode train`` with ``FIX_ENET: False`` builds its trainer and writes
+    a snapshot that carries the ENet's statistics and their momentum, and
+    the SUNCG config builds the SUNCG detector for ``run_scenes``."""
     monkeypatch.chdir(ROOT)
     with open(BENCHMARK_YML) as f:
         overlay = yaml_subset.load(f.read())
@@ -211,16 +213,26 @@ def test_main_entry_matches_run_scenes(runs, tmp_path, monkeypatch):
     for path in runs["paths"]:
         name = os.path.basename(path)[:12]
         assert_same_artifacts(str(tmp_path / "main" / name), os.path.join(runs["cfg"].TEST_SAVE_DIR, name))
-    # train mode is ported; what it refuses is ENet training (FIX_ENET False: K3b)
+    # train mode with ENet training (FIX_ENET False): the trainer builds, and
+    # its snapshot (no epoch run) holds the ENet's statistics with a momentum
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # JSONL logs only
     with open(tmp_path / "enet.yml", "w") as f:
-        f.write(yaml_subset.dump({**overlay, "USE_IMAGES": True, "FIX_ENET": False}))
-    with pytest.raises(NotImplementedError, match="K3b"):
-        main.main(["--cfg", str(tmp_path / "enet"), "--mode", "train", "--device", "cpu", "--output_dir",
-                   str(tmp_path / "out")])
-    with pytest.raises(NotImplementedError, match="SUNCG"):
-        main.main(["--cfg", "SUNCG/rpn_class_mask_5", "--mode", "test", "--device", "cpu", "--output_dir",
-                   str(tmp_path / "out")])
+        f.write(yaml_subset.dump({**overlay, "USE_IMAGES": True, "FIX_ENET": False,
+                                  "TRAIN_FILELIST": runs["cfg"].TEST_FILELIST}))
+    got = main.main(["--cfg", str(tmp_path / "enet"), "--mode", "train", "--epochs", "0", "--device", "cpu",
+                     "--output_dir", str(tmp_path / "out")])
+    assert got == {"step": 0}
+    with np.load(tmp_path / "enet" / "checkpoints" / "step_0.npz") as snap:  # --cfg is absolute
+        assert "momentum:enet.4.0.0.1.running_var" in snap.files and "param:enet.4.0.0.1.running_var" in snap.files
+    # the SUNCG config builds the SUNCG detector and hands it to run_scenes
+    built = {}
+    monkeypatch.setattr(main, "run_scenes", lambda cfg, det, mode: built.update(cfg=cfg, det=det, mode=mode) or {})
+    assert main.main(["--cfg", "SUNCG/rpn_class_mask_5", "--mode", "test", "--device", "cpu", "--output_dir",
+                      str(tmp_path / "out")]) == {}
+    det = built["det"]
+    assert built["cfg"].NET == "SUNCG_Backbone" and built["mode"] == "test"
+    assert len(det.geometry1) == 6 and len(det.color) == 6 and len(det.geometry2) == 3
+    assert det.enet is not None and det.num_anchors == {1: 3, 2: 6}
 
 
 def test_export_scene_takes_port_artifacts(runs, tmp_path):

@@ -241,8 +241,12 @@ def test_brick_algorithm_equals_fuse_views_plain(case):
 
 
 def test_brick_constants_match_the_kernel():
-    """``BRICK``, ``CULL_EPS`` and ``FOOTPRINT_Z`` are the kernel's."""
-    src = (Path(P.__file__).resolve().parents[1] / "csrc" / "fuse_views.cu").read_text()
+    """``BRICK``, ``CULL_EPS`` and ``FOOTPRINT_Z`` are the kernels': K3's
+    and K3b's shared header, which both sources include."""
+    csrc = Path(P.__file__).resolve().parents[1] / "csrc"
+    src = (csrc / "fuse_views_common.cuh").read_text()
+    for kernel in ("fuse_views.cu", "fuse_views_bwd.cu"):
+        assert '#include "fuse_views_common.cuh"' in (csrc / kernel).read_text()
 
     def const(name):
         return float(re.search(rf"(?:constexpr \w+|,) {name} = ([0-9.e-]+)f?[,;]", src).group(1))

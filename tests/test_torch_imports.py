@@ -178,7 +178,7 @@ def test_probe_cuts_match_the_kernel_sources():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_the_card():
-    """K1, K1b, K2 and K3 against their plain versions, on CUDA tensors (run on a
+    """K1, K1b, K2, K3 and K3b against their plain versions, on CUDA tensors (run on a
     machine with an NVIDIA card and nvcc: ``python -m pytest -m gpu``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -242,3 +242,11 @@ def test_kernels_match_plain_versions_on_the_card():
             torch.cuda.synchronize()
             want = projection.fuse_views_plain(*args)
             assert bool((want != 0).any()) and torch.equal(got, want)
+    # K3b on the same views, float32: within 1e-5 of the largest gradient (a pixel's shares are
+    # summed by float32 atomics, in another order than the plain version's)
+    g = torch.from_numpy(rng.randn(40, 40, 40, 128).astype(np.float32)).to(dev)
+    args = (g, feats, depths, poses, w2g, intrinsic, (40, 40, 40), 0.1, 4.0, 0.1, valid)
+    got = projection.fuse_views_backward_cuda(*args)
+    torch.cuda.synchronize()
+    want = projection.fuse_views_backward_plain(*args)
+    assert bool((want != 0).any()) and (got - want).abs().max() <= 1e-5 * want.abs().max()

@@ -9,10 +9,15 @@ plain version); (b) the non-finite guard and the freezes of
 ``rpn_class_mask_5.yml``; (c) the SGD update, the LR schedule and
 ``param_groups``; (d) snapshots in both directions; (e) ``pad_sample``,
 ``paint_mask_canvas`` and ``Logger``'s JSONL; (f) ``Trainer``: train,
-snapshot, resume and validate, and what it refuses (the entry module's
-train mode runs in ``tests/test_torch_imports.py``).
+snapshot, resume and validate, what it refuses, and a step with the ENet
+trained (the entry module's train mode runs in
+``tests/test_torch_imports.py``). ``tests/test_torch_train_enet.py`` runs
+the three steps with the ENet trained through the view fusion
+(``FIX_ENET: False``: the ENet's weights, PReLU slopes and BatchNorm
+statistics held too) and on the SUNCG backbone.
 """
 
+import functools
 import json
 import os
 import sys
@@ -46,12 +51,17 @@ STEPS = 3
 F = 6.0  # focal length in pixels of the 5x4 feature maps
 
 
-def tiny_cfg(base, color=False):
-    """``tiny_ci.yml``'s capacities on the ScanNet detector, 16^3 mask canvas."""
+def tiny_cfg(base, color=False, enet=False, net="ScanNet_Backbone"):
+    """``tiny_ci.yml``'s capacities on the ScanNet (or SUNCG) detector, 16^3
+    mask canvas; with ``color`` the color stream on 5x4 feature images, and
+    with ``enet`` on 2 views of 40x32 images through a trained ENet
+    (``FIX_ENET: False``)."""
     cfg = base
-    for k, v in dict(NUM_CLASSES=19, NORMALIZE_WEIGHTS=[0.3] + [1.0] * 18, LABEL_MAP="", NET="ScanNet_Backbone",
-                     MASK_BACKBONE="MaskBackbone", NUM_ANCHORS_LEVEL1=3, NUM_ANCHORS_LEVEL2=11, NUM_ANCHORS_LEVEL3=0,
-                     ANCHORS_TYPE_LEVEL1="scannet14_3.txt", ANCHORS_TYPE_LEVEL2="scannet14_11.txt",
+    anchors = {"ScanNet_Backbone": (3, 11, "scannet14_3.txt", "scannet14_11.txt"),
+               "SUNCG_Backbone": (3, 6, "suncg9_3.txt", "suncg9_6.txt")}[net]
+    for k, v in dict(NUM_CLASSES=19, NORMALIZE_WEIGHTS=[0.3] + [1.0] * 18, LABEL_MAP="", NET=net,
+                     MASK_BACKBONE="MaskBackbone", NUM_ANCHORS_LEVEL1=anchors[0], NUM_ANCHORS_LEVEL2=anchors[1],
+                     NUM_ANCHORS_LEVEL3=0, ANCHORS_TYPE_LEVEL1=anchors[2], ANCHORS_TYPE_LEVEL2=anchors[3],
                      CLASS_POOLING_SIZE=4, USE_MASK=True, USE_RPN=True, USE_CLASS=True, RPN_BATCHSIZE=16,
                      CLASS_BATCH_SIZE=8, TPU_MAX_GT=4, TPU_MAX_MASK_ROIS=2, RPN_POSITIVE_OVERLAP=0.35,
                      RPN_NEGATIVE_OVERLAP=0.15, LEARNING_RATE=0.01, TPU_MASK_CANVAS=[16, 16, 16]).items():
@@ -59,16 +69,20 @@ def tiny_cfg(base, color=False):
     cfg.TRAIN.RPN_PRE_NMS_TOP_N = 32
     cfg.TRAIN.RPN_POST_NMS_TOP_N = 8
     cfg.TRAIN.RPN_NMS_THRESH = 0.5
-    if color:
+    if color or enet:
         cfg.update(USE_IMAGES=True, USE_IMAGES_GT=True, NUM_IMAGES=3, IMAGE_SHAPE=[5, 4], DEPTH_SHAPE=[5, 4],
                    VOXEL_SIZE=0.25, INTRINSIC=[[F, 0, 2.5, 0], [0, F, 2.0, 0], [0, 0, 1, 0], [0, 0, 0, 1]])
+    if enet:
+        cfg.update(USE_IMAGES_GT=False, FIX_ENET=False, NUM_IMAGES=2, IMAGE_SHAPE=[40, 32])
     return cfg
 
 
-def make_batch(seed, color=False):
+def make_batch(seed, color=False, enet=False):
     """Objects as solid boxes in noise (distinct scores), their gt boxes and
     a random mask canvas inside each box; with color, three 5x4 views of
-    128-channel features looking into the volume."""
+    128-channel features looking into the volume; with enet, two views of
+    40x32 uint8 images (normalised on the device; their ENet features are
+    5x4)."""
     rng = np.random.RandomState(seed)
     gt = np.zeros((BATCH, 4, 7), np.float32)
     gt[..., :3] = -1e4
@@ -84,13 +98,16 @@ def make_batch(seed, color=False):
             canvas[b, x0:x1, y0:y1, z0:z1] = rng.rand(x1 - x0, y1 - y0, z1 - z0) > 0.3
             data[b, x0:x1, y0:y1, z0:z1, 0] += 1.5
     batch = {"data": data, "gt_box": gt, "gt_valid": valid, "mask_canvas": canvas}
-    if color:
-        poses = np.tile(np.eye(4, dtype=np.float32), (BATCH, 3, 1, 1))
-        poses[..., :3, 3] = [[4.0, 2.0, -1.0], [3.5, 2.5, -1.5], [4.5, 2.0, -2.0]]
-        batch.update(images=rng.randn(BATCH, 3, 4, 5, 128).astype(np.float32),
-                     depths=rng.uniform(1.0, 3.5, (BATCH, 3, 4, 5)).astype(np.float32), poses=poses,
+    if color or enet:
+        v = 2 if enet else 3
+        poses = np.tile(np.eye(4, dtype=np.float32), (BATCH, v, 1, 1))
+        poses[..., :3, 3] = [[4.0, 2.0, -1.0], [3.5, 2.5, -1.5], [4.5, 2.0, -2.0]][:v]
+        images = (rng.randint(0, 256, (BATCH, v, 32, 40, 3)).astype(np.uint8) if enet
+                  else rng.randn(BATCH, v, 4, 5, 128).astype(np.float32))
+        batch.update(images=images, depths=rng.uniform(1.0, 3.5, (BATCH, v, 4, 5)).astype(np.float32), poses=poses,
                      world_to_grid=np.tile(np.diag([4.0, 4.0, 4.0, 1.0]).astype(np.float32), (BATCH, 1, 1)),
-                     view_valid=np.array([[True, True, True], [True, False, True]]))
+                     view_valid=np.array([[True, True], [False, True]] if enet
+                                         else [[True, True, True], [True, False, True]]))
     return batch
 
 
@@ -106,16 +123,32 @@ def jax_step_draws(key, n_anchor, n_cand):
     return {k: np.asarray(v) for k, v in out.items()}
 
 
+# the three-step cases: geometry, the color stream (feature images, frozen
+# ENet path), a trained ENet through the view fusion (FIX_ENET False), and the
+# SUNCG backbone with the color stream. The last two are this fixture's params
+# in tests/test_torch_train_enet.py, which runs this module's three-step tests
+# on them, so that a test worker of its own takes their JAX compiles.
+KINDS = {"geometry": {}, "color": {"color": True}, "enet": {"enet": True},
+         "suncg": {"color": True, "net": "SUNCG_Backbone"}}
+
+
 @pytest.fixture(scope="module", params=["geometry", "color"])
 def three_steps(request):
     """Both packages' metrics over three steps, and their final params."""
-    color = request.param == "color"
-    jcfg, tcfg = tiny_cfg(jax_default_config(), color), tiny_cfg(default_config(), color)
+    return _three_steps(request.param)
+
+
+@functools.cache
+def _three_steps(name):
+    kind = KINDS[name]
+    color = kind.get("color", False) or kind.get("enet", False)
+    jcfg, tcfg = tiny_cfg(jax_default_config(), **kind), tiny_cfg(default_config(), **kind)
     jdet = JaxDetector(jcfg, anchor_dir="experiments/anchors")
     # the port's seeded initialisation, handed to the JAX package (its own
     # init_params takes ~15 s on the CPU)
     det = Detector(DetectorConfig.from_cfg(tcfg), device="cpu", param_dtype=torch.float32)
-    init = ckpt.module_params(det.init_params(torch.Generator().manual_seed(0)))
+    # copies: a 1-D parameter's array shares memory with the tensor the step updates in place
+    init = {k: v.copy() for k, v in ckpt.module_params(det.init_params(torch.Generator().manual_seed(0))).items()}
     assert set(init) == set(jdet.param_names())
     params = {k: jnp.asarray(v) for k, v in init.items()}
     opt_init, step = build_train_step(det, tcfg, SHAPE)
@@ -125,8 +158,12 @@ def three_steps(request):
     n_anchor = anchor_count(det, SHAPE)
     jm, tm = [], []
     for i in range(STEPS):
-        batch = make_batch(i, color)
+        batch = make_batch(i, color, kind.get("enet", False))
         key = jax.random.PRNGKey(10 + i)
+        if i == 0 and kind.get("enet"):
+            # the same step compiled without XLA's fusion pass, which on the
+            # CPU takes minutes over the trained ENet's ~430 small parameters
+            jstep = jstep.lower(state, batch, key).compile(compiler_options={"xla_disable_hlo_passes": "fusion"})
         state, m = jstep(state, batch, key)
         jm.append({k: float(v) for k, v in m.items()})
         tm.append({k: float(v) for k, v in step(opt, batch, draws=jax_step_draws(key, n_anchor, 8 + 4)).items()})
@@ -356,7 +393,32 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch, no_tensorboar
     with pytest.raises(NotImplementedError, match="multi-process"):
         Trainer(cfg, str(tmp_path), device="cpu")
     monkeypatch.delenv("TPU3DSIS_COORDINATOR")
-    color = tiny_cfg(default_config(), color=True)
-    color.FIX_ENET = False
-    with pytest.raises(NotImplementedError, match="K3b"):
-        Trainer(color, str(tmp_path), device="cpu")
+    mask_color = tiny_cfg(default_config(), color=True)
+    mask_color.MASK_USE_IMAGES = True
+    with pytest.raises(NotImplementedError, match="MASK_USE_IMAGES"):
+        Trainer(mask_color, str(tmp_path), device="cpu")
+    # ENet training (FIX_ENET False) is ported: the trainer takes a step, and
+    # the ENet's weights, slopes and statistics move
+    enet = tiny_cfg(default_config(), enet=True)
+    enet.TPU_TILE_SIZE = list(SHAPE)
+    trainer = Trainer(enet, str(tmp_path), device="cpu")
+    opt = trainer.init_state(seed=0)
+    before = {k: v.clone() for k, v in trainer.detector.enet.named_parameters()}
+    m = trainer.step_fn(opt, make_batch(0, True, True), generator=torch.Generator().manual_seed(0))
+    assert float(m["step_finite"]) == 1.0 and int(opt.step) == 1
+    for k in ("4.0.0.0.weight", "4.0.0.2.weight", "4.0.0.1.running_mean", "4.0.0.1.running_var"):
+        assert not torch.equal(trainer.detector.enet.get_parameter(k), before[k]), k
+    # its snapshot resumes in the JAX package with the statistics and their
+    # momentum, and a JAX snapshot resumes here with them
+    stat = "enet.4.0.0.1.running_var"
+    p, m, s = jax_ckpt.load_snapshot(trainer._snapshot(opt, 1))
+    assert s == 1 and np.array_equal(p[stat], ckpt.module_params(trainer.detector)[stat])
+    assert np.array_equal(m[stat], opt.momentum[stat].numpy()) and m[stat].any()
+
+    class JaxOpt:
+        momentum = {k: jnp.asarray(v) + 1.0 for k, v in m.items()}
+        step = jnp.asarray(7, jnp.int32)
+
+    jax_ckpt.save_snapshot(trainer.checkpoint_dir, 8, p, JaxOpt)
+    opt2, step2 = Trainer(enet, str(tmp_path), device="cpu").restore_or_init()
+    assert step2 == 7 and np.array_equal(opt2.momentum[stat].numpy(), m[stat] + 1.0)

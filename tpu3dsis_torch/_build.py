@@ -20,8 +20,12 @@ from pathlib import Path
 from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "roi_pool3d.cu", _PKG / "csrc" / "roi_pool3d_bwd.cu", _PKG / "csrc" / "nms3d.cu",
-           _PKG / "csrc" / "fuse_views.cu")
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "roi_pool3d.cu", CSRC / "roi_pool3d_bwd.cu", CSRC / "nms3d.cu", CSRC / "fuse_views.cu",
+           CSRC / "fuse_views_bwd.cu")
+# the headers the sources include (from csrc/, on nvcc's include path); each
+# library's hash covers them all
+HEADERS = (CSRC / "fuse_views_common.cuh",)
 BUILD_DIR = _PKG / "_build"
 # --fmad=false: the IoU, the bin bounds and the projections must round exactly
 # as the plain PyTorch versions do, which never contract a multiply and an add
@@ -52,6 +56,10 @@ _SIGNATURES = {
                             _I),
     "tpu3dsis_fuse_views_smem": ([_I], _LL),
     "tpu3dsis_fuse_views_launches": ([], _LL),
+    "tpu3dsis_fuse_views_bwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F, _P,
+                                 _P], _I),
+    "tpu3dsis_fuse_views_bwd_smem": ([_I], _LL),
+    "tpu3dsis_fuse_views_bwd_launches": ([], _LL),
 }
 
 
@@ -66,10 +74,18 @@ def _nvcc() -> str:
     return nvcc
 
 
+def nvcc_command(nvcc: str, src: Path, out: Path) -> list:
+    """The compile of one source into a shared library, csrc/ on the include
+    path (a probe's edited copy of a source lives elsewhere)."""
+    return [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
+
+
 def _library_path(src: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(src.name.encode())
     h.update(src.read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
 
@@ -91,7 +107,7 @@ def build() -> tuple[list[Path], str]:
         for src, path in todo:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
+            cmd = nvcc_command(nvcc, src, Path(tmp))
             proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             jobs.append((cmd, proc, tmp, path))
         logs = []

@@ -3,9 +3,9 @@
 The JAX param dict is flat and keyed by the torch names, so loading is a
 numpy-only layout conversion (DHWIO -> OIDHW 3D conv weights, HWIO -> OIHW
 2D conv weights of the ENet, (in, out) -> (out, in) linear weights) and a
-strict ``load_state_dict``; BatchNorm running statistics load as the
-modules' buffers. The conversions are the port's own copies of the JAX
-package's, so the port never imports that package.
+strict ``load_state_dict``; the ENet's BatchNorm running statistics load
+as its parameters of those names. The conversions are the port's own
+copies of the JAX package's, so the port never imports that package.
 
 The loading half of the JAX package's checkpoints is copied too, so that
 ``--step`` reads what the JAX ``main.py`` reads: a released torch ``.pth``

@@ -518,3 +518,23 @@ def scannet_train_config(color: bool = False) -> Config:
         c.USE_IMAGES_GT = False
         c.NUM_IMAGES = 5
     return c
+
+
+SUNCG_CFG = "experiments/cfgs/SUNCG/rpn_class_mask_5.yml"
+
+
+def suncg_train_config() -> Config:
+    """The shipped SUNCG training config: ``experiments/cfgs/SUNCG/rpn_class_mask_5.yml``
+    over ``default_config()`` as this module reads it, finalized (26 classes
+    from its label map), at ``bench.py::bench_train``'s training shape:
+    bfloat16, 96x48x96 chunks, the 64x48x64 mask canvas and 8 mask rois.
+    Its keys as shipped: ``SUNCG_Backbone`` with the color stream (the
+    ENet, frozen: ``FIX_ENET``, 5 views a chunk), 3 + 6 SUNCG anchors, every
+    head trained. Read from the repository root, as the config's own paths
+    (label map, file lists) are."""
+    c = finalize_config(cfg_from_file(SUNCG_CFG, default_config()))
+    c.TPU_COMPUTE_DTYPE = "bfloat16"
+    c.TPU_TILE_SIZE = [96, 48, 96]
+    c.TPU_MASK_CANVAS = [64, 48, 64]
+    c.TPU_MAX_MASK_ROIS = 8
+    return c

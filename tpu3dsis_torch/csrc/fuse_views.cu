@@ -76,23 +76,21 @@
 //     memory, so fp32 and bf16 fit as many blocks to an SM; shared memory
 //     holds the candidate list (68 bytes a view) and the cull's state.
 
+// The brick decomposition, the projection, step 1's cull and step 4's
+// ballots live in fuse_views_common.cuh, which K3's backward K3b
+// (fuse_views_bwd.cu) includes too: both decide accept and pixel alike.
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "fuse_views_common.cuh"
+
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kSlices = 2;                              // x-slices of kBY * kBZ = 32 voxels a warp
-constexpr int kBX = kWarps * kSlices, kBY = 4, kBZ = 8;  // brick, voxels
-constexpr int kThreads = 32 * kWarps;
-constexpr float kEps = 1e-3f;        // camera-depth margin, metres
-constexpr float kFootprintZ = 0.05f;  // least camera depth of the cut for the pixel-box cull, metres
-constexpr int kScanUnroll = 4;        // depths a thread keeps in flight in the box scan
-constexpr int kBatch = 4;             // loads a lane keeps in flight in the fuse phase
-constexpr unsigned kFull = 0xffffffffu;
-// a view's state in the cull
-constexpr unsigned char kNone = 0, kKeep = 1, kCulled = 2, kScan = 3;
+using namespace fuse_views_common;
+
+constexpr bool kCullViews = true;  // step 1 (the probe's "no cull" copy sets it false)
 
 long long g_launches = 0;
 
@@ -130,153 +128,6 @@ __device__ __forceinline__ void store_row(Pack<T, CPL>* dst, const Pack<T, CPL>&
   }
 }
 
-struct Intrinsics {
-  float fx, fy, cx, cy, depth_min, depth_max, voxel_size;
-  int H, W;
-};
-
-// camera coordinates of grid point (x, y, z): the plain version's order
-__device__ __forceinline__ float cam_row(const float* m, float x, float y, float z) {
-  return ((m[0] * x + m[1] * y) + m[2] * z) + m[3];
-}
-
-// rounded pixel coordinate, half to even
-__device__ __forceinline__ float pixel(float cam, float f, float zc, float c) { return rintf(cam * f / zc + c); }
-
-// the predicate's projection of one voxel into one view (m: its 12 floats):
-// whether its rounded pixel lies in the image with a positive, finite camera
-// depth zc, and that flat pixel (0 where not, a pixel that can be read)
-__device__ __forceinline__ bool project(const float* m, float x, float y, float z, const Intrinsics& k, int& pix,
-                                        float& zc) {
-  const float cam_x = cam_row(m, x, y, z);
-  const float cam_y = cam_row(m + 4, x, y, z);
-  zc = cam_row(m + 8, x, y, z);
-  pix = 0;
-  if (!(zc > 0.0f && isfinite(zc))) return false;
-  const float px = pixel(cam_x, k.fx, zc, k.cx);
-  const float py = pixel(cam_y, k.fy, zc, k.cy);
-  if (!(px >= 0.0f && px < static_cast<float>(k.W) && py >= 0.0f && py < static_cast<float>(k.H))) return false;
-  pix = static_cast<int>(py) * k.W + static_cast<int>(px);
-  return true;
-}
-
-// the rest of the predicate: the depth d read at that pixel
-__device__ __forceinline__ bool depth_accepts(float d, float zc, const Intrinsics& k) {
-  return d >= k.depth_min && d <= k.depth_max && fabsf(d - zc) <= k.voxel_size;
-}
-
-// Step 1 for one valid view: kKeep, kCulled or kScan with the box
-// (x0, x1, y0, y1, inclusive) and depth band to scan.
-__device__ __forceinline__ unsigned char cull_view(const float* m, const int lo[3], const int hi[3],
-                                                   const Intrinsics& k, short4& box, float2& band) {
-  float cam[3][8];
-  float zlo = INFINITY, zhi = -INFINITY;
-  bool finite = true;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const float x = static_cast<float>(i & 4 ? hi[0] : lo[0]);
-    const float y = static_cast<float>(i & 2 ? hi[1] : lo[1]);
-    const float z = static_cast<float>(i & 1 ? hi[2] : lo[2]);
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      cam[r][i] = cam_row(m + 4 * r, x, y, z);
-      finite = finite && isfinite(cam[r][i]);
-    }
-    zlo = fminf(zlo, cam[2][i]);
-    zhi = fmaxf(zhi, cam[2][i]);
-  }
-  if (!finite) return kKeep;
-  band = make_float2(fmaxf(k.depth_min, (zlo - k.voxel_size) - kEps), fminf(k.depth_max, (zhi + k.voxel_size) + kEps));
-  if (!(band.x <= band.y)) return kCulled;
-  // No voxel with a camera depth below depth_min - voxel_size can accept:
-  // the footprint is that of the brick cut at zcut, the corners beyond the
-  // cut and the points where the brick's 12 edges cross it.
-  const float zcut = fmaxf(zlo, (k.depth_min - k.voxel_size) - kEps);
-  if (zcut > kFootprintZ) {
-    float pxlo = INFINITY, pxhi = -INFINITY, pylo = INFINITY, pyhi = -INFINITY;
-    auto add = [&](float cam_x, float cam_y, float zc) {
-      const float px = pixel(cam_x, k.fx, zc, k.cx), py = pixel(cam_y, k.fy, zc, k.cy);
-      pxlo = fminf(pxlo, px);
-      pxhi = fmaxf(pxhi, px);
-      pylo = fminf(pylo, py);
-      pyhi = fmaxf(pyhi, py);
-    };
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (cam[2][i] >= zcut) add(cam[0][i], cam[1][i], cam[2][i]);
-    }
-#pragma unroll
-    for (int e = 0; e < 12; ++e) {  // edge (i, i | bit), i without the bit
-      const int bit = 1 << (e >> 2), low = e & 3;
-      const int i = bit == 1 ? low << 1 : bit == 2 ? (low & 1) | ((low & 2) << 1) : low;
-      const int j = i | bit;
-      if ((cam[2][i] < zcut) != (cam[2][j] < zcut)) {
-        const int a = cam[2][i] < zcut ? i : j, b = i + j - a;  // a below the cut, b beyond it
-        const float t = (zcut - cam[2][a]) / (cam[2][b] - cam[2][a]);
-        add(cam[0][a] + t * (cam[0][b] - cam[0][a]), cam[1][a] + t * (cam[1][b] - cam[1][a]), zcut);
-      }
-    }
-    const float x0 = fmaxf(pxlo - 1.0f, 0.0f), x1 = fminf(pxhi + 1.0f, static_cast<float>(k.W - 1));
-    const float y0 = fmaxf(pylo - 1.0f, 0.0f), y1 = fminf(pyhi + 1.0f, static_cast<float>(k.H - 1));
-    if (!(x0 <= x1 && y0 <= y1)) return kCulled;
-    box = make_short4(static_cast<short>(x0), static_cast<short>(x1), static_cast<short>(y0), static_cast<short>(y1));
-  } else {
-    box = make_short4(0, static_cast<short>(k.W - 1), 0, static_cast<short>(k.H - 1));
-  }
-  return kScan;
-}
-
-// Step 1's scan, the whole block at once: the pixels of every box of a
-// chunk of views, laid end to end (box i from start[i] to start[i + 1]), go
-// to the threads in turn, kScanUnroll loads in flight a thread; hit[i] is
-// set where a depth of box i lies in its band. A thread walks its (row,
-// column) of a box by step[i] = (kThreads / width, kThreads % width) and
-// divides only where it enters a box; it reads no more of a box once a hit
-// is seen there.
-__device__ __forceinline__ void scan_boxes(const float* __restrict__ dv, int hw, int W, const int* start,
-                                           const short4* box, const float2* band, const short2* step,
-                                           unsigned char* hit) {
-  const int total = start[kThreads];
-  int seg = 0, r = 0, c = 0, bw = 1;
-  bool enter = true;
-  for (int p0 = threadIdx.x; p0 < total; p0 += kThreads * kScanUnroll) {
-    float d[kScanUnroll];
-    int sg[kScanUnroll];
-#pragma unroll
-    for (int u = 0; u < kScanUnroll; ++u) {
-      const int p = p0 + u * kThreads;
-      d[u] = NAN;
-      sg[u] = -1;
-      if (p < total) {
-        while (p >= start[seg + 1]) {
-          ++seg;
-          enter = true;
-        }
-        const short4 b = box[seg];
-        if (enter) {
-          bw = b.y - b.x + 1;
-          const int local = p - start[seg];
-          r = local / bw;
-          c = local - r * bw;
-          enter = false;
-        }
-        if (!hit[seg]) d[u] = __ldg(dv + static_cast<long long>(seg) * hw + (b.z + r) * W + b.x + c);
-        sg[u] = seg;
-        c += step[seg].y;
-        r += step[seg].x;
-        if (c >= bw) {
-          c -= bw;
-          ++r;
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kScanUnroll; ++u) {
-      if (sg[u] >= 0 && d[u] >= band[sg[u]].x && d[u] <= band[sg[u]].y) hit[sg[u]] = 1;
-    }
-  }
-}
-
 template <typename T, int CPL>
 __global__ void __launch_bounds__(kThreads)
 fuse_views_kernel(const T* __restrict__ feats, const float* __restrict__ depths, const float* __restrict__ mats,
@@ -287,107 +138,21 @@ fuse_views_kernel(const T* __restrict__ feats, const float* __restrict__ depths,
   int* s_view = reinterpret_cast<int*>(s_mat + 12 * V);  // candidate c's view
   // bit j of s_acc[w * V + c]: candidate c accepts voxel j of warp w's slice
   unsigned* s_acc = reinterpret_cast<unsigned*>(s_view + V);
-  __shared__ unsigned char s_hit[kThreads];
-  __shared__ short4 s_box[kThreads];
-  __shared__ float2 s_band[kThreads];
-  __shared__ short2 s_step[kThreads];
-  __shared__ int s_start[kThreads + 1];
-  __shared__ int s_sum[kWarps];
-  __shared__ int s_culled;
+  __shared__ CullScratch cs;
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nby = (Y + kBY - 1) / kBY, nbz = (Z + kBZ - 1) / kBZ;
-  const int lo[3] = {static_cast<int>(blockIdx.x / (nby * nbz)) * kBX,
-                     static_cast<int>((blockIdx.x / nbz) % nby) * kBY, static_cast<int>(blockIdx.x % nbz) * kBZ};
-  const int hi[3] = {min(lo[0] + kBX, X) - 1, min(lo[1] + kBY, Y) - 1, min(lo[2] + kBZ, Z) - 1};
-  if (threadIdx.x == 0) s_culled = 0;
-  __syncthreads();
+  int lo[3], hi[3];
+  brick_of(blockIdx.x, X, Y, Z, lo, hi);
   const int hw = k.H * k.W;
 
-  // 1. cull, kThreads views at a time; the kept ones join the list in order
-  int ncand = 0;
-  for (int base = 0; base < V; base += kThreads) {
-    const int v = base + threadIdx.x;
-    float m[12];
-    unsigned char state = kNone;
-    if (v < V && view_valid[v]) {
-#pragma unroll
-      for (int i = 0; i < 12; ++i) m[i] = __ldg(mats + v * 12 + i);
-      state = cull_view(m, lo, hi, k, s_box[threadIdx.x], s_band[threadIdx.x]);
-    }
-    // the boxes to scan, end to end: an exclusive sum of their areas
-    int area = 0;
-    if (state == kScan) {
-      const short4 b = s_box[threadIdx.x];
-      const int bw = b.y - b.x + 1;
-      area = bw * (b.w - b.z + 1);
-      s_step[threadIdx.x] = make_short2(static_cast<short>(kThreads / bw), static_cast<short>(kThreads % bw));
-    }
-    int sum = area;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int up = __shfl_up_sync(kFull, sum, o);
-      if (lane >= o) sum += up;
-    }
-    if (lane == 31) s_sum[warp] = sum;
-    s_hit[threadIdx.x] = 0;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) sum += s_sum[w];
-    s_start[threadIdx.x + 1] = sum;
-    if (threadIdx.x == 0) s_start[0] = 0;
-    __syncthreads();
-    scan_boxes(depths + static_cast<long long>(base) * hw, hw, k.W, s_start, s_box, s_band, s_step, s_hit);
-    __syncthreads();
-    if (state == kScan) state = s_hit[threadIdx.x] ? kKeep : kCulled;
-    if (state == kCulled) s_culled = 1;
-    const unsigned kept = __ballot_sync(kFull, state == kKeep);
-    if (lane == 0) s_sum[warp] = __popc(kept);
-    __syncthreads();
-    int at = ncand + __popc(kept & ((1u << lane) - 1));
-    for (int w = 0; w < kWarps; ++w) {
-      if (w < warp) at += s_sum[w];
-      ncand += s_sum[w];
-    }
-    if (state == kKeep) {
-#pragma unroll
-      for (int i = 0; i < 12; ++i) s_mat[i * V + at] = m[i];
-      s_view[at] = v;
-    }
-    __syncthreads();
-  }
-  const bool culled = s_culled != 0;
+  // 1. cull: the views kept join the candidate list in view order
+  bool culled;
+  const int ncand = cull_brick<kCullViews>(depths, mats, view_valid, V, lo, hi, k, s_mat, s_view, cs, culled);
 
   // 4. fuse: this warp's x-slices of the brick in turn, a voxel a lane
   for (int x = lo[0] + warp; x <= hi[0]; x += kWarps) {
-    const int y = lo[1] + lane / kBZ, z = lo[2] + lane % kBZ;
-    const bool live = y <= hi[1] && z <= hi[2];
-    unsigned touched = 0;  // the lanes whose voxel some candidate accepts
-    for (int c0 = 0; c0 < ncand; c0 += kBatch) {
-      bool in[kBatch];
-      int pix[kBatch];
-      float zc[kBatch], d[kBatch];
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        in[u] = false;
-        pix[u] = 0;
-        zc[u] = 0.0f;
-        if (live && c0 + u < ncand) {
-          float m[12];
-#pragma unroll
-          for (int i = 0; i < 12; ++i) m[i] = s_mat[i * V + c0 + u];
-          in[u] = project(m, static_cast<float>(x), static_cast<float>(y), static_cast<float>(z), k, pix[u], zc[u]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u)
-        d[u] = c0 + u < ncand ? __ldg(depths + static_cast<long long>(s_view[c0 + u]) * hw + pix[u]) : 0.0f;
-#pragma unroll
-      for (int u = 0; u < kBatch; ++u) {
-        const unsigned acc = __ballot_sync(kFull, in[u] && depth_accepts(d[u], zc[u], k));
-        if (lane == 0 && c0 + u < ncand) s_acc[warp * V + c0 + u] = acc;
-        touched |= acc;
-      }
-    }
+    // the lanes whose voxel some candidate accepts
+    const unsigned touched = accept_ballots(depths, s_mat, s_view, V, ncand, x, lo, hi, k, s_acc + warp * V);
     __syncwarp();
 
     for (int j = 0; j < 32; ++j) {
@@ -402,13 +167,7 @@ fuse_views_kernel(const T* __restrict__ feats, const float* __restrict__ depths,
         for (int c0 = 0; c0 < ncand; c0 += 32) {
           const int c = c0 + lane;
           const bool ok = c < ncand && (s_acc[warp * V + c] >> j & 1);
-          int pix = 0;
-          if (ok) {  // its pixel once more
-            float m[12], zc;
-#pragma unroll
-            for (int i = 0; i < 12; ++i) m[i] = s_mat[i * V + c];
-            project(m, static_cast<float>(x), static_cast<float>(yj), static_cast<float>(zj), k, pix, zc);
-          }
+          const int pix = ok ? candidate_pixel(s_mat, V, c, x, yj, zj, k) : 0;  // its pixel once more
           unsigned acc_set = __ballot_sync(kFull, ok);
           n_acc += __popc(acc_set);
           while (acc_set) {  // uniform; lowest lane first, i.e. view order
@@ -465,7 +224,7 @@ cudaError_t launch(const void* feats, const void* depths, const void* mats, cons
   cudaError_t err =
       cudaFuncSetAttribute(fuse_views_kernel<T, CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const long long bricks = static_cast<long long>((X + kBX - 1) / kBX) * ((Y + kBY - 1) / kBY) * ((Z + kBZ - 1) / kBZ);
+  const long long bricks = n_bricks(X, Y, Z);
   fuse_views_kernel<T, CPL><<<static_cast<unsigned>(bricks), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(feats), static_cast<const float*>(depths), static_cast<const float*>(mats),
       static_cast<const unsigned char*>(view_valid), V, X, Y, Z, k, zero_floor, static_cast<T*>(out));

@@ -18,10 +18,22 @@ no voxel of it; ``brick_view_candidates_plain`` is that cull's plain version
 (the same corners, arithmetic and margins), for the tests and the card's
 smoke run. The fused result does not depend on it: a culled view rejects
 every voxel of its brick.
+
+The gradient. When the features require a gradient (the ENet trains,
+``FIX_ENET: False``), ``fuse_views`` runs ``_FuseViews``: K3 forward and
+kernel K3b (``csrc/fuse_views_bwd.cu``) backward on the card, and on the CPU
+``fuse_views_plain`` with ``fuse_views_backward_plain``, which is autograd of
+the plain version. That is the JAX package's rule (its ``_onehot_row_gather``
+VJP under autodiff of the view scan's max): the cotangent of a fused voxel
+goes to the views whose value equals the max, split 0.5 / 0.5 at each tied
+step of the scan, and only where the view accepted the voxel. It takes
+float32 features and ``zero_floor=None`` (tiles fuse with ``zero_floor``
+under ``no_grad`` only).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from tpu3dsis_torch import _build
@@ -163,6 +175,39 @@ def _check_args(feats2d, depths, volume_dims, view_valid):
         raise ValueError(f"volume_dims must be three positive sizes, got {volume_dims}")
 
 
+def _fuse_rows_plain(feats2d, depths, mats, intr, coords, bounds, view_valid):
+    """The plain fusion of the voxels at ``coords`` (three (N,) float32
+    tensors): (N, C) in feats2d's dtype, -inf where no view was valid."""
+    v, h, w, c = feats2d.shape
+    dev, dt = feats2d.device, feats2d.dtype
+    flat = feats2d.reshape(v, h * w, c)
+    out = torch.full((coords[0].numel(), c), -torch.inf, dtype=dt, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    for i in range(v):
+        accept, pix = _project(mats[i], depths[i], *intr, coords, *bounds)
+        vol = torch.where(accept[:, None], flat[i][pix], zero)
+        out = torch.where(view_valid[i], torch.maximum(out, vol), out)
+    return out
+
+
+def _plain_setup(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size,
+                 view_valid):
+    """The plain versions' inputs on feats2d's device: the view matrices,
+    intrinsics, predicate bounds, the grid's (N,) coordinates, float32
+    depths and a (V,) bool view_valid."""
+    dev = feats2d.device
+    v = feats2d.shape[0]
+    mats = view_matrices(poses, world_to_grid).to(dev)
+    intr = tuple(t.to(dev) for t in _intrinsics(intrinsic))
+    bounds = tuple(torch.tensor(float(s), dtype=torch.float32, device=dev) for s in (depth_min, depth_max, voxel_size))
+    gx, gy, gz = (torch.arange(int(n), dtype=torch.float32, device=dev) for n in volume_dims)
+    coords = tuple(t.reshape(-1) for t in torch.meshgrid(gx, gy, gz, indexing="ij"))
+    if view_valid is None:
+        view_valid = torch.ones(v, dtype=torch.bool, device=dev)
+    view_valid = torch.as_tensor(view_valid, dtype=torch.bool).to(dev)
+    return mats, intr, bounds, coords, depths.to(dev, torch.float32), view_valid
+
+
 def fuse_views_plain(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max,
                      voxel_size, view_valid=None, zero_floor=None):
     """Plain version of K3: a loop over views, each a projection of the whole
@@ -181,30 +226,90 @@ def fuse_views_plain(feats2d, depths, poses, world_to_grid, intrinsic, volume_di
     result is floored at 0. Invalid views are skipped whole.
     """
     _check_args(feats2d, depths, volume_dims, view_valid)
-    dev, dt = feats2d.device, feats2d.dtype
-    v, h, w, c = feats2d.shape
-    mats = view_matrices(poses, world_to_grid).to(dev)
-    fx, fy, cx, cy = (t.to(dev) for t in _intrinsics(intrinsic))
-    dmin, dmax, vs = (torch.tensor(float(s), dtype=torch.float32, device=dev)
-                      for s in (depth_min, depth_max, voxel_size))
-    gx, gy, gz = (torch.arange(int(n), dtype=torch.float32, device=dev) for n in volume_dims)
-    coords = torch.meshgrid(gx, gy, gz, indexing="ij")
-    coords = tuple(t.reshape(-1) for t in coords)
-    if view_valid is None:
-        view_valid = torch.ones(v, dtype=torch.bool, device=dev)
-    view_valid = torch.as_tensor(view_valid, dtype=torch.bool).to(dev)
-    depths = depths.to(dev, torch.float32)
-    flat = feats2d.reshape(v, h * w, c)
-    out = torch.full((coords[0].numel(), c), -torch.inf, dtype=dt, device=dev)
-    zero = torch.zeros((), dtype=dt, device=dev)
-    for i in range(v):
-        accept, pix = _project(mats[i], depths[i], fx, fy, cx, cy, coords, dmin, dmax, vs)
-        vol = torch.where(accept[:, None], flat[i][pix], zero)
-        out = torch.where(view_valid[i], torch.maximum(out, vol), out)
+    mats, intr, bounds, coords, depths, view_valid = _plain_setup(
+        feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size, view_valid)
+    out = _fuse_rows_plain(feats2d, depths, mats, intr, coords, bounds, view_valid)
+    zero = torch.zeros((), dtype=feats2d.dtype, device=feats2d.device)
     out = torch.where(torch.isneginf(out), zero, out)
     if zero_floor is not None:
-        out = torch.where(torch.as_tensor(zero_floor, dtype=torch.bool, device=dev), torch.maximum(out, zero), out)
-    return out.reshape(*(int(n) for n in volume_dims), c)
+        zf = torch.as_tensor(zero_floor, dtype=torch.bool, device=feats2d.device)
+        out = torch.where(zf, torch.maximum(out, zero), out)
+    return out.reshape(*(int(n) for n in volume_dims), feats2d.shape[-1])
+
+
+# elements of the (voxels, C) volumes that one chunk of the plain backward
+# keeps for all its views: its autograd graph holds a few such volumes, a
+# few GB in float32
+_PLAIN_BWD_ELEMENTS = 2**28
+
+
+def fuse_views_backward_plain(grad_out, feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min,
+                              depth_max, voxel_size, view_valid=None):
+    """Plain version of K3b: the gradient of ``fuse_views_plain`` (with
+    ``zero_floor=None``) with respect to feats2d, by autograd, for the
+    cotangent grad_out (X, Y, Z, C). Returns (V, H, W, C) in feats2d's dtype.
+
+    ``torch.maximum`` splits a tie 0.5 / 0.5 at each step of the view loop,
+    as ``jnp.maximum`` does in the JAX package's scan, and the -inf -> 0
+    fill passes no gradient, so this is the JAX package's gradient. The
+    voxels are taken in chunks of 2^28 / (V * C), each its own autograd
+    graph, so that memory stays bounded at any view count; the chunks'
+    gradients are summed.
+    """
+    _check_args(feats2d, depths, volume_dims, view_valid)
+    v, _, _, c = feats2d.shape
+    if tuple(grad_out.shape) != (*(int(n) for n in volume_dims), c):
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} does not match the volume {volume_dims} x {c}")
+    mats, intr, bounds, coords, depths, view_valid = _plain_setup(
+        feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size, view_valid)
+    feats = feats2d.detach().requires_grad_(True)
+    g = grad_out.reshape(-1, c).to(feats2d.dtype)
+    out = torch.zeros_like(feats2d)
+    n = coords[0].numel()
+    rows = max(1, _PLAIN_BWD_ELEMENTS // (max(v, 1) * c))
+    with torch.enable_grad():
+        for s in range(0, n, rows):
+            fused = _fuse_rows_plain(feats, depths, mats, intr, tuple(t[s:s + rows] for t in coords), bounds,
+                                     view_valid)
+            fused = torch.where(torch.isneginf(fused), torch.zeros((), dtype=fused.dtype, device=fused.device), fused)
+            (d,) = torch.autograd.grad(fused, feats, g[s:s + rows], allow_unused=True)
+            if d is not None:
+                out += d
+    return out
+
+
+def _kernel_operands(name, feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, view_valid, dtypes, smem):
+    """The operand checks and the device operands that K3 and K3b share:
+    the library, (mats (V, 3, 4) float32 and valid (V,) uint8 on the card,
+    (fx, fy, cx, cy)). ``smem`` names the library's function that gives a
+    block's bytes of shared memory for V views."""
+    if not feats2d.is_cuda:
+        raise ValueError(f"{name} takes CUDA tensors")
+    _check_args(feats2d, depths, volume_dims, view_valid)
+    if feats2d.dtype not in dtypes:
+        raise ValueError(f"{name}: feats2d must be one of {dtypes}, got {feats2d.dtype}")
+    if not feats2d.is_contiguous() or feats2d.data_ptr() % 16:
+        raise ValueError("feats2d must be contiguous and 16-byte aligned")
+    v, h, w, c = feats2d.shape
+    if c not in (32, 64, 128):
+        raise ValueError(f"{name} takes C = 32, 64 or 128 channels, not {c}")
+    if max(h, w) >= 2**15:
+        raise ValueError(f"{name} takes depth maps under 32768 pixels a side, not {h}x{w}")
+    dev = feats2d.device
+    if not depths.is_cuda or depths.device != dev or depths.dtype != torch.float32 or not depths.is_contiguous():
+        raise ValueError("depths must be a contiguous float32 tensor on feats2d's card")
+    if int(np.prod([int(n) for n in volume_dims])) * c >= 2**62:
+        raise ValueError("the volume is too large")
+    lib = _build.load_library()
+    nbytes = getattr(lib, smem)(v)
+    if nbytes > torch.cuda.get_device_properties(dev).shared_memory_per_block_optin:
+        raise ValueError(f"{name}: {nbytes} bytes of shared memory do not fit a block")
+    mats = view_matrices(poses, world_to_grid).pin_memory().to(dev, non_blocking=True)  # no wait for the stream
+    if view_valid is None:
+        valid = torch.ones(v, dtype=torch.uint8, device=dev)
+    else:
+        valid = torch.as_tensor(view_valid, dtype=torch.bool).to(dev, non_blocking=True).to(torch.uint8)
+    return lib, mats, valid, tuple(float(t) for t in _intrinsics(intrinsic))
 
 
 def fuse_views_cuda(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max,
@@ -217,42 +322,19 @@ def fuse_views_cuda(feats2d, depths, poses, world_to_grid, intrinsic, volume_dim
     grows by 68 bytes a view. A ``zero_floor`` tensor is read on the
     host (one sync).
     """
-    if not feats2d.is_cuda:
-        raise ValueError("fuse_views_cuda takes CUDA tensors")
-    _check_args(feats2d, depths, volume_dims, view_valid)
-    if feats2d.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"feats2d must be float32 or bfloat16, got {feats2d.dtype}")
-    if not feats2d.is_contiguous() or feats2d.data_ptr() % 16:
-        raise ValueError("feats2d must be contiguous and 16-byte aligned")
+    lib, mats, valid, (fx, fy, cx, cy) = _kernel_operands(
+        "fuse_views_cuda", feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, view_valid,
+        (torch.float32, torch.bfloat16), "tpu3dsis_fuse_views_smem")
     v, h, w, c = feats2d.shape
-    if c not in (32, 64, 128):
-        raise ValueError(f"K3 takes C = 32, 64 or 128 channels, not {c}")
-    if max(h, w) >= 2**15:
-        raise ValueError(f"K3 takes depth maps under 32768 pixels a side, not {h}x{w}")
-    dev = feats2d.device
-    if not depths.is_cuda or depths.device != dev or depths.dtype != torch.float32 or not depths.is_contiguous():
-        raise ValueError("depths must be a contiguous float32 tensor on feats2d's card")
     x, y, z = (int(n) for n in volume_dims)
-    if x * y * z * c >= 2**62:
-        raise ValueError("the volume is too large")
-    lib = _build.load_library()
-    is_bf16 = int(feats2d.dtype == torch.bfloat16)
-    smem = lib.tpu3dsis_fuse_views_smem(v)
-    if smem > torch.cuda.get_device_properties(dev).shared_memory_per_block_optin:
-        raise ValueError(f"fuse_views_cuda: {smem} bytes of shared memory do not fit a block")
-    mats = view_matrices(poses, world_to_grid).pin_memory().to(dev, non_blocking=True)  # no wait for the stream
-    if view_valid is None:
-        valid = torch.ones(v, dtype=torch.uint8, device=dev)
-    else:
-        valid = torch.as_tensor(view_valid, dtype=torch.bool).to(dev, non_blocking=True).to(torch.uint8)
-    fx, fy, cx, cy = (float(t) for t in _intrinsics(intrinsic))
+    dev = feats2d.device
     out = torch.empty((x, y, z, c), dtype=feats2d.dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tpu3dsis_fuse_views(
-            is_bf16, feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(), valid.data_ptr(), v, h, w, c, x, y, z,
-            fx, fy, cx, cy, float(depth_min), float(depth_max), float(voxel_size),
-            int(bool(zero_floor)) if zero_floor is not None else 0, out.data_ptr(), stream,
+            int(feats2d.dtype == torch.bfloat16), feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(),
+            valid.data_ptr(), v, h, w, c, x, y, z, fx, fy, cx, cy, float(depth_min), float(depth_max),
+            float(voxel_size), int(bool(zero_floor)) if zero_floor is not None else 0, out.data_ptr(), stream,
         )
     _build.check(err, "fuse_views_cuda")
     fuse_views_cuda.launches += 1
@@ -262,11 +344,81 @@ def fuse_views_cuda(feats2d, depths, poses, world_to_grid, intrinsic, volume_dim
 fuse_views_cuda.launches = 0
 
 
+def fuse_views_backward_cuda(grad_out, feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min,
+                             depth_max, voxel_size, view_valid=None):
+    """Kernel K3b; the arguments and result of ``fuse_views_backward_plain``.
+
+    feats2d and grad_out must be contiguous float32 CUDA tensors on one
+    card, 16-byte aligned: (V, H, W, C) with C = 32, 64 or 128 and H, W <
+    32768, and (X, Y, Z, C); depths a (V, H, W) float32 tensor there. The
+    gradient is zeroed here and the kernel adds each share with a float32
+    atomic, so a pixel's sum is taken in an order that can change from
+    call to call.
+    """
+    lib, mats, valid, (fx, fy, cx, cy) = _kernel_operands(
+        "fuse_views_backward_cuda", feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, view_valid,
+        (torch.float32,), "tpu3dsis_fuse_views_bwd_smem")
+    v, h, w, c = feats2d.shape
+    x, y, z = (int(n) for n in volume_dims)
+    dev = feats2d.device
+    if (not grad_out.is_cuda or grad_out.device != dev or grad_out.dtype != torch.float32
+            or not grad_out.is_contiguous() or grad_out.data_ptr() % 16 or tuple(grad_out.shape) != (x, y, z, c)):
+        raise ValueError(f"grad_out must be a contiguous, 16-byte aligned ({x}, {y}, {z}, {c}) float32 tensor on "
+                         f"feats2d's card, not {tuple(grad_out.shape)} {grad_out.dtype}")
+    # the valid views before each view, their total last
+    rank = torch.zeros(v + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(valid, 0, dtype=torch.int32, out=rank[1:])
+    out = torch.zeros_like(feats2d)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.tpu3dsis_fuse_views_bwd(
+            grad_out.data_ptr(), feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(), valid.data_ptr(),
+            rank.data_ptr(), v, h, w, c, x, y, z, fx, fy, cx, cy, float(depth_min), float(depth_max),
+            float(voxel_size), out.data_ptr(), stream,
+        )
+    _build.check(err, "fuse_views_backward_cuda")
+    fuse_views_backward_cuda.launches += 1
+    return out
+
+
+fuse_views_backward_cuda.launches = 0
+
+
+class _FuseViews(torch.autograd.Function):
+    """The view fusion with its gradient: K3 and K3b for CUDA features, the
+    plain pair for CPU ones. No gradient reaches the depths or views."""
+
+    @staticmethod
+    def forward(ctx, feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size,
+                view_valid):
+        args = (depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size, view_valid)
+        ctx.args = args
+        ctx.save_for_backward(feats2d)
+        fuse = fuse_views_cuda if feats2d.is_cuda else fuse_views_plain
+        return fuse(feats2d, *args)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (feats2d,) = ctx.saved_tensors
+        backward = fuse_views_backward_cuda if feats2d.is_cuda else fuse_views_backward_plain
+        return (backward(grad.contiguous(), feats2d, *ctx.args),) + (None,) * 9
+
+
 def fuse_views(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size,
                view_valid=None, zero_floor=None):
     """Max-fuse V views into one (X, Y, Z, C) volume: K3 for CUDA features,
     the plain version for CPU features (same arguments as
-    ``fuse_views_plain``)."""
+    ``fuse_views_plain``). Where autograd would differentiate the features,
+    the fusion has a gradient (``_FuseViews``: K3b on the card); it takes
+    float32 features and no ``zero_floor``."""
+    if torch.is_grad_enabled() and feats2d.requires_grad:
+        if zero_floor is not None:
+            raise ValueError("the view fusion's gradient takes zero_floor=None: fuse a tile's views under no_grad")
+        if feats2d.dtype != torch.float32:
+            raise ValueError(f"the view fusion's gradient (K3b) takes float32 features, not {feats2d.dtype}: "
+                             "fuse before casting to the compute dtype")
+        return _FuseViews.apply(feats2d, depths, poses, world_to_grid, intrinsic, tuple(volume_dims), depth_min,
+                                depth_max, voxel_size, view_valid)
     if feats2d.device.type == "cpu":
         return fuse_views_plain(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min,
                                 depth_max, voxel_size, view_valid, zero_floor)

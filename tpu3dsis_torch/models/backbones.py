@@ -1,12 +1,13 @@
-"""ScanNet backbone (geometry and color streams), classifier MLP and mask FCN
-(``tpu3dsis/models/backbones.py``).
+"""ScanNet and SUNCG backbones (geometry and color streams), classifier MLP
+and mask FCN (``tpu3dsis/models/backbones.py``).
 
-``SUNCGBackbone`` and the color-only backbone (``ONLY_IMAGES``) come with
-later slices. ``ScanNetBackbone`` is a mixin for the detector module, which
-builds these layers on itself so that its ``state_dict`` keys are the JAX
-package's flat param names (``geometry1.0.weight``, ``color.0.weight``, ...);
-the detector holds a ``MaskBackbone`` as its ``mask_backbone``
-(``mask_backbone.geometry.0.weight``, ...).
+The color-only backbone (``ONLY_IMAGES``) is not ported. ``ScanNetBackbone``
+is a mixin for the detector module, which builds these layers on itself so
+that its ``state_dict`` keys are the JAX package's flat param names
+(``geometry1.0.weight``, ``color.0.weight``, ...); ``SUNCGBackbone`` builds
+other layers under the same scheme, and ``BACKBONES`` maps the config's
+``NET`` to the one to build. The detector holds a ``MaskBackbone`` as its
+``mask_backbone`` (``mask_backbone.geometry.0.weight``, ...).
 """
 
 from __future__ import annotations
@@ -19,6 +20,19 @@ from tpu3dsis_torch.models.nn import Bottleneck, Conv, Linear, MaxPool, Relu
 FEAT_STRIDE = (4, 4, 4)  # reference backbones.py:46
 NET_CONV_CHANNELS = 128  # channels of every RPN level input
 FC7_CHANNELS = 128  # classifier MLP output
+
+
+def _classifier(pooling_size: int) -> nn.Sequential:
+    """The classifier MLP over a flattened (128, P, P, P) pool (reference
+    ``backbones.py:163-169 / 225-231``)."""
+    return nn.Sequential(
+        Linear(NET_CONV_CHANNELS * pooling_size**3, 256),
+        Relu(),
+        Linear(256, 256),
+        Relu(),
+        Linear(256, FC7_CHANNELS),
+        Relu(),
+    )
 
 
 class ScanNetBackbone:
@@ -58,14 +72,7 @@ class ScanNetBackbone:
             Bottleneck(128, 64),
             MaxPool(3, 1, 1),
         )
-        self.classifier = nn.Sequential(
-            Linear(NET_CONV_CHANNELS * pooling_size**3, 256),
-            Relu(),
-            Linear(256, 256),
-            Relu(),
-            Linear(256, FC7_CHANNELS),
-            Relu(),
-        )
+        self.classifier = _classifier(pooling_size)
 
     def backbone(self, scene: torch.Tensor, imageft: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """scene (N, 2, X, Y, Z) and, with the color stream, imageft
@@ -83,6 +90,44 @@ class ScanNetBackbone:
         unlike the JAX version no transpose comes first.
         """
         return self.classifier(pool5.reshape(pool5.shape[0], -1))
+
+
+class SUNCGBackbone(ScanNetBackbone):
+    """Reference ``backbones.py:118-169`` (``tpu3dsis/models/backbones.py:151-187``):
+    two stride-2 convs of 64 channels and one bottleneck after each, for the
+    geometry stream and, with ``use_images``, the color stream; ``geometry2``
+    reads them concatenated, color first (128 channels, 64 without images),
+    and ends at its bottleneck. No max-pools. The forward and the classifier
+    are ``ScanNetBackbone``'s."""
+
+    def build_backbone(self, pooling_size: int, use_images: bool = False, num_image_channels: int = 128) -> None:
+        self.geometry1 = nn.Sequential(
+            Conv(2, 64, 2, stride=2, bias=False),
+            Relu(),
+            Bottleneck(64, 32),
+            Conv(64, 64, 2, stride=2, bias=False),
+            Relu(),
+            Bottleneck(64, 32),
+        )
+        self.color = None
+        if use_images:
+            self.color = nn.Sequential(
+                Conv(num_image_channels, 64, 2, stride=2, bias=False),
+                Relu(),
+                Bottleneck(64, 32),
+                Conv(64, 64, 2, stride=2, bias=False),
+                Relu(),
+                Bottleneck(64, 32),
+            )
+        self.geometry2 = nn.Sequential(
+            Conv(128 if use_images else 64, 128, 3, pad=1, bias=False),
+            Relu(),
+            Bottleneck(128, 64),
+        )
+        self.classifier = _classifier(pooling_size)
+
+
+BACKBONES = {"ScanNet_Backbone": ScanNetBackbone, "SUNCG_Backbone": SUNCGBackbone}
 
 
 class MaskBackbone(nn.Module):

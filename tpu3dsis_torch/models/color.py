@@ -40,7 +40,8 @@ class ColorProjector:
         ``uint8`` images are normalised there with the fp32 ops of
         ``frames.load_color`` (/255, -mean, /std; ``models/color.py:49-52``);
         float images are taken as already normalised. Without an ENet the
-        images pass through as the features.
+        images pass through as the features. Under autograd the features
+        keep their gradient to the ENet's parameters (``FIX_ENET: False``).
         """
         if self.enet is None:
             return images
@@ -51,7 +52,9 @@ class ColorProjector:
 
     def project(self, feats2d, depths, poses, world_to_grid, volume_dims, view_valid=None, zero_floor=None):
         """Fuse the views' features into one (X, Y, Z, C) volume of
-        ``feats2d``'s dtype (K3 on the card, its plain version on the CPU)."""
+        ``feats2d``'s dtype (K3 on the card, its plain version on the CPU).
+        Float32 features that require a gradient get one through the fusion
+        (K3b on the card), without ``zero_floor``."""
         return fuse_views(feats2d, depths, poses, world_to_grid, self.intrinsic, tuple(volume_dims),
                           self.depth_min, self.depth_max, self.voxel_size, view_valid=view_valid,
                           zero_floor=zero_floor)

@@ -16,7 +16,7 @@ from torch import nn
 from tpu3dsis_torch.config import DetectorConfig
 from tpu3dsis_torch.geometry.anchors import anchors_inside_mask, generate_level_anchors
 from tpu3dsis_torch.geometry.boxes import bbox_transform_inv, clip_boxes
-from tpu3dsis_torch.models.backbones import FC7_CHANNELS, FEAT_STRIDE, MaskBackbone, ScanNetBackbone
+from tpu3dsis_torch.models.backbones import BACKBONES, FC7_CHANNELS, FEAT_STRIDE, MaskBackbone, ScanNetBackbone
 from tpu3dsis_torch.models.color import ColorProjector
 from tpu3dsis_torch.models.enet2d import ENet2D
 from tpu3dsis_torch.models.nn import Linear, init_params
@@ -27,7 +27,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class Detector(ScanNetBackbone, RPNHeads, nn.Module):
-    """ScanNet detector, with the mask FCN as ``mask_backbone`` when
+    """The chunk detector on the backbone the config's ``NET`` names
+    (``ScanNet_Backbone`` or ``SUNCG_Backbone``, ``backbones.BACKBONES``,
+    which share the forward), with the mask FCN as ``mask_backbone`` when
     ``cfg.USE_MASK`` (else None) and, with ``cfg.USE_IMAGES``, the color
     stream: its 3D convs (``color``), the ENet (``enet``, None under
     ``USE_IMAGES_GT``) and the ``color_projector`` that fuses the views.
@@ -49,8 +51,8 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Detector runs on a CUDA device, and none is present; pass device='cpu' for the CPU")
-        if cfg.NET != "ScanNet_Backbone":
-            raise NotImplementedError(f"the port has only ScanNet_Backbone, not {cfg.NET}")
+        if cfg.NET not in BACKBONES:
+            raise NotImplementedError(f"the port has the backbones {sorted(BACKBONES)}, not {cfg.NET}")
         if not cfg.USE_RPN or cfg.NUM_ANCHORS_LEVEL3:
             raise NotImplementedError("the port needs the RPN on levels 1 and 2 only")
         if cfg.TPU_COMPUTE_DTYPE not in _DTYPES:
@@ -59,7 +61,7 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
         self.pooling_size = cfg.CLASS_POOLING_SIZE
         self.use_class = cfg.USE_CLASS
         self.compute_dtype = _DTYPES[cfg.TPU_COMPUTE_DTYPE]
-        self.build_backbone(self.pooling_size, cfg.USE_IMAGES, cfg.NUM_IMAGE_CHANNELS)
+        BACKBONES[cfg.NET].build_backbone(self, self.pooling_size, cfg.USE_IMAGES, cfg.NUM_IMAGE_CHANNELS)
         self.num_anchors = {1: cfg.NUM_ANCHORS_LEVEL1, 2: cfg.NUM_ANCHORS_LEVEL2}
         self.build_rpn(self.num_anchors, cfg.RPN_CHANNELS)
         if self.use_class:

@@ -5,9 +5,17 @@ initial block (3x3 stride-2 conv to 13 channels beside a 2x2 max-pool,
 concatenated conv first, BatchNorm, PReLU), a 16 -> 64 downsampling
 bottleneck and 4 regular ones, a 64 -> 128 downsampling bottleneck, two
 sections of 8 bottlenecks (dilations 1, 2, asymmetric 5, 4, 1, 8,
-asymmetric 5, 16) and a 1x1 classifier. Inference only, as the JAX package
-runs it: BatchNorm uses its running statistics with eps 1e-3, and the
-converted Dropout2d's (1 - p) scaling is applied as the checkpoint expects.
+asymmetric 5, 16) and a 1x1 classifier. In eval mode always, as the JAX
+package runs it, training included: BatchNorm uses its running statistics
+with eps 1e-3, and the converted Dropout2d's (1 - p) scaling is applied as
+the checkpoint expects.
+
+Trained (``FIX_ENET: False``) it learns what the JAX package's step learns:
+that step differentiates and SGD-updates every entry of its param dict, so
+the BatchNorm running statistics are ``nn.Parameter``s here (they need no
+gradient until a trainer asks for one), and PReLU is computed in the JAX
+package's form, whose gradient at an exact 0 differs from ``nn.PReLU``'s.
+
 The module names reproduce the torch ``state_dict`` paths, so the params of
 ``tests/fixtures/color_loop_params.npz`` load under ``enet.*`` as they are
 (``enet.4.0.0.3.weight``: module 4, its ConcatTable's main branch, layer 3).
@@ -46,21 +54,37 @@ def enet_blocks():
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over NCHW with the JAX package's arithmetic
+    """Eval-mode BatchNorm over NCHW with the JAX package's arithmetic
     (``enet2d.py:49-51``): x * scale + (bias - mean * scale), scale =
-    weight / sqrt(var + eps). The statistics are buffers."""
+    weight / sqrt(var + eps). The statistics are parameters under their
+    ``state_dict`` names, created without ``requires_grad``: the JAX
+    package trains them with the rest (``train/solver.py``)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
+        self.running_mean = nn.Parameter(torch.zeros(channels), requires_grad=False)
+        self.running_var = nn.Parameter(torch.ones(channels), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.weight / torch.sqrt(self.running_var + BN_EPS)
         shift = self.bias - self.running_mean * scale
         return x * scale[:, None, None] + shift[:, None, None]
+
+
+class PReLU(nn.PReLU):
+    """``nn.PReLU`` with one slope a channel, over NCHW. Where autograd
+    records, it computes the JAX package's max(x, 0) + a * min(x, 0)
+    (``enet2d.py:55-56``), whose gradient at x == 0 is (1 + a) / 2 (each
+    of the max and the min splits the tie); ``nn.PReLU``'s is a. Elsewhere
+    it is the fused ``prelu``: the values are the same."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not torch.is_grad_enabled() or not (x.requires_grad or self.weight.requires_grad):
+            return super().forward(x)
+        zero = x.new_zeros(())
+        return torch.maximum(x, zero) + self.weight[:, None, None] * torch.minimum(x, zero)
 
 
 class Scale(nn.Module):
@@ -79,13 +103,13 @@ def _main_branch(kind: str, cin: int, mid: int, cout: int, drop: float, dilation
         first = nn.Conv2d(cin, mid, 2, stride=2, bias=False)
     else:
         first = nn.Conv2d(cin, mid, 1, bias=False)
-    layers = [first, BatchNorm(mid), nn.PReLU(mid)]
+    layers = [first, BatchNorm(mid), PReLU(mid)]
     if kind == "asym":
         layers += [nn.Conv2d(mid, mid, (1, 5), padding=(0, 2), bias=False),
                    nn.Conv2d(mid, mid, (5, 1), padding=(2, 0))]
     else:
         layers.append(nn.Conv2d(mid, mid, 3, padding=dilation, dilation=dilation))
-    layers += [BatchNorm(mid), nn.PReLU(mid), nn.Conv2d(mid, cout, 1, bias=False), BatchNorm(cout), Scale(drop)]
+    layers += [BatchNorm(mid), PReLU(mid), nn.Conv2d(mid, cout, 1, bias=False), BatchNorm(cout), Scale(drop)]
     return nn.Sequential(*layers)
 
 
@@ -98,7 +122,7 @@ class Bottleneck2d(nn.Module):
     def __init__(self, kind: str, cin: int, mid: int, cout: int, drop: float, dilation: int = 1):
         super().__init__()
         self.add_module("0", nn.Sequential(_main_branch(kind, cin, mid, cout, drop, dilation)))
-        self.add_module("2", nn.PReLU(cout))
+        self.add_module("2", PReLU(cout))
         self.downsample = kind == "down"
         self.pad_channels = cout - cin
 
@@ -118,7 +142,7 @@ class ENet2D(nn.Module):
         super().__init__()
         self.add_module("0", nn.Sequential(nn.Conv2d(3, 13, 3, stride=2, padding=1)))  # ConcatTable(conv, pool)
         self.add_module("2", BatchNorm(16))
-        self.add_module("3", nn.PReLU(16))
+        self.add_module("3", PReLU(16))
         self.bottlenecks = []
         for blk in enet_blocks():
             kind, idx = blk[0], blk[1]

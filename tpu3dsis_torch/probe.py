@@ -1,4 +1,4 @@
-"""Where K1's, K1b's, K2's and K3's time goes on the card, without a profiler's counters.
+"""Where K1's, K1b's, K2's, K3's and K3b's time goes on the card, without a profiler's counters.
 
 Each kernel is timed against copies of itself built with one phase cut out
 (a loop that runs no time, a store that never happens, an early return), on
@@ -7,7 +7,9 @@ own proposals for K1, 32 x 400 and 32 x 1024 boxes for K2, the views of
 phase 7's 96-view room fused into its 240x48x240 volume for K3, and for K1b
 a geometry training step's own call (recorded from the step), the training
 call's shapes (two 8x24x12x24x128 level maps, 8 x 16 rois) and phase 2's
-rois, each in bf16 and float32. A cut copy computes nothing useful; only
+rois, each in bf16 and float32, and for K3b one sample of the trainable-ENet
+color batch's views (float32, 5 views into 96x48x96). A cut copy computes
+nothing useful; only
 its time is read. K1b's copies are cut at its constants: "zeros only"
 stores every brick as zeros without the column pass or a scan of the rois
 (the write floor), "no column walk" takes each plane's max from one voxel
@@ -22,9 +24,12 @@ pass computed and their row x-maxima, the columns the brick pass staged
 (once per brick that meets a column) and the row x-maxima it recomputed.
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python -m tpu3dsis_torch.probe [K1] [K1b] [K2] [K3] [--against DIR ...]
+    python -m tpu3dsis_torch.probe [K1] [K1b] [K2] [K3] [K3b] [--against DIR ...]
 
-(all four when none is named). It prints one JSON line per case: the full
+(all five when none is named). K3b's copies: "no cull" (every valid view
+a candidate), "first walk only" (the max and tie count, no shares),
+"no atomics" (the shares computed, none added), and the zeroed gradient
+alone. It prints one JSON line per case: the full
 kernel's and each cut copy's device time in ms, measured in turns (full,
 cuts, cuts reversed, full); K3's line adds the share of (brick, view) pairs
 its cull keeps. ``--against DIR`` (with K1b) also times the whole K1b
@@ -52,6 +57,7 @@ from tpu3dsis_torch import _build
 
 COUNTING = "counting"  # K1b's copy that counts what its kernels compute; built, not timed
 
+_K3_CULL = "  const int ncand = cull_brick<kCullViews>(depths, mats, view_valid, V, lo, hi, k, s_mat, s_view, cs, culled);\n"
 # per source: cut name -> (text in the source, its replacement)
 CUTS = {
     "roi_pool3d.cu": {
@@ -76,14 +82,18 @@ CUTS = {
         "no walk": ("  if (rank != 0) return;\n", "  return;\n"),
     },
     "fuse_views.cu": {
-        "no cull": ("      state = cull_view(m, lo, hi, k, s_box[threadIdx.x], s_band[threadIdx.x]);",
-                    "      state = kKeep;"),
-        "cull only": ("  const bool culled = s_culled != 0;\n",
-                      "  const bool culled = s_culled != 0;\n  if (V > 0) return;\n"),
+        "no cull": ("constexpr bool kCullViews = true;", "constexpr bool kCullViews = false;"),
+        "cull only": (_K3_CULL, _K3_CULL + "  if (V > 0) return;\n"),
         "no gather or max": ("        while (acc_set) {  // uniform; lowest lane first, i.e. view order",
                              "        while (acc_set && V < 0) {"),
         "no output stores": ("      store_row(reinterpret_cast<Pack<T, CPL>*>(dst), r);",
                              "      if (V < 0) store_row(reinterpret_cast<Pack<T, CPL>*>(dst), r);"),
+    },
+    "fuse_views_bwd.cu": {
+        "no cull": ("constexpr bool kCullViews = true;", "constexpr bool kCullViews = false;"),
+        "first walk only": ("constexpr bool kScatter = true;", "constexpr bool kScatter = false;"),
+        "no atomics": ("                  atomicAdd(dst + i, ldexpf(g.v[i], -e));",
+                       "                  if (e < 0) atomicAdd(dst + i, ldexpf(g.v[i], -e));"),
     },
 }
 
@@ -105,7 +115,7 @@ def build_cuts():
             variant = out / f"{src.stem}_{name.replace(' ', '_')}.cu"
             variant.write_text(text if cut is None else text.replace(cut[0], cut[1]))
             lib = variant.with_suffix(".so")
-            proc = subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-o", str(lib), str(variant)],
+            proc = subprocess.Popen(_build.nvcc_command(nvcc, variant, lib),
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             jobs.append((src.stem, name, lib, proc))
     libs = {}
@@ -243,6 +253,40 @@ def call_k3(lib, feats2d, depths, mats, valid, fx, fy, cx, cy, volume_dims, dept
     _build.check(err, "probe K3")
 
 
+def call_k3b(lib, grad, feats2d, depths, mats, valid, rank, fx, fy, cx, cy, volume_dims, depth_min, depth_max,
+             voxel_size):
+    v, h, w, c = feats2d.shape
+    out = torch.zeros_like(feats2d)
+    err = lib.tpu3dsis_fuse_views_bwd(grad.data_ptr(), feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(),
+                                      valid.data_ptr(), rank.data_ptr(), v, h, w, c, *volume_dims, fx, fy, cx, cy,
+                                      depth_min, depth_max, voxel_size, out.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "probe K3b")
+
+
+def k3b_inputs(cs, dev):
+    """K3b's arguments on the training call's shapes: one sample of
+    ``chip_smoke``'s trainable-ENet color batch (5 views of 32x41 depths,
+    bench_train's cameras) into 96x48x96, random float32 features and
+    cotangent (their values change the ties, not the work)."""
+    from tpu3dsis_torch.geometry.projection import view_matrices
+
+    cfg = cs.enet_train_config()
+    batch = cs.train_batch(np.random.RandomState(7), 1, cfg, color=True)
+    g = torch.Generator().manual_seed(3)
+    v = int(cfg.NUM_IMAGES)
+    w, h = cfg.DEPTH_SHAPE
+    k = cfg.INTRINSIC
+    return dict(grad=torch.randn((*cs.SHAPE, 128), generator=g).to(dev),
+                feats2d=torch.randn((v, h, w, 128), generator=g).to(dev),
+                depths=torch.from_numpy(batch["depths"][0]).to(dev),
+                mats=view_matrices(batch["poses"][0], batch["world_to_grid"][0]).to(dev),
+                valid=torch.ones(v, dtype=torch.uint8, device=dev),
+                rank=torch.arange(v + 1, dtype=torch.int32, device=dev), fx=k[0][0], fy=k[1][1], cx=k[0][2],
+                cy=k[1][2], volume_dims=cs.SHAPE, depth_min=cfg.PROJ_DEPTH_MIN, depth_max=cfg.PROJ_DEPTH_MAX,
+                voxel_size=cfg.VOXEL_SIZE)
+
+
 def k3_inputs(dev, cs):
     """K3's arguments for phase 7's 96-view room at its bucket (and the
     intrinsic matrix), features random (their values do not change the
@@ -277,9 +321,9 @@ def main(argv=()) -> int:
             return 2
         others.append(str(Path(argv.pop(at + 1)).resolve()))
         argv.pop(at)
-    which = set(argv) or {"K1", "K1b", "K2", "K3"}
-    if not which <= {"K1", "K1b", "K2", "K3"} or (others and "K1b" not in which):
-        print(f"probe: name K1, K1b, K2 or K3 (K1b with --against), not {sorted(which)}", file=sys.stderr)
+    which = set(argv) or {"K1", "K1b", "K2", "K3", "K3b"}
+    if not which <= {"K1", "K1b", "K2", "K3", "K3b"} or (others and "K1b" not in which):
+        print(f"probe: name K1, K1b, K2, K3 or K3b (K1b with --against), not {sorted(which)}", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
@@ -297,6 +341,8 @@ def main(argv=()) -> int:
         probe_k2(cs, dev, libs, card)
     if "K3" in which:
         probe_k3(cs, dev, libs, card)
+    if "K3b" in which:
+        probe_k3b(cs, dev, libs, card)
     return 0
 
 
@@ -398,6 +444,14 @@ def probe_k3(cs, dev, libs, card):
         print(json.dumps({"case": f"K3 {str(dt).split('.')[-1]}, 96 views into {cs.SCENE_EXTENT} x 128",
                           "ms": in_turns(fns, 10, cs.device_ms), "cull_kept_share": float(keep.float().mean()),
                           "card": card}), flush=True)
+
+
+def probe_k3b(cs, dev, libs, card):
+    args = k3b_inputs(cs, dev)
+    fns = {k: (lambda lib=lib: call_k3b(lib, **args)) for k, lib in libs["fuse_views_bwd"].items()}
+    fns["zeroed gradient alone"] = lambda: torch.zeros_like(args["feats2d"])
+    print(json.dumps({"case": f"K3b float32, 5 views from {cs.SHAPE} x 128 (the training call's shapes)",
+                      "ms": in_turns(fns, 20, cs.device_ms), "card": card}), flush=True)
 
 
 if __name__ == "__main__":

@@ -135,12 +135,11 @@ class Trainer:
         self._snapshot(opt, step)
 
     def _snapshot(self, opt, step) -> str:
-        # a zero momentum for the buffers too (BatchNorm statistics), as the
-        # JAX package keeps one for every entry of its param dict
-        momentum = {k: torch.zeros_like(v) for k, v in self.detector.state_dict().items()}
-        momentum.update(opt.momentum)
+        # the solver keeps a momentum for every parameter, the ENet's
+        # BatchNorm statistics included, as the JAX package keeps one for
+        # every entry of its param dict
         path = ckpt.save_snapshot(self.checkpoint_dir, step, ckpt.module_params(self.detector),
-                                  ckpt.tensors_to_params(momentum), int(opt.step))
+                                  ckpt.tensors_to_params(opt.momentum), int(opt.step))
         ckpt.prune_snapshots(self.checkpoint_dir, self.cfg.SNAPSHOT_KEPT)
         print(f"snapshot -> {path}")
         return path

@@ -9,7 +9,9 @@
   - the step LR schedule LEARNING_RATE * GAMMA^(stepsizes passed), a pure
     function of the count of applied updates, so a resumed run replays it.
 
-``SGD`` keeps one float32 momentum buffer per parameter and the update
+``SGD`` keeps one float32 momentum buffer per parameter (the ENet's
+BatchNorm statistics are parameters, so with ``FIX_ENET: False`` they take
+weight decay and an update, as in the JAX package) and the update
 count on the parameters' device, and updates in place with ``torch._foreach``
 operations in the JAX package's order, each rounded as it rounds them: on
 the same gradients the result equals its update. ``update`` takes a 0-d

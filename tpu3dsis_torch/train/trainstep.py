@@ -10,8 +10,12 @@ windows), and every loss is kept per sample, so the total and each metric
 are the batch means the JAX step takes. Proposal selection runs under
 ``no_grad`` (the JAX step's ``stop_gradient``), and so does the color
 stream's ENet and view fusion (K3, forward only) while ``FIX_ENET`` holds
-(every shipped config): training the ENet would need K3's backward, which is
-not ported, so ``FIX_ENET: False`` raises.
+(every shipped config). With ``FIX_ENET: False`` the ENet and each sample's
+view fusion run under autograd: the ENet's float32 features are fused in
+float32 (K3 forward, K3b backward on the card), and the fused volume is
+then cast to the compute dtype, as in the JAX package; a cast before the
+fusion would give the same forward values but ties in the backward that
+float32 does not have.
 
 The random subsampling of the targets takes uniform draws (``make_draws``):
 the step makes them with a ``torch.Generator`` on the parameters' device
@@ -209,9 +213,8 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
     use_images = bool(cfg.USE_IMAGES)
     fix_rpn = bool(cfg.FIX_RPN) or not bool(cfg.USE_RPN)
     fix_class = (bool(cfg.FIX_CLASS) and not cfg.NYUV2_FINETUNE) or not bool(cfg.USE_CLASS)
-    if use_images and not bool(cfg.FIX_ENET):
-        raise NotImplementedError("FIX_ENET: False trains the ENet through the view fusion, whose backward "
-                                  "(kernel K3b) is not ported; every shipped config sets FIX_ENET: True")
+    # the ENet trains (FIX_ENET False): its features keep their gradient through the fusion
+    train_enet = use_images and not bool(cfg.FIX_ENET) and detector.enet is not None
     if bool(cfg.MASK_USE_IMAGES):
         raise NotImplementedError("the port's mask FCN has no color branch yet (MASK_USE_IMAGES)")
 
@@ -225,19 +228,23 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
         b = data.shape[0]
         imageft = None
         if use_images:
-            # frozen ENet and K3 forward (every shipped config): no gradient.
             # The ENet takes every view of the batch in one call; K3 fuses
-            # each chunk's views into its volume.
-            with torch.no_grad():
+            # each chunk's views into its volume. A frozen ENet (every
+            # shipped config) runs without a gradient, its features cast to
+            # the compute dtype before K3; a trained one keeps them float32
+            # through the fusion (K3b in the backward), and the volume is cast.
+            with torch.set_grad_enabled(train_enet), timer("color"):
                 proj = detector.color_projector
                 images = to_dev(batch["images"])
-                feats2d = proj.image_features(images.reshape(-1, *images.shape[2:])).to(detector.compute_dtype)
+                feats2d = proj.image_features(images.reshape(-1, *images.shape[2:]))
+                if not train_enet:
+                    feats2d = feats2d.to(detector.compute_dtype)
                 feats2d = feats2d.reshape(*images.shape[:2], *feats2d.shape[1:])
                 depths = to_dev(batch["depths"], torch.float32)
                 view_valid = to_dev(batch["view_valid"], torch.bool)
                 imageft = torch.stack([proj.project(feats2d[i], depths[i], batch["poses"][i],
                                                     batch["world_to_grid"][i], shape, view_valid=view_valid[i])
-                                       for i in range(b)])
+                                       for i in range(b)]).to(detector.compute_dtype)
         feats = detector.features(data, imageft)
         per_sample = {}
         rpn_out = detector.rpn_forward(feats)
