@@ -1391,7 +1391,7 @@ def _k3_case(name, args, quiet=False, phase=7):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    want = projection.fuse_views_plain(**args)
+    want = projection.fuse_views_plain(**{k: v for k, v in args.items() if k not in ("mats", "out")})
     end.record()
     end.synchronize()
     nan_got, nan_want = torch.isnan(got), torch.isnan(want)
@@ -2485,93 +2485,118 @@ def enet_train_config():
     return cfg
 
 
+def k3b_samples(args):
+    """One batched K3b call's arguments as each sample's arguments of
+    ``fuse_views_backward_plain`` (no kernel operands)."""
+    n = args["feats2d"].shape[0]
+    valid = args.get("view_valid")
+    return [dict(grad_out=args["grad_out"][i], feats2d=args["feats2d"][i], depths=args["depths"][i],
+                 poses=args["poses"][i], world_to_grid=args["world_to_grid"][i], intrinsic=args["intrinsic"],
+                 volume_dims=args["volume_dims"], depth_min=args["depth_min"], depth_max=args["depth_max"],
+                 voxel_size=args["voxel_size"], view_valid=None if valid is None else valid[i]) for i in range(n)]
+
+
 def k3b_bound(args):
-    """K3b's bound in ms, its bound_by, its bytes and the voxels that some
-    valid view accepts: the cotangent rows of those voxels (the only rows
-    the gradient reads) read once, the feature maps, depths, matrices and
-    flags read once and the (V, H, W, C) float32 gradient written once
-    (bytes), or K3's projections for the (brick, view) pairs its cull keeps
-    (operations, at K3_OPS_PER_PROJECTION a projection)."""
-    feats2d, depths = args["feats2d"], args["depths"]
-    v, h, w, c = feats2d.shape
-    ones = torch.ones((v, h, w, 1), device=feats2d.device)
-    kw = {k: args[k] for k in ("poses", "world_to_grid", "intrinsic", "volume_dims", "depth_min", "depth_max",
-                               "voxel_size", "view_valid")}
-    touched = int((projection.fuse_views_plain(ones, depths, **kw) > 0).sum())
-    lo, hi = projection.brick_bounds(args["volume_dims"], depths.device)
-    projections = int(((hi - lo + 1).prod(1) * k3_kept(args).sum(1)).sum())
-    nbytes = touched * c * 4 + 2 * feats2d.numel() * 4 + depths.numel() * 4 + v * (12 * 4 + 1)
+    """K3b's bound in ms on one batched call, its bound_by, its bytes and the
+    voxels that some valid view accepts, summed over the samples: the
+    cotangent rows of those voxels (the only rows the gradient reads) read
+    once, the feature maps, depths, matrices and flags read once and the
+    (B, V, H, W, C) float32 gradient written once (bytes), or K3's
+    projections for the (brick, view) pairs its cull keeps (operations, at
+    K3_OPS_PER_PROJECTION a projection)."""
+    nbytes = projections = touched = 0
+    for one in k3b_samples(args):
+        feats2d, depths = one["feats2d"], one["depths"]
+        v, h, w, c = feats2d.shape
+        ones = torch.ones((v, h, w, 1), device=feats2d.device)
+        kw = {k: one[k] for k in ("poses", "world_to_grid", "intrinsic", "volume_dims", "depth_min", "depth_max",
+                                  "voxel_size", "view_valid")}
+        n = int((projection.fuse_views_plain(ones, depths, **kw) > 0).sum())
+        lo, hi = projection.brick_bounds(one["volume_dims"], depths.device)
+        projections += int(((hi - lo + 1).prod(1) * k3_kept(one).sum(1)).sum())
+        nbytes += n * c * 4 + 2 * feats2d.numel() * 4 + depths.numel() * 4 + v * (12 * 4 + 1)
+        touched += n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, projections * K3_OPS_PER_PROJECTION / FP32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"), nbytes, touched
 
 
 def _k3b_case(name, args, phase=10):
-    """K3b against its plain version (autograd of ``fuse_views_plain``) on
-    one call's arguments: max abs error within K3B_TOL of the largest
-    gradient. Returns (max abs err, plain ms, the plain gradient)."""
+    """K3b on one batched call against its plain version (autograd of
+    ``fuse_views_plain``, per sample, stacked): max abs error within K3B_TOL
+    of the largest gradient. Returns (max abs err, plain ms, the plain
+    gradient)."""
     got = projection.fuse_views_backward_cuda(**args)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    want = projection.fuse_views_backward_plain(**args)
+    want = projection.fuse_views_backward_batch_plain(**{k: v for k, v in args.items() if k not in ("mats", "rank")})
     end.record()
     end.synchronize()
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     ok = err <= K3B_TOL * scale
-    log(f"[{phase}] K3b {name}: {tuple(args['feats2d'].shape)} from {tuple(args['grad_out'].shape)}, "
-        f"{int(torch.as_tensor(args['view_valid']).sum()) if args.get('view_valid') is not None else args['feats2d'].shape[0]} "
-        f"valid views: max_abs_err={err} of max |grad| {scale:.4g} ({K3B_TOL:g} relative: {'ok' if ok else 'FAILED'}), "
-        f"nonzero grads {int((want != 0).sum())}, plain {start.elapsed_time(end):.1f} ms [{CARD}]")
+    valid = args.get("view_valid")
+    n_valid = (torch.as_tensor(valid).bool().sum(1).tolist() if valid is not None
+               else [args["feats2d"].shape[1]] * args["feats2d"].shape[0])
+    log(f"[{phase}] K3b {name}: {tuple(args['feats2d'].shape)} from {tuple(args['grad_out'].shape)}, valid views "
+        f"per sample {n_valid}: max_abs_err={err} of max |grad| {scale:.4g} ({K3B_TOL:g} relative: "
+        f"{'ok' if ok else 'FAILED'}), nonzero grads {int((want != 0).sum())}, plain {start.elapsed_time(end):.1f} ms "
+        f"[{CARD}]")
     check(scale > 0, f"K3b {name}: the gradient is all 0")
     check(ok, f"K3b {name} differs from its plain version beyond {K3B_TOL:g} of its largest gradient")
     return err, start.elapsed_time(end), want
 
 
 def k3b_edge_cases(args, rng):
-    """K3b's edges on the training call's views: exact ties (views 1 and 2
-    copies of view 0, view 4 of view 3), features exactly 0 and plateaus
-    (ReLU of values rounded to halves), an invalid view, and both at once.
-    Yields (name, args)."""
-    feats, depths, poses = args["feats2d"], args["depths"], torch.as_tensor(args["poses"]).cpu().numpy().copy()
+    """K3b's edges on a training step's batched call, its operands made anew
+    from the poses: exact ties (views 1 and 2 copies of view 0, view 4 of
+    view 3, in every sample), features exactly 0 and plateaus (ReLU of values
+    rounded to halves), invalid views (view 1 of sample 0, every view of
+    sample 2), and all at once. Yields (name, args)."""
+    feats, depths = args["feats2d"], args["depths"]
+    poses = np.array(torch.as_tensor(args["poses"]).cpu().numpy())
     dup_f, dup_d, dup_p = feats.clone(), depths.clone(), poses.copy()
     for i, j in ((1, 0), (2, 0), (4, 3)):
-        dup_f[i], dup_d[i], dup_p[i] = feats[j], depths[j], poses[j]
+        dup_f[:, i], dup_d[:, i], dup_p[:, i] = feats[:, j], depths[:, j], poses[:, j]
     zeros = torch.relu(torch.round(feats * 2) / 2)
-    v = feats.shape[0]
-    invalid = torch.ones(v, dtype=torch.bool, device=feats.device)
-    invalid[1] = False
-    yield "duplicated views (ties of 3 and 2)", dict(args, feats2d=dup_f, depths=dup_d, poses=dup_p)
-    yield "exact zeros and plateaus", dict(args, feats2d=zeros)
-    yield "an invalid view", dict(args, view_valid=invalid)
-    yield "duplicated views, exact zeros, view 1 invalid", dict(args, feats2d=torch.relu(torch.round(dup_f * 2) / 2),
-                                                                 depths=dup_d, poses=dup_p, view_valid=invalid)
+    b, v = feats.shape[:2]
+    invalid = torch.ones((b, v), dtype=torch.bool, device=feats.device)
+    invalid[0, 1] = False
+    invalid[min(2, b - 1)] = False
+    base = dict(args, mats=None, rank=None)
+    yield "duplicated views (ties of 3 and 2)", dict(base, feats2d=dup_f, depths=dup_d, poses=dup_p)
+    yield "exact zeros and plateaus", dict(base, feats2d=zeros)
+    yield "invalid views, a sample with none valid", dict(base, view_valid=invalid)
+    yield "duplicated views, exact zeros, invalid views", dict(base, feats2d=torch.relu(torch.round(dup_f * 2) / 2),
+                                                               depths=dup_d, poses=dup_p, view_valid=invalid)
 
 
 def k3b_room_case(dev, rng, n_views=32):
-    """K3b's arguments on one of phase 7's rooms (cameras standing in it,
-    so the cull drops most (brick, view) pairs), its whole 240x48x240
-    volume: features of exact zeros and plateaus (ties at 0 between views
-    that accept a voxel and views culled for its brick), a random
-    cotangent."""
+    """K3b's arguments on one of phase 7's rooms, a batch of one (cameras
+    standing in it, so the cull drops most (brick, view) pairs), its whole
+    240x48x240 volume: features of exact zeros and plateaus (ties at 0
+    between views that accept a voxel and views culled for its brick), a
+    random cotangent."""
     _, _, frames = make_color_scene(rng, n_views)
     cfg = scannet_color_scene_config()
     g = torch.Generator(device=dev).manual_seed(5)
-    feats = torch.relu(torch.round(torch.randn((n_views, 32, 41, 128), generator=g, device=dev) * 2) / 2)
-    return dict(grad_out=torch.randn((*SCENE_EXTENT, 128), generator=g, device=dev), feats2d=feats,
-                depths=torch.from_numpy(frames["depths"]).to(dev), poses=frames["poses"],
-                world_to_grid=frames["world_to_grid"], intrinsic=cfg.INTRINSIC, volume_dims=SCENE_EXTENT,
+    feats = torch.relu(torch.round(torch.randn((1, n_views, 32, 41, 128), generator=g, device=dev) * 2) / 2)
+    return dict(grad_out=torch.randn((1, *SCENE_EXTENT, 128), generator=g, device=dev), feats2d=feats,
+                depths=torch.from_numpy(frames["depths"]).to(dev)[None], poses=frames["poses"][None],
+                world_to_grid=frames["world_to_grid"][None], intrinsic=cfg.INTRINSIC, volume_dims=SCENE_EXTENT,
                 depth_min=cfg.PROJ_DEPTH_MIN, depth_max=cfg.PROJ_DEPTH_MAX, voxel_size=cfg.VOXEL_SIZE,
-                view_valid=torch.ones(n_views, dtype=torch.bool, device=dev))
+                view_valid=torch.ones((1, n_views), dtype=torch.bool, device=dev))
 
 
 def k3b_kernel_split(fn):
-    """Device microseconds per call of each kernel a K3b call runs (the
-    gradient's zero fill and K3b), from torch.profiler over 10 calls, or
-    100 where 10 brought back none."""
+    """Device microseconds per call of each kernel a K3b call runs (pass 1
+    with the gradient's zero fill, pass 2, the memset of the list's length
+    and bitmap), from torch.profiler over 10 calls, or 100 where 10 brought
+    back none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    names = {"k3b_list_pass": "pass 1 (zero fill, list)", "k3b_grad_pass": "pass 2 (gradient)"}
     for calls in (10, 100):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2581,10 +2606,44 @@ def k3b_kernel_split(fn):
         split = defaultdict(float)
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
-                split["K3b" if "fuse_views_bwd" in e.name else e.name[:40]] += e.time_range.elapsed_us() / calls
+                name = next((v for k, v in names.items() if k in e.name), e.name[:40])
+                split[name] += e.time_range.elapsed_us() / calls
         if split:
             return dict(split)
     return {}
+
+
+def host_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Median host time of one fn() in ms: the host's clock around the call
+    alone (the enqueue: the wrapper's checks, host work and launches), the
+    stream drained between calls."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+@contextlib.contextmanager
+def counting_view_matrices():
+    """Within the block, the calls of ``projection.view_matrices`` (the host's
+    matrix work), as a list of the shapes of their poses."""
+    calls, original = [], projection.view_matrices
+
+    def counted(poses, world_to_grid):
+        calls.append(tuple(np.shape(poses)))
+        return original(poses, world_to_grid)
+
+    projection.view_matrices = counted
+    try:
+        yield calls
+    finally:
+        projection.view_matrices = original
 
 
 def phase_suncg(dev):
@@ -2630,9 +2689,10 @@ def phase_suncg(dev):
 
 
 def phase_enet(dev):
-    """Phase 10: K3b against its plain version (a training step's calls,
-    edge cases, a room), its time and bound; one float32 step with the ENet
-    trained, card against CPU; 30 bf16 steps with the ENet trained; SUNCG."""
+    """Phase 10: one float32 step with the ENet trained, card against CPU;
+    30 bf16 steps with the ENet trained (K3 four launches a step, K3b one);
+    the step's one batched K3b call, edge cases and a room against the plain
+    version per sample; K3b's time, host time, bound and two passes; SUNCG."""
     t_phase = time.time()
     rng = np.random.RandomState(10)
     res = {"k3b_err": 0.0}
@@ -2641,8 +2701,11 @@ def phase_enet(dev):
     run, det, opt, step, batch, gen = train_run(dev, "trainable-ENet color", enet_train_config(),
                                                 TRAIN_BATCH["color"], steps=ENET_STEPS, phase=10)
     per_step = {k: run["launches"][k] / ENET_STEPS for k in ("fuse_views_cuda", "fuse_views_backward_cuda")}
-    check(all(v > 0 for v in per_step.values()), f"K3 or K3b did not launch every step: {per_step}")
-    with recording_kernel_calls() as calls:
+    check(per_step == {"fuse_views_cuda": TRAIN_BATCH["color"], "fuse_views_backward_cuda": 1}
+          and run["kernel_launches"]["fuse_views_backward_cuda"] == ENET_STEPS,
+          f"a trainable-ENet step of {TRAIN_BATCH['color']} launches K3 once a sample and K3b once: {per_step}, "
+          f"library launches {run['kernel_launches']}")
+    with recording_kernel_calls() as calls, counting_view_matrices() as matrix_calls:
         step(opt, batch, generator=gen)
     torch.cuda.synchronize()
     errs = check_recorded_k1_k2(calls, "trainable-ENet training step", phase=10)
@@ -2650,50 +2713,61 @@ def phase_enet(dev):
     k3b_calls = []
     for kind, args in calls:
         if kind == "fuse_views_cuda":
+            check(args["mats"] is not None and args["mats"].is_cuda, "a step's K3 call made its own matrices")
             res["k3_err"] = max(res.get("k3_err", 0.0), _k3_case("trainable-ENet training step", args, quiet=True,
                                                                   phase=10)[0])
         if kind == "fuse_views_backward_cuda":
             k3b_calls.append(args)
-    log(f"[10] trainable-ENet step's kernel calls: {[k for k, _ in calls]}")
-    check(len(k3b_calls) == TRAIN_BATCH["color"], f"{len(k3b_calls)} K3b calls in a step of {TRAIN_BATCH['color']}")
-    for i, args in enumerate(k3b_calls):
-        err, plain_ms, _ = _k3b_case(f"training step's call {i}", args)
-        res["k3b_err"] = max(res["k3b_err"], err)
-        if i == 0:
-            res["k3b_plain_ms"] = plain_ms
+    log(f"[10] trainable-ENet step's kernel calls: {[k for k, _ in calls]}; view_matrices calls (poses' shapes): "
+        f"{matrix_calls}")
+    check(len(k3b_calls) == 1, f"{len(k3b_calls)} K3b calls in a step of {TRAIN_BATCH['color']}, not one")
+    check(matrix_calls == [(TRAIN_BATCH["color"], int(enet_train_config().NUM_IMAGES), 4, 4)],
+          f"a step made its view matrices other than once for the batch: {matrix_calls}")
     training = k3b_calls[0]
+    check(all(torch.is_tensor(training[k]) and training[k].is_cuda for k in ("mats", "rank", "view_valid")),
+          "the step's K3b call did not take the forward's operands on the card")
+    torch.cuda.set_sync_debug_mode("error")  # the backward's call waits for nothing on the host
+    try:
+        projection.fuse_views_backward_cuda(**training)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    res["k3b_err"], res["k3b_plain_ms"], _ = _k3b_case("the training step's batched call", training)
     for name, case in k3b_edge_cases(training, rng):
         res["k3b_err"] = max(res["k3b_err"], _k3b_case(name, case)[0])
     room = k3b_room_case(dev, rng)
     err, room_plain_ms, _ = _k3b_case("a 32-view room, exact zeros and plateaus", room)
     res["k3b_err"] = max(res["k3b_err"], err)
 
-    # time, bound, repeatability on the training call and the room
+    # time, host time, bound, the two passes, repeatability on the training call and the room
     res["k3b_times"] = {}
     for case, args in (("training call", training), ("32-view room", room)):
+        if case == "32-view room":  # the wrapper's own operands, then the forward's, as the step gives them
+            args = dict(args, **dict(zip(("mats", "view_valid", "rank"), projection.batch_operands(
+                args["poses"], args["world_to_grid"], args["view_valid"], *args["feats2d"].shape[:2], dev))))
         call = lambda: projection.fuse_views_backward_cuda(**args)  # noqa: E731
         first, second = call(), call()
         torch.cuda.synchronize()
         same = torch.equal(first, second)
         del first, second
         ms = device_ms(call, 20)
-        host_ms = cuda_ms(call, 20)
+        events_ms = cuda_ms(call, 20)
+        wrapper_ms = host_ms(call, 20)
         split = k3b_kernel_split(call)
         bound, bound_by, nbytes, touched = k3b_bound(args)
-        full_cot = int(np.prod(args["volume_dims"])) * args["feats2d"].shape[-1] * 4
+        full_cot = int(np.prod(args["grad_out"].shape)) * 4
         plain = res["k3b_plain_ms"] if case == "training call" else room_plain_ms
-        res["k3b_times"][case] = {"ms": ms, "ms_with_host": host_ms, "bound_ms": bound, "bound_by": bound_by,
-                                  "plain_ms": plain, "us_by_kernel": split, "launches_equal": same,
-                                  "touched_voxels": touched}
-        log(f"[10] K3b on the {case} ({tuple(args['feats2d'].shape)} float32 from {tuple(args['grad_out'].shape)}): "
-            f"{ms:.5f} ms device time of the wrapper's kernels (20 calls queued behind a device sleep: the "
-            f"gradient's zero fill, the rank, K3b); {host_ms:.5f} ms the median of CUDA events around each call, "
-            f"its host work included; us by kernel "
+        res["k3b_times"][case] = {"ms": ms, "ms_events": events_ms, "host_ms": wrapper_ms, "bound_ms": bound,
+                                  "bound_by": bound_by, "bound_share": bound / ms, "plain_ms": plain,
+                                  "us_by_kernel": split, "launches_equal": same, "touched_voxels": touched}
+        log(f"[10] K3b on the {case} ({tuple(args['feats2d'].shape)} float32 from {tuple(args['grad_out'].shape)}, "
+            f"one call): {ms:.5f} ms device time (20 calls queued behind a device sleep: the memset of the list's "
+            f"length and bitmap, pass 1, pass 2); {events_ms:.5f} ms the median of CUDA events around each call; the wrapper's host "
+            f"time {wrapper_ms:.5f} ms (the host's clock around the call); us by kernel "
             f"{ {k: round(v, 2) for k, v in split.items()} if split else 'not captured'}; plain {plain:.1f} ms, "
             f"bound {bound:.5f} ms by {bound_by} ({nbytes:,} B: the cotangent rows of the {touched:,} voxels some "
             f"view accepts, features read and gradient written, depths; the whole cotangent would add "
             f"{(full_cot - touched * args['feats2d'].shape[-1] * 4) / HBM_BYTES_PER_S * 1e3:.5f} ms), "
-            f"{bound / ms:.3f} of it; two launches torch.equal: {same}; calls per training step "
+            f"{bound / ms:.3f} of it; two launches torch.equal: {same}; K3b launches per training step "
             f"{per_step['fuse_views_backward_cuda']:.0f} [{CARD}]")
     train_call = res["k3b_times"]["training call"]
     res["k3b_ms"], res["k3b_bound_ms"], res["k3b_bound_by"] = (train_call["ms"], train_call["bound_ms"],

@@ -9,13 +9,20 @@ voxel, an invalid view among tied ones, voxels no view accepts and negative
 features. The cameras are axis-aligned and the grid's scale a power of two,
 so both packages' matrices, and with them every accept decision, are exact;
 the tolerance, 1e-5 of the largest gradient, covers the order of the float32
-sums (JAX contracts a one-hot matrix, the port scatter-adds). (b) K3b's walk
-order emulated (two walks per voxel over the brick's candidates from the
-shared cull, the valid views the cull drops counted as zeros at their place)
-against the plain gradient, on cameras standing inside the grid, where the
-cull drops views that tie at 0. (c) What ``fuse_views`` refuses and takes
+sums (JAX contracts a one-hot matrix, the port scatter-adds). (b) The
+batched fusion the train step runs (``fuse_views_batch``, one K3b call for
+the batch on the card): its plain forward is each sample's, its gradient
+each sample's ``jax.vjp`` (a sample with no valid view among them). (c)
+K3b's two passes emulated (pass 1's pixel slabs, pass 2's held rows, the
+valid views that do not accept a voxel counted as zeros at their place)
+against the plain gradient, on cameras standing inside the grid, where K3's
+cull drops views that tie at 0; pass 1's slabs held against every
+accepting (voxel, view) pair. (d) What ``fuse_views`` refuses and takes
 under autograd. Inputs come from numpy seeds.
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -144,7 +151,101 @@ def test_autograd_function_is_the_plain_pair_on_the_cpu():
         P.fuse_views(f.bfloat16(), *args, zero_floor=True)
 
 
-# --- K3b's walk order, emulated ------------------------------------------------------
+# --- the batched fusion ----------------------------------------------------------------
+
+# pairs of samples: different view_valid in each, and a sample with every view invalid
+BATCHES = {"ties_and_zeros": [("duplicated_views", [True, True, True, False, True, True]),
+                              ("exact_zeros", [True, False, True, True, True, False])],
+           "one_sample_without_views": [("invalid_view_among_ties", None), ("tie_free", [False] * 6)]}
+
+
+def _batch(name):
+    """(feats (2, V, H, W, C), depths, poses (2, V, 4, 4), world_to_grid (2, 4, 4), view_valid (2, V))."""
+    parts = []
+    for case, valid in BATCHES[name]:
+        feats, depths, poses, v = _case(case)
+        parts.append((feats, depths, poses, v if valid is None else np.asarray(valid)))
+    feats, depths, poses, valid = (np.stack(x) for x in zip(*parts))
+    return feats, depths, poses, np.tile(W2G, (2, 1, 1)), valid
+
+
+def test_view_matrices_of_a_batch_are_each_samples():
+    """One ``view_matrices`` call on a batch (the forward's one host op)
+    gives each sample's matrices bit for bit, so K3 and its plain version
+    read the same floats."""
+    rng = np.random.RandomState(3)
+    poses = np.asarray([[chip_smoke.camera_pose(rng.uniform(0, 5, 3), rng.uniform(0, 360), rng.uniform(-20, 20))
+                         for _ in range(5)] for _ in range(3)], np.float32)
+    w2g = np.asarray([np.diag([1 / 0.047, 1 / 0.047, 1 / 0.047, 1.0]) for _ in range(3)], np.float32)
+    w2g[:, :3, 3] = rng.uniform(-40, 40, (3, 3))
+    got = P.view_matrices(poses, w2g)
+    assert got.shape == (3, 5, 3, 4)
+    for i in range(3):
+        assert torch.equal(got[i], P.view_matrices(poses[i], w2g[i]))
+
+
+@pytest.mark.parametrize("name", sorted(BATCHES))
+def test_batched_plain_forward_is_each_sample_plain(name):
+    """``fuse_views_batch`` on CPU features (no gradient, and with one): each
+    sample's ``fuse_views_plain``, bit for bit."""
+    feats, depths, poses, w2g, valid = _batch(name)
+    f, d, vv = torch.from_numpy(feats), torch.from_numpy(depths), torch.from_numpy(valid)
+    want = torch.stack([P.fuse_views_plain(f[i], d[i], poses[i], w2g[i], K, GRID, DMIN, DMAX, VOX, view_valid=vv[i])
+                        for i in range(2)])
+    assert torch.equal(P.fuse_views_batch(f, d, poses, w2g, K, GRID, DMIN, DMAX, VOX, view_valid=vv), want)
+    got = P.fuse_views_batch(f.clone().requires_grad_(True), d, poses, w2g, K, GRID, DMIN, DMAX, VOX, view_valid=vv)
+    assert torch.equal(got.detach(), want) and bool((want[0] != 0).any())
+    if name == "one_sample_without_views":
+        assert not want[1].any()
+
+
+@pytest.mark.parametrize("name", sorted(BATCHES))
+def test_batched_plain_gradient_matches_jax_vjp(name):
+    """The batched plain gradient, and the batched autograd function's on the
+    CPU, against ``jax.vjp`` of the JAX ``fuse_views`` per sample, stacked,
+    to 1e-6 of the largest gradient: different view_valid in each sample,
+    ties, zeros, and a sample with every view invalid (no gradient)."""
+    feats, depths, poses, w2g, valid = _batch(name)
+    g = np.random.RandomState(4).randn(2, *GRID, C).astype(np.float32)
+    want = np.stack([jax_vjp(feats[i], depths[i], poses[i], valid[i], g[i])[1] for i in range(2)])
+    args = (torch.from_numpy(feats), torch.from_numpy(depths), poses, w2g, K, GRID, DMIN, DMAX, VOX)
+    vv = torch.from_numpy(valid)
+    got = P.fuse_views_backward_batch_plain(torch.from_numpy(g), *args, view_valid=vv).numpy()
+    tol = 1e-6 * np.abs(want).max()
+    assert np.abs(want[0]).max() > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    f = args[0].clone().requires_grad_(True)
+    (d,) = torch.autograd.grad(P.fuse_views_batch(f, *args[1:], view_valid=vv), f, torch.from_numpy(g))
+    np.testing.assert_allclose(d.numpy(), want, rtol=0, atol=tol)
+    if name == "one_sample_without_views":
+        assert not want[1].any() and not got[1].any()
+
+
+def test_color_projector_batch_is_the_plain_pair_on_the_cpu():
+    """``ColorProjector.project_batch`` (the train step's call) on the CPU:
+    the plain forward per sample, and its gradient the plain backward per
+    sample (up to the order of the CPU's float32 sums); bf16 features that
+    need a gradient raise."""
+    from tpu3dsis_torch.models.color import ColorProjector
+
+    cfg = chip_smoke.scannet_color_scene_config()
+    proj = ColorProjector(cfg, None)
+    proj.intrinsic, proj.depth_min, proj.depth_max, proj.voxel_size = K, DMIN, DMAX, VOX
+    feats, depths, poses, w2g, valid = _batch("ties_and_zeros")
+    f = torch.from_numpy(feats).requires_grad_(True)
+    d, vv = torch.from_numpy(depths), torch.from_numpy(valid)
+    out = proj.project_batch(f, d, poses, w2g, GRID, view_valid=vv)
+    assert torch.equal(out.detach(), P.fuse_views_batch(f.detach(), d, poses, w2g, K, GRID, DMIN, DMAX, VOX,
+                                                        view_valid=vv))
+    g = torch.from_numpy(np.random.RandomState(5).randn(2, *GRID, C).astype(np.float32))
+    (dx,) = torch.autograd.grad(out, f, g)
+    want = P.fuse_views_backward_batch_plain(g, f.detach(), d, poses, w2g, K, GRID, DMIN, DMAX, VOX, view_valid=vv)
+    torch.testing.assert_close(dx, want, rtol=0, atol=1e-6 * float(want.abs().max()))
+    with pytest.raises(ValueError, match="float32"):
+        proj.project_batch(f.detach().bfloat16().requires_grad_(True), d, poses, w2g, GRID, view_valid=vv)
+
+
+# --- K3b's two passes, emulated ----------------------------------------------------
 
 EK = np.asarray(chip_smoke.scannet_color_scene_config().INTRINSIC, np.float32)  # 60-degree pinhole at 41x32
 EW, EH = 41, 32
@@ -159,16 +260,74 @@ def _brick_ids(dims):
     return (x * nb[1] + y) * nb[2] + z
 
 
-def k3b_emulated(grad_out, feats, depths, poses, w2g, dims, view_valid, count_culled=True):
-    """K3b's algorithm on the CPU: per voxel, the candidates its brick keeps
-    (``brick_view_candidates_plain``); a first walk over the accepting ones
-    in view order for the largest feature and its count; the valid views
-    that do not accept the voxel, culled ones included, give m and t their
-    zeros; a second walk gives each accepting candidate equal to m its
-    staged share, its place counting the zeros before it (the valid views
-    before it less the accepting candidates before it). With
-    ``count_culled`` False the culled views are left out of the order (a
-    wrong K3b, to show the test can tell)."""
+_K3B_SRC = (Path(P.__file__).resolve().parents[1] / "csrc" / "fuse_views_bwd.cu").read_text()
+
+
+def _k3b_const(name):
+    return float(re.search(rf"constexpr (?:int|float) {name} = ([0-9.e+-]+)f?;", _K3B_SRC).group(1))
+
+
+KROWS = int(_k3b_const("kRows"))
+CAM_ERROR, PIXEL_SLACK, GRID_SLACK = (np.float32(_k3b_const(n)) for n in ("kCamError", "kPixelSlack", "kGridSlack"))
+
+
+def slab_boxes(mats, depths, valid, dims, depth_min, voxel_size, intrinsic=EK, depth_max=DMAX):
+    """K3b pass 1's box of each (view, pixel) in float32, as the kernel forms
+    it (its margins read from its source): (V, H * W, 3) first and last voxel, empty (first > last) where the
+    view is invalid or the pixel's depth is out of range. The camera-to-grid
+    map is the adjugate of the matrix's 3x3 over its determinant."""
+    v, h, w = depths.shape
+    fx, fy, cx, cy = P._intrinsics(intrinsic)
+    m = mats.reshape(v, 12)
+    a = torch.stack([m[:, 5] * m[:, 10] - m[:, 6] * m[:, 9], m[:, 2] * m[:, 9] - m[:, 1] * m[:, 10],
+                     m[:, 1] * m[:, 6] - m[:, 2] * m[:, 5], m[:, 6] * m[:, 8] - m[:, 4] * m[:, 10],
+                     m[:, 0] * m[:, 10] - m[:, 2] * m[:, 8], m[:, 2] * m[:, 4] - m[:, 0] * m[:, 6],
+                     m[:, 4] * m[:, 9] - m[:, 5] * m[:, 8], m[:, 1] * m[:, 8] - m[:, 0] * m[:, 9],
+                     m[:, 0] * m[:, 5] - m[:, 1] * m[:, 4]], 1)
+    det = m[:, 0] * a[:, 0] + m[:, 1] * a[:, 3] + m[:, 2] * a[:, 6]
+    inv = (a / det[:, None]).reshape(v, 1, 3, 3)
+    d = depths.reshape(v, -1)
+    eps, foot = np.float32(P.CULL_EPS), np.float32(P.FOOTPRINT_Z)
+    z0 = torch.clamp((d - np.float32(voxel_size)) - eps, min=0.0)
+    z1 = (d + np.float32(voxel_size)) + eps
+    u0, v0 = (torch.arange(h * w) % w).float(), (torch.arange(h * w) // w).float()
+    near = ~(z0 > foot)
+    slack = PIXEL_SLACK + torch.where(near, 0.0, CAM_ERROR * torch.maximum(fx, fy) / z0)
+    ulo = torch.where(near, -0.5, u0 - 0.5) - slack
+    uhi = torch.where(near, w - 0.5, u0 + 0.5) + slack
+    vlo = torch.where(near, -0.5, v0 - 0.5) - slack
+    vhi = torch.where(near, h - 0.5, v0 + 0.5) + slack
+    lo, hi = torch.full((v, h * w, 3), torch.inf), torch.full((v, h * w, 3), -torch.inf)
+    for i in range(8):
+        zc = z1 if i & 4 else z0
+        c = torch.stack([((uhi if i & 1 else ulo) - cx) / fx * zc - m[:, 3:4],
+                         ((vhi if i & 2 else vlo) - cy) / fy * zc - m[:, 7:8], zc - m[:, 11:12]], -1)
+        g = (inv[..., 0] * c[..., 0:1] + inv[..., 1] * c[..., 1:2]) + inv[..., 2] * c[..., 2:3]
+        lo, hi = torch.minimum(lo, g), torch.maximum(hi, g)
+    top = torch.tensor(dims, dtype=torch.float32) - 1
+    first = torch.clamp(torch.ceil(lo - GRID_SLACK), min=0)
+    last = torch.minimum(torch.floor(hi + GRID_SLACK), top)
+    live = valid[:, None] & (d >= depth_min) & (d <= depth_max)
+    return torch.where(live[..., None], first, 1.0), torch.where(live[..., None], last, 0.0)
+
+
+def k3b_emulated(grad_out, feats, depths, poses, w2g, dims, view_valid, count_culled=True, rows_held=KROWS):
+    """K3b's two passes on the CPU, for one sample (C a multiple of 4: a
+    lane holds 4 channels). Pass 1: a voxel is listed when it accepts a
+    valid view at a pixel whose slab box (``slab_boxes``) holds it. Pass 2,
+    per listed voxel: the predicate of every valid view; the accepting
+    views' rows read ``rows_held`` at a time, in view order, into the
+    largest value and its count (a row that meets or raises a lane's running
+    max marks itself); the valid views that do not accept the voxel give m
+    and t their zeros; then each accepting view equal to m takes its staged
+    share, its place counting the zeros before it (the valid views before it
+    less the accepting views before it), from the rows still held, or, for
+    earlier rounds, from the marked rows read again (the unmarked ones
+    skipped). Returns (gradient, K3's cull, voxels tied at 0 in a brick
+    whose cull dropped a valid view, row reads, accepting pairs, rows of
+    earlier rounds). With ``count_culled`` False the views K3's cull drops
+    for the voxel's brick are left out of the zero count (a wrong K3b, to
+    show the test can tell)."""
     v, h, w, c = feats.shape
     keep = P.brick_view_candidates_plain(depths, poses, w2g, EK, dims, DMIN, DMAX, EVOX, view_valid=view_valid)
     bid = _brick_ids(dims)
@@ -177,60 +336,124 @@ def k3b_emulated(grad_out, feats, depths, poses, w2g, dims, view_valid, count_cu
     t32 = torch.tensor
     g = torch.meshgrid(*(torch.arange(n, dtype=torch.float32) for n in dims), indexing="ij")
     coords = tuple(t.reshape(-1) for t in g)
-    n = coords[0].numel()
-    flat = feats.reshape(v, h * w, c)
-    # the views that take part in each voxel's order, and how many come before each
-    order = view_valid[None, :] & (keep[bid] if not count_culled else True)
-    rank = torch.cumsum(order.long(), 1) - order.long()
-    n_valid = order.sum(1)
-    acc, rows, pixs = [], [], []
+    grid = torch.stack(coords, 1)
+    first, last = slab_boxes(mats, depths, view_valid, dims, DMIN, EVOX)
+    acc, pixs, listed = [], [], torch.zeros(grid.shape[0], dtype=torch.bool)
     for i in range(v):
         a, pix = P._project(mats[i], depths[i], fx, fy, cx, cy, coords, t32(DMIN), t32(DMAX), t32(EVOX))
-        kept = keep[bid, i]
-        if view_valid[i]:  # an invalid view is no candidate anywhere
-            assert not bool((a & ~kept).any()), "the cull dropped an accepting pair"
-        acc.append(a & kept)
-        rows.append(flat[i][pix])
+        a = a & bool(view_valid[i])
+        listed |= a & ((grid >= first[i][pix]) & (grid <= last[i][pix])).all(1)
+        acc.append(a)
         pixs.append(pix)
-    # first walk
+    acc, pixs = torch.stack(acc, 1), torch.stack(pixs, 1)  # (voxels, V): pass 2's predicate
+    assert not bool((acc & ~keep[bid]).any()), "K3's cull dropped an accepting pair"
+    assert torch.equal(listed, acc.any(1)), "a pixel's slab box missed a voxel that accepts there"
+    idx = torch.nonzero(listed).flatten()
+    acc, pixs, culled = acc[idx], pixs[idx], ~keep[bid[idx]] & view_valid[None, :]
+    n = idx.numel()
+    counted = view_valid[None, :].expand(n, v) & (True if count_culled else ~culled)  # the zero count's views
+    rank = torch.cumsum(counted.long(), 1) - counted.long()
+    n_acc = acc.sum(1)
+    # the accepting views of each voxel, in view order, then the rest
+    order = torch.sort((~acc).long(), dim=1, stable=True).indices
+    views = torch.gather(torch.arange(v).expand(n, v), 1, order)
+    pix = torch.gather(pixs, 1, order)
+    zb = torch.gather(rank, 1, order) - torch.arange(v)  # zeros before the j-th accepting view
+    flat = feats.reshape(v, h * w, c)
+    lanes = c // 4
+    reads = 0
+
+    def read(j, who):
+        nonlocal reads
+        reads += int(who.sum())
+        return torch.where(who[:, None], flat[views[:, j], pix[:, j]], torch.nan)
+
     mx = torch.full((n, c), -torch.inf)
     cnt = torch.zeros((n, c), dtype=torch.int64)
-    n_acc = torch.zeros(n, dtype=torch.int64)
-    for i in range(v):
-        a = acc[i][:, None]
-        f = rows[i]
-        up, eq = a & (f > mx), a & (f == mx)
+    met = torch.zeros((n, v, lanes), dtype=torch.bool)
+    held = torch.div(n_acc - 1, rows_held, rounding_mode="floor").clamp(min=0) * rows_held  # first row still held
+    rows = []
+    for j in range(v):
+        live = j < n_acc
+        rows.append(read(j, live))
+        f = rows[j]
+        up, eq = f > mx, f == mx
+        met[:, j] = (up | eq).reshape(n, lanes, 4).any(-1)
         cnt = torch.where(up, 1, torch.where(eq, cnt + 1, cnt))
         mx = torch.where(up, f, mx)
-        n_acc += acc[i]
-    n_zero = (n_valid - n_acc)[:, None]
+    n_zero = (counted.sum(1) - n_acc)[:, None]
     m = torch.where((n_zero > 0) & (mx < 0), 0.0, mx)
     t = torch.where((n_zero > 0) & (mx < 0), n_zero, torch.where((n_zero > 0) & (mx == 0), cnt + n_zero, cnt))
-    # second walk
     out = torch.zeros((v, h * w, c))
-    gr = grad_out.reshape(n, c)
+    gr = grad_out.reshape(-1, c)[idx]
     tied = torch.zeros((n, c), dtype=torch.int64)
-    acc_before = torch.zeros(n, dtype=torch.int64)
-    for i in range(v):
-        a = acc[i]
-        hit = a[:, None] & (rows[i] == m)
-        zeros_before = (rank[:, i] - acc_before)[:, None]
-        place = 1 + tied + torch.where(m == 0, zeros_before, 0)
+    for j in range(v):
+        live = j < n_acc
+        still = live & (j >= held)
+        again = live & (j < held) & (met[:, j].any(1) if j < 64 else True)
+        f = torch.where(still[:, None], rows[j], torch.nan)  # the last round's rows, still in registers
+        if bool(again.any()):
+            reloaded = read(j, again)
+            f = torch.where(again[:, None], reloaded, f)
+        hit = f == m
+        place = 1 + tied + torch.where(m == 0, zb[:, j, None], 0)
         e = torch.where(place == 1, t - 1, t - place + 1)
         share = torch.where(hit, torch.ldexp(gr, -e.float()), 0.0)
-        out[i].index_add_(0, pixs[i], share)
+        out.view(-1, c).index_add_(0, views[:, j] * h * w + pix[:, j], share)
         tied += hit
-        acc_before += a
-    return out.reshape(v, h, w, c), keep, (m == 0) & (mx == 0) & (n_zero > 0)
+    culled_any = culled.any(1)
+    zero_ties = ((m == 0) & (mx == 0) & (n_zero > 0)).any(1) & culled_any
+    return out.reshape(v, h, w, c), keep, int(zero_ties.sum()), reads, int(n_acc.sum()), int(held.sum())
 
 
+@pytest.mark.parametrize("depth_min", [0.0, DMIN])
+def test_k3b_pixel_slabs_hold_every_accepting_voxel(depth_min):
+    """Every (voxel, view) pair that accepts lies in the slab box of its
+    pixel, the box K3b's pass 1 searches: cameras inside the grid at random
+    angles, depths down to 2 cm, and with depth_min 0 the slabs that start
+    within FOOTPRINT_Z of the camera (the whole image's there)."""
+    rng = np.random.RandomState(int(depth_min * 10) + 5)
+    v = 8
+    ext = np.asarray(EDIMS) * EVOX
+    poses = np.asarray([chip_smoke.camera_pose(rng.uniform(0.1, 0.9, 3) * ext, rng.uniform(0, 360),
+                                               rng.uniform(-60, 60)) for _ in range(v)], np.float32)
+    w2g = np.diag([1 / EVOX] * 3 + [1.0]).astype(np.float32)
+    w2g[:3, 3] = rng.uniform(-0.5, 0.5, 3)
+    depths = rng.uniform(0.02, 3.0, (v, EH, EW)).astype(np.float32)
+    depths[::2] = rng.uniform(0.02, 0.3, (v // 2, EH, EW))  # every other view sees a wall at arm's length
+    depths = torch.from_numpy(depths)
+    valid = torch.ones(v, dtype=torch.bool)
+    mats = P.view_matrices(poses, w2g)
+    fx, fy, cx, cy = P._intrinsics(EK)
+    g = torch.meshgrid(*(torch.arange(n, dtype=torch.float32) for n in EDIMS), indexing="ij")
+    coords = tuple(t.reshape(-1) for t in g)
+    grid = torch.stack(coords, 1)
+    first, last = slab_boxes(mats, depths, valid, EDIMS, depth_min, EVOX)
+    pairs = near = 0
+    for i in range(v):
+        a, pix = P._project(mats[i], depths[i], fx, fy, cx, cy, coords, torch.tensor(depth_min),
+                            torch.tensor(DMAX), torch.tensor(EVOX))
+        inside = ((grid >= first[i][pix]) & (grid <= last[i][pix])).all(1)
+        assert not bool((a & ~inside).any()), f"view {i}: an accepting voxel outside its pixel's slab"
+        pairs += int(a.sum())
+        near += int((a & (depths[i].reshape(-1)[pix] - EVOX - P.CULL_EPS <= P.FOOTPRINT_Z)).sum())
+    sizes = (last - first + 1).clamp(min=0).prod(-1)
+    assert pairs > 100 and float(sizes[sizes > 0].float().mean()) < 50  # a few voxels a pixel, not the grid
+    if depth_min == 0.0:
+        assert near > 0  # slabs that reach the camera plane were exercised
+
+
+@pytest.mark.parametrize("rows_held", [KROWS, 1])
 @pytest.mark.parametrize("case", ["plateaus", "negative", "invalid_views"])
-def test_k3b_algorithm_matches_plain_gradient(case):
-    """The emulated walk == ``fuse_views_backward_plain`` within 1e-5 of the
-    largest gradient (the order of the sums), on cameras inside the grid with
-    exact-zero and plateau features; it exercises ties at 0 between views that
-    accept a voxel with a 0 feature and views the cull drops for its brick,
-    and counting those views is what makes it right."""
+def test_k3b_algorithm_matches_plain_gradient(case, rows_held):
+    """The emulated passes == ``fuse_views_backward_plain`` within 1e-5 of
+    the largest gradient (the order of the sums), on cameras inside the grid
+    with exact-zero and plateau features; it exercises ties at 0 between
+    views that accept a voxel with a 0 feature and views K3's cull drops for
+    its brick, and counting those views is what makes it right. Each
+    accepting view's row is read once, and again only where a voxel has more
+    accepting views than the rows held (1 row held: many) and its row met or
+    raised the running max."""
     rng = np.random.RandomState(sum(map(ord, case)))
     v = 6
     ext = np.asarray(EDIMS) * EVOX
@@ -247,12 +470,15 @@ def test_k3b_algorithm_matches_plain_gradient(case):
     feats = torch.from_numpy(feats.astype(np.float32))
     g = torch.from_numpy(rng.randn(*EDIMS, 4).astype(np.float32))
     want = P.fuse_views_backward_plain(g, feats, depths, poses, w2g, EK, EDIMS, DMIN, DMAX, EVOX, view_valid=valid)
-    got, keep, zero_ties = k3b_emulated(g, feats, depths, poses, w2g, EDIMS, valid)
+    got, keep, zero_ties, reads, accepted, earlier = k3b_emulated(g, feats, depths, poses, w2g, EDIMS, valid,
+                                                         rows_held=rows_held)
     assert float(want.abs().max()) > 0
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
     # not vacuous: voxels tie at 0 in bricks that culled a valid view
-    culled_somewhere = (~keep[:, valid]).any(1)[_brick_ids(EDIMS)]
-    assert int((zero_ties.any(1) & culled_somewhere).sum()) > 10
-    # and those culled views matter: leaving them out of the order is wrong
-    wrong, _, _ = k3b_emulated(g, feats, depths, poses, w2g, EDIMS, valid, count_culled=False)
+    assert zero_ties > 10
+    # each accepting view's row read once, and again only in an earlier round's marked rows
+    assert accepted <= reads <= accepted + earlier and (reads > accepted) == (earlier > 0)
+    assert earlier > 0 or rows_held == KROWS
+    # and those culled views matter: leaving them out of the zero count is wrong
+    wrong = k3b_emulated(g, feats, depths, poses, w2g, EDIMS, valid, count_culled=False, rows_held=rows_held)[0]
     assert float((wrong - want).abs().max()) > 1e-3 * float(want.abs().max())

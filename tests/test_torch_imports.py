@@ -242,11 +242,14 @@ def test_kernels_match_plain_versions_on_the_card():
             torch.cuda.synchronize()
             want = projection.fuse_views_plain(*args)
             assert bool((want != 0).any()) and torch.equal(got, want)
-    # K3b on the same views, float32: within 1e-5 of the largest gradient (a pixel's shares are
-    # summed by float32 atomics, in another order than the plain version's)
-    g = torch.from_numpy(rng.randn(40, 40, 40, 128).astype(np.float32)).to(dev)
-    args = (g, feats, depths, poses, w2g, intrinsic, (40, 40, 40), 0.1, 4.0, 0.1, valid)
+    # K3b on the same views, float32, a batch of two samples (the second with other valid views):
+    # within 1e-5 of the largest gradient (a pixel's shares are summed by float32 atomics, in
+    # another order than the plain version's)
+    g = torch.from_numpy(rng.randn(2, 40, 40, 40, 128).astype(np.float32)).to(dev)
+    valid2 = torch.stack([valid, torch.from_numpy(np.arange(12) % 3 != 0).to(dev)])
+    args = (g, torch.stack([feats, feats.flip(0)]), torch.stack([depths, depths.flip(0)]),
+            np.stack([poses, poses[::-1]]), np.stack([w2g, w2g]), intrinsic, (40, 40, 40), 0.1, 4.0, 0.1, valid2)
     got = projection.fuse_views_backward_cuda(*args)
     torch.cuda.synchronize()
-    want = projection.fuse_views_backward_plain(*args)
-    assert bool((want != 0).any()) and (got - want).abs().max() <= 1e-5 * want.abs().max()
+    want = projection.fuse_views_backward_batch_plain(*args)
+    assert bool((want[1] != 0).any()) and (got - want).abs().max() <= 1e-5 * want.abs().max()

@@ -1,55 +1,73 @@
 // K3b: the backward of K3 (multi-view back-projection with a running max)
-// for Hopper (sm_90a).
+// for Hopper (sm_90a), for a batch of samples in one call.
 //
 // Replaces the gradient of tpu3dsis/geometry/projection.py::fuse_views that
 // the JAX package takes when the ENet trains (FIX_ENET False): its custom VJP
 // _onehot_row_gather_bwd (projection.py:173-213, a scatter-add of voxel
 // cotangents into pixel rows) under autodiff of the view scan's running max
-// (:452-454) and of the -inf -> 0 fill (:499). One sample, float32, with
-// view_valid and without zero_floor.
+// (:452-454) and of the -inf -> 0 fill (:499). Float32, with view_valid and
+// without zero_floor; each sample's views fuse into its own volume.
 //
-// Semantics, per voxel p and channel c: walk the valid views in order; x_v
-// is the view's feature at its accepted pixel, or 0 where the view does not
-// accept the voxel (a view K3's cull drops for the voxel's brick included);
-// m is the final max and t the number of views with x_v == m. The scan's
-// max splits a tie 0.5 / 0.5 at each step (jnp.maximum, torch.maximum), so
-// the cotangent g[p, c] reaches the first of those views (the one that
-// raised the carry to m) with weight 0.5^(t-1) and the j-th, j >= 2, with
-// 0.5^(t-j+1) (for t = 3: 0.25, 0.25, 0.5). A share is added to
-// dF[v, pix, c] only where view v accepted the voxel; one that lands on a
-// non-accepting view's 0 is lost. A voxel that no valid view accepts sends
-// nothing (every x_v is a constant 0, or no view was valid and the fill
-// took the -inf). Invalid views take no part. A NaN feature is not
-// differentiated (no x_v equals a NaN m).
+// Semantics, per sample, voxel p and channel c: walk the valid views in
+// order; x_v is the view's feature at its accepted pixel, or 0 where the
+// view does not accept the voxel; m is the final max and t the number of
+// views with x_v == m. The scan's max splits a tie 0.5 / 0.5 at each step
+// (jnp.maximum, torch.maximum), so the cotangent g[p, c] reaches the first
+// of those views (the one that raised the carry to m) with weight 0.5^(t-1)
+// and the j-th, j >= 2, with 0.5^(t-j+1) (for t = 3: 0.25, 0.25, 0.5). A
+// share is added to dF[v, pix, c] only where view v accepted the voxel; one
+// that lands on a non-accepting view's 0 is lost. A voxel that no valid
+// view accepts sends nothing (every x_v is a constant 0, or no view was
+// valid and the fill took the -inf). Invalid views take no part. A NaN
+// feature is not differentiated (no x_v equals a NaN m). Accept and pixel
+// are decided by K3's own code (fuse_views_common.cuh: project,
+// depth_accepts), so this differentiates K3's choices; K3's per-brick cull
+// only skips views that reject, so it changes no value.
 //
 // What bounds it on this card: bytes. The cotangent rows of the voxels that
 // some view accepts are read once (a view accepts a voxel only within one
-// voxel of the surface it saw, so these are a few percent of the volume),
-// the feature and depth maps (a few MB, held in L2 and read twice), and the
-// (V, H, W, C) float32 gradient is zeroed by the wrapper and added to.
+// voxel of the surface it saw, so these are a few percent of the volume or
+// less), the feature rows they take once, the depths, and the (B, V, H, W,
+// C) float32 gradient is written once (zeroed, then added to).
 //
-// Design: one launch, one block of 4 warps per K3 brick of 8 x 4 x 8 voxels.
-//  1. The brick's candidate views and, per x-slice of 32 voxels, the
-//     candidates that accept each voxel: fuse_views_common.cuh's cull and
-//     ballots, K3's own code, so accept and pixel are decided as K3 decided
-//     them. The fused max is recomputed, not saved.
-//  2. A warp walks the accepted voxels of its slice in turn, C / 32 channels
-//     a lane. First walk, over the voxel's accepting candidates in view
-//     order (each lane of the warp computes one candidate's pixel once more,
-//     then the warp reads the candidates' feature rows, kBatch in flight):
-//     the largest feature and how many candidates attain it. The valid views
-//     that do not accept the voxel (culled or rejecting, n_valid - n_acc of
-//     them) each give a 0: with them the fused value m and the tie count t.
-//  3. Second walk, in the same order: a candidate whose feature equals m
-//     takes its staged share. Its place among the tied views counts the
-//     tied candidates before it and, where m == 0, the valid views before it
-//     that do not accept the voxel: valid_rank[v] (the valid views before
-//     view v) less the accepting candidates before it. The share g * 2^-e is
-//     exact; it goes to the gradient by a float32 atomicAdd, so a pixel's sum
-//     is taken in an order that can change from launch to launch.
+// What held the per-sample design (a block per K3 brick, a warp walking the
+// accepted voxels of its slices one at a time, twice) was its longest chain:
+// the accepted voxels sit on surfaces, so a few bricks hold most of them and
+// their warps ran tens of voxels x 2 walks of dependent loads while the rest
+// of the card idled. And finding the accepted voxels by projecting every
+// voxel into every view is itself the larger part of the work where the
+// depth maps are noisy and the cull keeps every view (the training step's
+// random depths: 8.8 M projections for 12,772 accepted voxels). So:
+//  1. Pass 1 zeroes the gradient (float4 stores spread over its blocks) and
+//     lists the accepted voxels from the pixels' side: a voxel can accept a
+//     view only at the pixel it projects to, within voxel_size of that
+//     pixel's depth, so 8 lanes per (sample, view, pixel) run the predicate
+//     on just the voxels of that pixel's slab (a few dozen) and keep those
+//     that accept there. A bitmap over the batch's voxels makes each listed
+//     once (sample * X*Y*Z + voxel, int32, one atomic a warp).
+//  2. Pass 2, launched as pass 1's programmatic dependent: a grid that fills
+//     the card once walks the list, its length read on the card, a voxel to
+//     a group of C / 4 lanes (float4 channels a lane; 1, 2 or 4 voxels a
+//     warp). The group decides the predicate of each valid view for its
+//     voxel, a view a lane, and keeps the accepting views' rows and their
+//     zeros-before in shared memory, in view order. It loads those rows
+//     kRows at a time, all in flight, into registers, and forms the max and
+//     its count per channel; the valid views that do not accept the voxel
+//     each give a 0, which sets m and t. Then each view whose value equals m
+//     takes its staged share g * 2^-e (exact), its place counting the tied
+//     views before it and, where m == 0, the valid views before it that do
+//     not accept the voxel (valid_rank[v] less the accepting views before
+//     it). Rows still in registers are not read again; of the earlier rounds
+//     (more than kRows accepting views) only the rows that met or raised the
+//     running max are reloaded. A lane adds its 4 channels' shares to the
+//     gradient by one float4 atomicAdd (0 where a channel does not tie: x +
+//     0 is x, and the gradient holds no -0), so a pixel's sum is taken in
+//     an order that can change from launch to launch.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 
 #include "fuse_views_common.cuh"
 
@@ -57,222 +75,418 @@ namespace {
 
 using namespace fuse_views_common;
 
-constexpr bool kCullViews = true;  // the cull (the probe's "no cull" copy sets it false)
-constexpr bool kScatter = true;    // the second walk (the probe's "first walk only" copy sets it false)
+constexpr bool kPass1 = true;      // the probe's "pass 2 only" copy reuses the list of the call before
+constexpr bool kPass2 = true;      // the probe's "pass 1 only" copy stops after the list
+constexpr bool kZeroOnly = false;  // the probe's "zero fill alone" copy
+// the probe's counting copy: pass 1 counts each listed voxel in its K3
+// brick, in the brick's warp of the per-sample design (x-slices w and w +
+// kWarps) and in its x-slice, into g_counts, read by
+// tpu3dsis_fuse_views_bwd_counts
+constexpr bool kCount = false;
+constexpr int kListThreads = 256;  // pass 1's block
+constexpr int kSlabLanes = 8;      // pass 1's lanes a pixel: a corner of its slab each, then its voxels in turn
+static_assert(kSlabLanes % 8 == 0 && 32 % kSlabLanes == 0, "a slab's 8 corners to a pixel's lanes");
+constexpr int kGradThreads = 128;  // pass 2's block
+constexpr int kRows = 4;           // feature rows a lane holds in registers
+// margins of a pixel's slab for float error: a voxel's camera coordinates
+// are off by a few ulps of their terms (about 1e-5 m for grids of hundreds of
+// voxels of centimetres; kCamError bounds it ten times over), which moves
+// its pixel by kCamError * f / z; kPixelSlack more pixels, and kGridSlack
+// voxels beyond the box of the slab's corners (their own error)
+constexpr float kCamError = 1e-4f;
+constexpr float kPixelSlack = 0.01f;
+constexpr float kGridSlack = 0.01f;
+constexpr int kCountSlots = kCount ? 1 << 15 : 1;  // bricks counted
+constexpr int kCountPer = 1 + kWarps + kBX;         // a brick's counts: in all, per warp, per slice
 
 long long g_launches = 0;
+__device__ unsigned g_counts[kCountSlots][kCountPer];
 
-// CPL consecutive float channels, one vector load
-template <int CPL>
-struct alignas(4 * CPL) Row {
-  float v[CPL];
-};
-
-template <int CPL>
-__global__ void __launch_bounds__(kThreads)
-fuse_views_bwd_kernel(const float* __restrict__ grad, const float* __restrict__ feats,
-                      const float* __restrict__ depths, const float* __restrict__ mats,
-                      const unsigned char* __restrict__ view_valid, const int* __restrict__ valid_rank, int V, int X,
-                      int Y, int Z, Intrinsics k, float* __restrict__ dfeats) {
-  constexpr int C = 32 * CPL;
-  extern __shared__ __align__(16) float s_mat[];  // candidate c's matrix float i at s_mat[i * V + c]
-  int* s_view = reinterpret_cast<int*>(s_mat + 12 * V);  // candidate c's view
-  // bit j of s_acc[w * V + c]: candidate c accepts voxel j of warp w's slice
-  unsigned* s_acc = reinterpret_cast<unsigned*>(s_view + V);
-  __shared__ CullScratch cs;
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int lo[3], hi[3];
-  brick_of(blockIdx.x, X, Y, Z, lo, hi);
-  const int hw = k.H * k.W;
-  const int n_valid = __ldg(valid_rank + V);
-
-  // 1. the candidates, in view order
-  bool culled;
-  const int ncand = cull_brick<kCullViews>(depths, mats, view_valid, V, lo, hi, k, s_mat, s_view, cs, culled);
-
-  for (int x = lo[0] + warp; x <= hi[0]; x += kWarps) {
-    unsigned todo = accept_ballots(depths, s_mat, s_view, V, ncand, x, lo, hi, k, s_acc + warp * V);
-    __syncwarp();
-    while (todo) {  // uniform: the slice's voxels that some candidate accepts, in turn
-      const int j = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int yj = lo[1] + j / kBZ, zj = lo[2] + j % kBZ;
-      const Row<CPL> g =
-          *reinterpret_cast<const Row<CPL>*>(grad + ((static_cast<long long>(x) * Y + yj) * Z + zj) * C + lane * CPL);
-
-      // 2. first walk: the largest accepted feature and how many attain it
-      float mx[CPL];
-      int cnt[CPL];
+// Pass 1: kSlabLanes lanes per (sample, view, pixel). A voxel accepts the
+// view at pixel p only if its rounded projection is p and its camera depth
+// lies within voxel_size of p's depth d: its centre lies in p's slab, the
+// pixel's square (widened for float error) between camera depths d -
+// voxel_size - kEps and d + voxel_size + kEps, or, where that starts nearer
+// than kFootprintZ, the whole image's. Each lane takes a corner of the slab
+// through the inverse of the view's matrix (the box is a bound, so its
+// divisions are reciprocals); the box of the 8 corners in the grid, widened
+// by kGridSlack, comes from shuffles. The lanes then run the predicate's own
+// code on the box's voxels in turn; the voxels that accept at p are marked
+// in a bitmap, and those marked first are appended to the list, one atomic
+// a warp. Every voxel some valid view accepts is listed once; no others.
+__global__ void __launch_bounds__(kListThreads)
+k3b_list_pass(const float* __restrict__ depths, const float* __restrict__ mats,
+              const unsigned char* __restrict__ view_valid, int B, int V, int X, int Y, int Z, Intrinsics k,
+              float4* __restrict__ dfeats, long long n4, int* __restrict__ list, int* __restrict__ scratch) {
+  asm volatile("griddepcontrol.launch_dependents;");  // pass 2 may start: it waits where it reads the list
+  for (long long i = static_cast<long long>(blockIdx.x) * kListThreads + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * kListThreads) {
+    dfeats[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  if (kZeroOnly) return;
+  const int lane = threadIdx.x & 31, part = lane % kSlabLanes, hw = k.H * k.W;
+  const long long pixel = (static_cast<long long>(blockIdx.x) * kListThreads + threadIdx.x) / kSlabLanes;
+  // no lane leaves early: the whole warp takes part in the shuffles and ballots
+  bool live = pixel < static_cast<long long>(B) * V * hw;
+  const int bv = live ? static_cast<int>(pixel / hw) : 0, p0 = live ? static_cast<int>(pixel % hw) : 0;
+  const float d0 = live ? __ldg(depths + pixel) : 0.0f;
+  live = live && __ldg(view_valid + bv) && d0 >= k.depth_min && d0 <= k.depth_max;
+  float m[12];
 #pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        mx[i] = -INFINITY;
-        cnt[i] = 0;
+  for (int i = 0; i < 12; ++i) m[i] = live ? __ldg(mats + bv * 12 + i) : 0.0f;
+  // camera to grid: g = R^-1 (c - t), R and t the matrix's 3x3 and last column
+  const float a00 = m[5] * m[10] - m[6] * m[9], a01 = m[2] * m[9] - m[1] * m[10], a02 = m[1] * m[6] - m[2] * m[5];
+  const float a10 = m[6] * m[8] - m[4] * m[10], a11 = m[0] * m[10] - m[2] * m[8], a12 = m[2] * m[4] - m[0] * m[6];
+  const float a20 = m[4] * m[9] - m[5] * m[8], a21 = m[1] * m[8] - m[0] * m[9], a22 = m[0] * m[5] - m[1] * m[4];
+  const float rdet = 1.0f / (m[0] * a00 + m[1] * a10 + m[2] * a20);
+  const float z0 = fmaxf((d0 - k.voxel_size) - kEps, 0.0f), z1 = (d0 + k.voxel_size) + kEps;
+  const bool near = !(z0 > kFootprintZ);
+  const float slack = kPixelSlack + (near ? 0.0f : kCamError * fmaxf(k.fx, k.fy) / z0);
+  const float u = part & 1 ? (near ? k.W - 0.5f : (p0 % k.W) + 0.5f) + slack
+                           : (near ? -0.5f : (p0 % k.W) - 0.5f) - slack;
+  const float v = part & 2 ? (near ? k.H - 0.5f : (p0 / k.W) + 0.5f) + slack
+                           : (near ? -0.5f : (p0 / k.W) - 0.5f) - slack;
+  const float zc = part & 4 ? z1 : z0;
+  const float c0 = (u - k.cx) * (1.0f / k.fx) * zc - m[3], c1 = (v - k.cy) * (1.0f / k.fy) * zc - m[7];
+  const float c2 = zc - m[11];
+  float lo[3] = {(a00 * c0 + a01 * c1 + a02 * c2) * rdet, (a10 * c0 + a11 * c1 + a12 * c2) * rdet,
+                 (a20 * c0 + a21 * c1 + a22 * c2) * rdet};
+  float hi[3] = {lo[0], lo[1], lo[2]};
+#pragma unroll
+  for (int o = 1; o < kSlabLanes; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      lo[r] = fminf(lo[r], __shfl_xor_sync(kFull, lo[r], o));
+      hi[r] = fmaxf(hi[r], __shfl_xor_sync(kFull, hi[r], o));
+    }
+  }
+  // the box's voxels, clamped to the grid (a corner that is not finite
+  // widens it to the whole grid)
+  const int dims[3] = {X, Y, Z};
+  int first[3], n[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float l = isfinite(lo[r]) ? fmaxf(ceilf(lo[r] - kGridSlack), 0.0f) : 0.0f;
+    const float h = isfinite(hi[r]) ? fminf(floorf(hi[r] + kGridSlack), dims[r] - 1.0f) : dims[r] - 1.0f;
+    first[r] = static_cast<int>(l);
+    n[r] = h >= l ? static_cast<int>(h) - first[r] + 1 : 0;
+  }
+  const int total = live ? n[0] * n[1] * n[2] : 0, xyz = X * Y * Z, b = bv / V;
+  unsigned* marked = reinterpret_cast<unsigned*>(scratch + 1);
+  const int rounds = static_cast<int>(__reduce_max_sync(kFull, (total + kSlabLanes - 1) / kSlabLanes));
+  for (int j = part; j < rounds * kSlabLanes; j += kSlabLanes) {  // uniform across the warp
+    bool fresh = false;
+    int vox = 0, x = 0;
+    if (j < total) {
+      const int z = first[2] + j % n[2], y = first[1] + (j / n[2]) % n[1];
+      x = first[0] + j / (n[2] * n[1]);
+      int pix;
+      float zv;
+      if (project(m, static_cast<float>(x), static_cast<float>(y), static_cast<float>(z), k, pix, zv) &&
+          pix == p0 && depth_accepts(d0, zv, k)) {
+        vox = b * xyz + (x * Y + y) * Z + z;
+        const unsigned bit = 1u << (vox & 31);
+        fresh = !(atomicOr(marked + (vox >> 5), bit) & bit);
       }
-      int n_acc = 0;
-      for (int c0 = 0; c0 < ncand; c0 += 32) {
-        const int c = c0 + lane;
-        const bool ok = c < ncand && (s_acc[warp * V + c] >> j & 1);
-        const int pix = ok ? candidate_pixel(s_mat, V, c, x, yj, zj, k) : 0;
-        unsigned acc_set = __ballot_sync(kFull, ok);
-        n_acc += __popc(acc_set);
-        while (acc_set) {  // uniform; lowest lane first, i.e. view order
-          Row<CPL> f[kBatch];
-          int n = 0;
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            if (acc_set) {
-              const int l = __ffs(acc_set) - 1;
-              acc_set &= acc_set - 1;
-              const int pl = __shfl_sync(kFull, pix, l);
-              f[u] = *reinterpret_cast<const Row<CPL>*>(
-                  feats + (static_cast<long long>(s_view[c0 + l]) * hw + pl) * C + lane * CPL);
-              n = u + 1;
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            if (u < n) {
-#pragma unroll
-              for (int i = 0; i < CPL; ++i) {
-                const float fv = f[u].v[i];
-                if (fv > mx[i]) {
-                  mx[i] = fv;
-                  cnt[i] = 1;
-                } else if (fv == mx[i]) {
-                  ++cnt[i];
-                }
-              }
-            }
-          }
-        }
-      }
-      // the fused value and its ties: each valid view that does not accept
-      // the voxel gives a 0
-      const int n_zero = n_valid - n_acc;
-      float m[CPL];
-      int t[CPL];
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) {
-        m[i] = mx[i];
-        t[i] = cnt[i];
-        if (n_zero > 0 && mx[i] < 0.0f) {
-          m[i] = 0.0f;
-          t[i] = n_zero;
-        } else if (n_zero > 0 && mx[i] == 0.0f) {
-          t[i] += n_zero;
-        }
-      }
-      if (!kScatter) {  // keep the first walk's result live, so it is not compiled away
-        if (t[0] < 0) dfeats[0] = m[0];
-        continue;
-      }
-
-      // 3. second walk: the staged shares of the candidates that attain m
-      int tied[CPL];
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) tied[i] = 0;
-      int acc_before = 0;
-      for (int c0 = 0; c0 < ncand; c0 += 32) {
-        const int c = c0 + lane;
-        const bool ok = c < ncand && (s_acc[warp * V + c] >> j & 1);
-        const int pix = ok ? candidate_pixel(s_mat, V, c, x, yj, zj, k) : 0;
-        unsigned acc_set = __ballot_sync(kFull, ok);
-        while (acc_set) {
-          Row<CPL> f[kBatch];
-          int vw[kBatch], pw[kBatch];
-          int n = 0;
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            if (acc_set) {
-              const int l = __ffs(acc_set) - 1;
-              acc_set &= acc_set - 1;
-              pw[u] = __shfl_sync(kFull, pix, l);
-              vw[u] = s_view[c0 + l];
-              f[u] = *reinterpret_cast<const Row<CPL>*>(feats + (static_cast<long long>(vw[u]) * hw + pw[u]) * C +
-                                                        lane * CPL);
-              n = u + 1;
-            }
-          }
-#pragma unroll
-          for (int u = 0; u < kBatch; ++u) {
-            if (u < n) {
-              // the valid views before this one that give the voxel a 0
-              const int zeros_before = __ldg(valid_rank + vw[u]) - acc_before;
-              float* dst = dfeats + (static_cast<long long>(vw[u]) * hw + pw[u]) * C + lane * CPL;
-#pragma unroll
-              for (int i = 0; i < CPL; ++i) {
-                if (f[u].v[i] == m[i]) {
-                  const int place = 1 + tied[i] + (m[i] == 0.0f ? zeros_before : 0);
-                  const int e = place == 1 ? t[i] - 1 : t[i] - place + 1;
-                  atomicAdd(dst + i, ldexpf(g.v[i], -e));
-                  ++tied[i];
-                }
-              }
-              ++acc_before;
-            }
-          }
+    }
+    const unsigned set = __ballot_sync(kFull, fresh);
+    if (set) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(scratch, __popc(set));
+      base = __shfl_sync(kFull, base, 0);
+      if (fresh) list[base + __popc(set & ((1u << lane) - 1))] = vox;
+      if (kCount && fresh) {
+        const int at = vox - b * xyz, zz = at % Z, yy = (at / Z) % Y;
+        const int nby = (Y + kBY - 1) / kBY, nbz = (Z + kBZ - 1) / kBZ;
+        const int slot = (b * ((X + kBX - 1) / kBX) + x / kBX) * nby * nbz + (yy / kBY) * nbz + zz / kBZ;
+        if (slot < kCountSlots) {
+          atomicAdd(&g_counts[slot][0], 1u);
+          atomicAdd(&g_counts[slot][1 + (x % kBX) % kWarps], 1u);
+          atomicAdd(&g_counts[slot][1 + kWarps + x % kBX], 1u);
         }
       }
     }
-    __syncwarp();  // the next slice rewrites s_acc
   }
 }
 
-// bytes of dynamic shared memory: the candidate list, 12 floats, an index
-// and a word of accepted voxels for each warp, a view (K3's)
-long long smem_bytes(int V) { return static_cast<long long>(V) * (13 + kWarps) * 4; }
+// Pass 2: G lanes a voxel, 4 channels a lane (C = 4 G).
+template <int G>
+__global__ void __launch_bounds__(kGradThreads)
+k3b_grad_pass(const float* __restrict__ grad, const float* __restrict__ feats, const float* __restrict__ depths,
+              const float* __restrict__ mats, const unsigned char* __restrict__ view_valid,
+              const int* __restrict__ valid_rank, int V, int X, int Y, int Z, Intrinsics k, const int* list,
+              const int* count, float* __restrict__ dfeats) {
+  constexpr int C = 4 * G, kGroups = kGradThreads / G;
+  // per group, the accepting views in view order: {v * H * W + pixel, the
+  // valid views before v that do not accept the voxel}
+  extern __shared__ int2 s_views[];
+  const int lane = threadIdx.x & 31, sub = lane % G, group = threadIdx.x / G;
+  const int lead = lane - sub;  // the group's first lane
+  const unsigned gmask = G == 32 ? kFull : ((1u << G) - 1) << lead;
+  int2* acc = s_views + group * V;
+  const int hw = k.H * k.W;
+  const int xyz = X * Y * Z;
 
-template <int CPL>
-cudaError_t launch(const void* grad, const void* feats, const void* depths, const void* mats, const void* view_valid,
-                   const void* valid_rank, int V, int X, int Y, int Z, const Intrinsics& k, void* dfeats,
-                   void* stream) {
-  const int smem = static_cast<int>(smem_bytes(V));
-  cudaError_t err =
-      cudaFuncSetAttribute(fuse_views_bwd_kernel<CPL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  asm volatile("griddepcontrol.wait;" ::: "memory");  // pass 1's list, count and zeroed gradient
+  const int n = *count;
+  for (int i = blockIdx.x * kGroups + group; i < n; i += gridDim.x * kGroups) {
+    const int e = list[i];  // sample * X*Y*Z + voxel, under 2^31
+    // its cotangent row, in flight while the views are decided
+    const float4 g = __ldg(reinterpret_cast<const float4*>(grad + static_cast<long long>(e) * C + sub * 4));
+    const int b = e / xyz, vox = e - b * xyz;
+    const int z = vox % Z, y = (vox / Z) % Y, x = vox / Z / Y;
+    const float* mb = mats + static_cast<long long>(b) * V * 12;
+    const float* db = depths + static_cast<long long>(b) * V * hw;
+    const unsigned char* vb = view_valid + static_cast<long long>(b) * V;
+    const int* rb = valid_rank + static_cast<long long>(b) * (V + 1);
+
+    // 1. the views that accept the voxel, a view a lane, G at a time
+    int n_acc = 0;
+    for (int c0 = 0; c0 < V; c0 += G) {
+      const int v = c0 + sub;
+      bool ok = false;
+      int pix = 0;
+      if (v < V && __ldg(vb + v)) {
+        float m[12], zc;
+#pragma unroll
+        for (int j = 0; j < 12; ++j) m[j] = __ldg(mb + v * 12 + j);
+        if (project(m, static_cast<float>(x), static_cast<float>(y), static_cast<float>(z), k, pix, zc)) {
+          ok = depth_accepts(__ldg(db + static_cast<long long>(v) * hw + pix), zc, k);
+        }
+      }
+      const unsigned bits = __ballot_sync(gmask, ok) >> lead;
+      if (ok) {
+        const int at = n_acc + __popc(bits & ((1u << sub) - 1));
+        acc[at] = make_int2(v * hw + pix, __ldg(rb + v) - at);
+      }
+      n_acc += __popc(bits);
+    }
+    __syncwarp(gmask);
+
+    // 2. their rows, kRows in flight: the largest value and how many attain it
+    const float* fb = feats + static_cast<long long>(b) * V * hw * C + sub * 4;
+    float4 row[kRows];
+    float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+    int cnt[4] = {0, 0, 0, 0};
+    unsigned long long met = 0;  // bit j (j < 64): the j-th accepting view's row met or raised the running max
+    int held = 0;                // the first row still in registers
+    for (int j0 = 0; j0 < n_acc; j0 += kRows) {
+      held = j0;
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        if (j0 + u < n_acc) {
+          row[u] = __ldg(reinterpret_cast<const float4*>(fb + static_cast<long long>(acc[j0 + u].x) * C));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kRows; ++u) {
+        if (j0 + u < n_acc) {
+          const float f[4] = {row[u].x, row[u].y, row[u].z, row[u].w};
+          bool hit = false;
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            if (f[c] > mx[c]) {
+              mx[c] = f[c];
+              cnt[c] = 1;
+              hit = true;
+            } else if (f[c] == mx[c]) {
+              ++cnt[c];
+              hit = true;
+            }
+          }
+          if (hit && j0 + u < 64) met |= 1ull << (j0 + u);
+        }
+      }
+    }
+
+    // 3. the fused value and its ties: each valid view that does not accept
+    // the voxel gives a 0
+    const int n_zero = __ldg(rb + V) - n_acc;
+    float m[4];
+    int t[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      m[c] = mx[c];
+      t[c] = cnt[c];
+      if (n_zero > 0 && mx[c] < 0.0f) {
+        m[c] = 0.0f;
+        t[c] = n_zero;
+      } else if (n_zero > 0 && mx[c] == 0.0f) {
+        t[c] += n_zero;
+      }
+    }
+
+    // 4. the staged shares of the views that attain m, in view order
+    float* ob = dfeats + static_cast<long long>(b) * V * hw * C + sub * 4;
+    const float gv[4] = {g.x, g.y, g.z, g.w};
+    int tied[4] = {0, 0, 0, 0};
+    auto share = [&](const float4& r, int j) {
+      const int2 a = acc[j];
+      const float f[4] = {r.x, r.y, r.z, r.w};
+      float add[4];
+      bool any = false;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        add[c] = 0.0f;  // the untied channels add an exact 0
+        if (f[c] == m[c]) {
+          const int place = 1 + tied[c] + (m[c] == 0.0f ? a.y : 0);
+          const int ex = place == 1 ? t[c] - 1 : t[c] - place + 1;
+          add[c] = ldexpf(gv[c], -ex);
+          ++tied[c];
+          any = true;
+        }
+      }
+      if (any) {
+        atomicAdd(reinterpret_cast<float4*>(ob + static_cast<long long>(a.x) * C),
+                  make_float4(add[0], add[1], add[2], add[3]));
+      }
+    };
+    for (int j = 0; j < held; ++j) {  // rows no longer held: reload those that can equal m
+      if (j < 64 && !(met >> j & 1)) continue;
+      share(__ldg(reinterpret_cast<const float4*>(fb + static_cast<long long>(acc[j].x) * C)), j);
+    }
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      if (held + u < n_acc) share(row[u], held + u);
+    }
+    __syncwarp(gmask);  // the group's next voxel rewrites acc
+  }
+}
+
+// bytes of dynamic shared memory of pass 2: its accepting views (8 bytes a
+// view for each group of C / 4 lanes)
+long long grad_smem(int V, int C) { return static_cast<long long>(V) * (kGradThreads / (C / 4)) * 8; }
+
+template <int G>
+cudaError_t launch_grad(const float* grad, const float* feats, const float* depths, const float* mats,
+                        const unsigned char* valid, const int* rank, int B, int V, int X, int Y, int Z,
+                        const Intrinsics& k, const int* list, const int* count, float* dfeats, cudaStream_t s) {
+  const int smem = static_cast<int>(grad_smem(V, 4 * G));
+  // the blocks of one wave on the card, kept for the last device and
+  // shared-memory size asked (the queries cost the host more than the launch)
+  static int wave_dev = -1, wave_smem = -1, wave = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev != wave_dev || smem != wave_smem)) {
+    int per_sm = 0, sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(k3b_grad_pass<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k3b_grad_pass<G>, kGradThreads, smem);
+    }
+    if (err != cudaSuccess) return err;
+    wave_dev = dev;
+    wave_smem = smem;
+    wave = std::max(per_sm, 1) * sms;
+  }
   if (err != cudaSuccess) return err;
-  fuse_views_bwd_kernel<CPL><<<static_cast<unsigned>(n_bricks(X, Y, Z)), kThreads, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(grad), static_cast<const float*>(feats), static_cast<const float*>(depths),
-      static_cast<const float*>(mats), static_cast<const unsigned char*>(view_valid),
-      static_cast<const int*>(valid_rank), V, X, Y, Z, k, static_cast<float*>(dfeats));
-  return cudaGetLastError();
+  // one wave on the card, no more blocks than the longest list needs
+  constexpr int kGroups = kGradThreads / G;
+  const long long most = (static_cast<long long>(B) * X * Y * Z + kGroups - 1) / kGroups;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(std::min(most, static_cast<long long>(wave))));
+  config.blockDim = dim3(kGradThreads);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = s;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, k3b_grad_pass<G>, grad, feats, depths, mats, valid, rank, V, X, Y, Z, k, list,
+                            count, dfeats);
 }
 
 }  // namespace
 
-// Bytes of dynamic shared memory one block needs for V views; the wrapper
-// checks it against the card's limit before launching.
-extern "C" long long tpu3dsis_fuse_views_bwd_smem(int V) { return smem_bytes(V); }
+// Bytes of dynamic shared memory pass 2 needs for V views and C channels
+// (32, 64 or 128); the wrapper checks them against the card's limit.
+extern "C" long long tpu3dsis_fuse_views_bwd_smem(int V, int C) { return C >= 4 ? grad_smem(V, C) : 0; }
 
-// Kernel launches so far (one per call with a non-empty volume).
+// Calls that launched the kernels so far (pass 1 and pass 2: two kernels a
+// call with a non-empty volume).
 extern "C" long long tpu3dsis_fuse_views_bwd_launches() { return g_launches; }
 
-// grad: (X, Y, Z, C) float32 cotangent of K3's output; feats: (V, H, W, C)
-// float32; depths: (V, H, W) float32; mats: (V, 3, 4) float32 grid-to-camera
-// rows; view_valid: (V,) uint8; valid_rank: (V + 1,) int32, the valid views
-// before each view and their total last; dfeats: (V, H, W, C) float32,
-// zeroed, added to. C = 32, 64 or 128; H, W < 32768. Returns the
-// cudaError_t.
-extern "C" int tpu3dsis_fuse_views_bwd(const void* grad, const void* feats, const void* depths, const void* mats,
-                                       const void* view_valid, const void* valid_rank, int V, int H, int W, int C,
-                                       int X, int Y, int Z, float fx, float fy, float cx, float cy, float depth_min,
-                                       float depth_max, float voxel_size, void* dfeats, void* stream) {
-  if (static_cast<long long>(X) * Y * Z == 0) return static_cast<int>(cudaSuccess);
+// The probe's counting build (kCount), after a call: out[0] the listed
+// voxels, out[1] the most in one K3 brick, out[2] the most in one warp's
+// kSlices x-slices of a brick (the chain of the per-sample design), out[3]
+// the most in one slice, out[4] the bricks that hold any; the first
+// kCountSlots bricks of the batch. Waits for the card. Returns the
+// cudaError_t (cudaErrorNotSupported in a build that does not count).
+extern "C" int tpu3dsis_fuse_views_bwd_counts(long long* out) {
+  if (!kCount) return static_cast<int>(cudaErrorNotSupported);
+  static unsigned host[kCountSlots][kCountPer];
+  cudaError_t err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(host, g_counts, sizeof(host));
+  for (int i = 0; i < 5; ++i) out[i] = 0;
+  for (int b = 0; err == cudaSuccess && b < kCountSlots; ++b) {
+    out[0] += host[b][0];
+    out[1] = std::max(out[1], static_cast<long long>(host[b][0]));
+    for (int w = 0; w < kWarps; ++w) out[2] = std::max(out[2], static_cast<long long>(host[b][1 + w]));
+    for (int x = 0; x < kBX; ++x) out[3] = std::max(out[3], static_cast<long long>(host[b][1 + kWarps + x]));
+    out[4] += host[b][0] > 0;
+  }
+  return static_cast<int>(err);
+}
+
+// B samples. grad: (B, X, Y, Z, C) float32 cotangent of K3's outputs; feats:
+// (B, V, H, W, C) float32; depths: (B, V, H, W) float32; mats: (B, V, 3, 4)
+// float32 grid-to-camera rows; view_valid: (B, V) uint8; valid_rank: (B, V +
+// 1) int32, the valid views before each view and their total last; list:
+// B * X * Y * Z int32 of scratch; scratch: 1 + ceil(B * X * Y * Z / 32)
+// int32 (the list's length, then a bit a voxel), zeroed here; dfeats: (B,
+// V, H, W, C) float32, written whole. C = 32, 64 or 128; H, W < 32768; B * V
+// * H * W and B * X * Y * Z under 2^31. Returns the cudaError_t.
+extern "C" int tpu3dsis_fuse_views_bwd(int B, const void* grad, const void* feats, const void* depths,
+                                       const void* mats, const void* view_valid, const void* valid_rank, int V, int H,
+                                       int W, int C, int X, int Y, int Z, float fx, float fy, float cx, float cy,
+                                       float depth_min, float depth_max, float voxel_size, void* list, void* scratch,
+                                       void* dfeats, void* stream) {
+  if (C != 32 && C != 64 && C != 128) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n4 = static_cast<long long>(B) * V * H * W * C / 4;
+  const long long voxels = static_cast<long long>(B) * X * Y * Z;
+  if (voxels == 0) return static_cast<int>(cudaMemsetAsync(dfeats, 0, static_cast<size_t>(n4) * 16, s));
   const Intrinsics k{fx, fy, cx, cy, depth_min, depth_max, voxel_size, H, W};
-  cudaError_t err;
-  switch (C) {
-    case 32:
-      err = launch<1>(grad, feats, depths, mats, view_valid, valid_rank, V, X, Y, Z, k, dfeats, stream);
-      break;
-    case 64:
-      err = launch<2>(grad, feats, depths, mats, view_valid, valid_rank, V, X, Y, Z, k, dfeats, stream);
-      break;
-    case 128:
-      err = launch<4>(grad, feats, depths, mats, view_valid, valid_rank, V, X, Y, Z, k, dfeats, stream);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  const float* mt = static_cast<const float*>(mats);
+  const unsigned char* vv = static_cast<const unsigned char*>(view_valid);
+  const float* dp = static_cast<const float*>(depths);
+  int* lst = static_cast<int*>(list);
+  int* scr = static_cast<int*>(scratch);
+  cudaError_t err = cudaSuccess;
+  if (kCount) {
+    void* counts = nullptr;
+    err = cudaGetSymbolAddress(&counts, g_counts);
+    if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, sizeof(g_counts), s);
+  }
+  if (kPass1 && err == cudaSuccess) {
+    err = cudaMemsetAsync(scr, 0, static_cast<size_t>(1 + (voxels + 31) / 32) * sizeof(int), s);
+    const long long warps = static_cast<long long>(B) * V * H * W;
+    constexpr int kPerBlock = kListThreads / 32;
+    const long long blocks = std::max((warps + kPerBlock - 1) / kPerBlock, 1LL);
+    if (err == cudaSuccess) {
+      k3b_list_pass<<<static_cast<unsigned>(blocks), kListThreads, 0, s>>>(dp, mt, vv, B, V, X, Y, Z, k,
+                                                                           static_cast<float4*>(dfeats), n4, lst, scr);
+      err = cudaGetLastError();  // else pass 2 would read a list never written
+    }
+  }
+  if (err == cudaSuccess && kPass2 && !kZeroOnly) {
+    const float* g = static_cast<const float*>(grad);
+    const float* f = static_cast<const float*>(feats);
+    const int* rk = static_cast<const int*>(valid_rank);
+    float* out = static_cast<float*>(dfeats);
+    switch (C) {
+      case 32:
+        err = launch_grad<8>(g, f, dp, mt, vv, rk, B, V, X, Y, Z, k, lst, scr, out, s);
+        break;
+      case 64:
+        err = launch_grad<16>(g, f, dp, mt, vv, rk, B, V, X, Y, Z, k, lst, scr, out, s);
+        break;
+      default:
+        err = launch_grad<32>(g, f, dp, mt, vv, rk, B, V, X, Y, Z, k, lst, scr, out, s);
+    }
   }
   if (err == cudaSuccess) ++g_launches;
   return static_cast<int>(err);

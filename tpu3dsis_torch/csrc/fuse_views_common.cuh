@@ -1,9 +1,10 @@
 // Device code shared by K3 (fuse_views.cu) and its backward K3b
 // (fuse_views_bwd.cu): the brick decomposition, the acceptance predicate's
-// projection and the per-brick view cull. Both kernels decide which views a
-// brick keeps and which voxels a view accepts with these same float32
-// operations, so the backward differentiates exactly the forward's choices.
-// Each source includes this header and builds into a library of its own.
+// projection and the per-brick view cull. Both kernels decide which voxels a
+// view accepts, and at which pixel, with these same float32 operations, so
+// the backward differentiates exactly the forward's choices (K3b finds its
+// voxels without the cull, which only skips views that reject). Each source
+// includes this header and builds into a library of its own.
 //
 // The predicate (tpu3dsis_torch/geometry/projection.py::_project): a voxel
 // accepts a view when its rounded pixel lies in the image with a positive,

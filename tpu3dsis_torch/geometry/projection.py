@@ -20,10 +20,13 @@ smoke run. The fused result does not depend on it: a culled view rejects
 every voxel of its brick.
 
 The gradient. When the features require a gradient (the ENet trains,
-``FIX_ENET: False``), ``fuse_views`` runs ``_FuseViews``: K3 forward and
-kernel K3b (``csrc/fuse_views_bwd.cu``) backward on the card, and on the CPU
-``fuse_views_plain`` with ``fuse_views_backward_plain``, which is autograd of
-the plain version. That is the JAX package's rule (its ``_onehot_row_gather``
+``FIX_ENET: False``), the fusion runs ``_FuseViewsBatch`` over the batch's
+samples (``fuse_views_batch``; ``fuse_views`` is a batch of one): K3 per
+sample forward and one launch of kernel K3b (``csrc/fuse_views_bwd.cu``)
+for the batch backward on the card, on the matrices, valid flags and rank
+the forward made (``batch_operands``), and on the CPU ``fuse_views_plain``
+with ``fuse_views_backward_plain`` per sample, which is autograd of the
+plain version. That is the JAX package's rule (its ``_onehot_row_gather``
 VJP under autodiff of the view scan's max): the cotangent of a fused voxel
 goes to the views whose value equals the max, split 0.5 / 0.5 at each tied
 step of the scan, and only where the view accepted the voxel. It takes
@@ -33,16 +36,16 @@ under ``no_grad`` only).
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from tpu3dsis_torch import _build
 
 
 def view_matrices(poses, world_to_grid) -> torch.Tensor:
-    """(V, 4, 4) camera-to-world poses and the (4, 4) world-to-grid matrix ->
-    (V, 3, 4) float32 grid-to-camera rows on the CPU: rows 0-2 of
-    inv(pose) @ inv(world_to_grid), each entry summed over k = 0..3 in order.
+    """(..., V, 4, 4) camera-to-world poses and the (..., 4, 4) world-to-grid
+    matrices -> (..., V, 3, 4) float32 grid-to-camera rows on the CPU: rows
+    0-2 of inv(pose) @ inv(world_to_grid), each entry summed over k = 0..3 in
+    order. A batch of samples (B, V, 4, 4) and (B, 4, 4) is one call.
 
     The one place the matrices are made, so that K3 and its plain version
     read the same floats.
@@ -50,16 +53,23 @@ def view_matrices(poses, world_to_grid) -> torch.Tensor:
     c2w = torch.as_tensor(poses, dtype=torch.float32).cpu()
     w2g = torch.as_tensor(world_to_grid, dtype=torch.float32).cpu()
     w2c = torch.linalg.inv(c2w)
-    g2w = torch.linalg.inv(w2g)
-    m = w2c[:, :, 0, None] * g2w[0]
+    g2w = torch.linalg.inv(w2g).unsqueeze(-3)
+    m = w2c[..., 0, None] * g2w[..., 0:1, :]
     for k in range(1, 4):
-        m = m + w2c[:, :, k, None] * g2w[k]
-    return m[:, :3].contiguous()
+        m = m + w2c[..., k, None] * g2w[..., k:k + 1, :]
+    return m[..., :3, :].contiguous()
 
 
 def _intrinsics(intrinsic) -> tuple:
     k = torch.as_tensor(intrinsic, dtype=torch.float32).cpu()
     return k[0, 0], k[1, 1], k[0, 2], k[1, 2]
+
+
+def _intrinsic_floats(intrinsic) -> tuple:
+    """(fx, fy, cx, cy) as the Python floats of their float32 values, for a
+    kernel's arguments."""
+    k = torch.as_tensor(intrinsic, dtype=torch.float32).cpu().tolist()
+    return k[0][0], k[1][1], k[0][2], k[1][2]
 
 
 def _project(mat, depth, fx, fy, cx, cy, coords, depth_min, depth_max, voxel_size):
@@ -278,57 +288,110 @@ def fuse_views_backward_plain(grad_out, feats2d, depths, poses, world_to_grid, i
     return out
 
 
-def _kernel_operands(name, feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, view_valid, dtypes, smem):
-    """The operand checks and the device operands that K3 and K3b share:
-    the library, (mats (V, 3, 4) float32 and valid (V,) uint8 on the card,
-    (fx, fy, cx, cy)). ``smem`` names the library's function that gives a
-    block's bytes of shared memory for V views."""
+
+
+def fuse_views_backward_batch_plain(grad_out, feats2d, depths, poses, world_to_grid, intrinsic, volume_dims,
+                                    depth_min, depth_max, voxel_size, view_valid=None):
+    """Plain version of K3b for a batch: ``fuse_views_backward_plain`` of
+    each sample, stacked. grad_out (B, X, Y, Z, C), feats2d (B, V, H, W, C),
+    depths (B, V, H, W), poses (B, V, 4, 4), world_to_grid (B, 4, 4),
+    view_valid (B, V) or None; returns (B, V, H, W, C)."""
+    return torch.stack([
+        fuse_views_backward_plain(grad_out[i], feats2d[i], depths[i], poses[i], world_to_grid[i], intrinsic,
+                                  volume_dims, depth_min, depth_max, voxel_size,
+                                  None if view_valid is None else view_valid[i])
+        for i in range(feats2d.shape[0])])
+
+
+def _check_maps(name, feats2d, depths, dtypes):
+    """The operand checks that K3 and K3b share, on the trailing (V, H, W,
+    C) of feats2d and (V, H, W) of depths."""
     if not feats2d.is_cuda:
         raise ValueError(f"{name} takes CUDA tensors")
-    _check_args(feats2d, depths, volume_dims, view_valid)
     if feats2d.dtype not in dtypes:
         raise ValueError(f"{name}: feats2d must be one of {dtypes}, got {feats2d.dtype}")
     if not feats2d.is_contiguous() or feats2d.data_ptr() % 16:
         raise ValueError("feats2d must be contiguous and 16-byte aligned")
-    v, h, w, c = feats2d.shape
+    v, h, w, c = feats2d.shape[-4:]
     if c not in (32, 64, 128):
         raise ValueError(f"{name} takes C = 32, 64 or 128 channels, not {c}")
     if max(h, w) >= 2**15:
         raise ValueError(f"{name} takes depth maps under 32768 pixels a side, not {h}x{w}")
-    dev = feats2d.device
-    if not depths.is_cuda or depths.device != dev or depths.dtype != torch.float32 or not depths.is_contiguous():
+    if (not depths.is_cuda or depths.device != feats2d.device or depths.dtype != torch.float32
+            or not depths.is_contiguous()):
         raise ValueError("depths must be a contiguous float32 tensor on feats2d's card")
-    if int(np.prod([int(n) for n in volume_dims])) * c >= 2**62:
-        raise ValueError("the volume is too large")
-    lib = _build.load_library()
-    nbytes = getattr(lib, smem)(v)
-    if nbytes > torch.cuda.get_device_properties(dev).shared_memory_per_block_optin:
-        raise ValueError(f"{name}: {nbytes} bytes of shared memory do not fit a block")
-    mats = view_matrices(poses, world_to_grid).pin_memory().to(dev, non_blocking=True)  # no wait for the stream
+
+
+def _check_operand(name, t, shape, dtype, dev):
+    if not torch.is_tensor(t) or tuple(t.shape) != shape or t.dtype != dtype or t.device != dev \
+            or not t.is_contiguous():
+        got = (tuple(t.shape), t.dtype, t.device) if torch.is_tensor(t) else type(t)
+        raise ValueError(f"{name} must be a contiguous {shape} {dtype} tensor on {dev}, not {got}")
+
+
+def _valid_flags(view_valid, shape, dev) -> torch.Tensor:
+    """view_valid (or None: every view) as the kernels' uint8 flags on the
+    card, without a wait for the stream."""
     if view_valid is None:
-        valid = torch.ones(v, dtype=torch.uint8, device=dev)
-    else:
-        valid = torch.as_tensor(view_valid, dtype=torch.bool).to(dev, non_blocking=True).to(torch.uint8)
-    return lib, mats, valid, tuple(float(t) for t in _intrinsics(intrinsic))
+        return torch.ones(shape, dtype=torch.uint8, device=dev)
+    valid = torch.as_tensor(view_valid).to(dev, non_blocking=True)
+    return valid if valid.dtype == torch.uint8 else valid.bool().to(torch.uint8)
+
+
+def _device_matrices(poses, world_to_grid, shape, dev) -> torch.Tensor:
+    """``view_matrices`` copied up to the card from pinned memory, so no
+    call waits for the stream."""
+    mats = view_matrices(poses, world_to_grid)
+    if tuple(mats.shape) != shape:
+        raise ValueError(f"poses and world_to_grid give matrices {tuple(mats.shape)}, not {shape}")
+    return mats.pin_memory().to(dev, non_blocking=True)
+
+
+def batch_operands(poses, world_to_grid, view_valid, batch, views, dev):
+    """The kernels' operands of a batch of samples, made once: (B, V, 3, 4)
+    float32 matrices (``view_matrices``, one host op, copied up once from
+    pinned memory, so no call waits for the stream), the (B, V) uint8 valid
+    flags and the (B, V + 1) int32 valid rank (the valid views before each
+    view, their total last), both made on the card."""
+    mats = _device_matrices(poses, world_to_grid, (batch, views, 3, 4), dev)
+    valid = _valid_flags(view_valid, (batch, views), dev)
+    rank = torch.nn.functional.pad(torch.cumsum(valid, 1, dtype=torch.int32), (1, 0))
+    return mats, valid, rank
 
 
 def fuse_views_cuda(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max,
-                    voxel_size, view_valid=None, zero_floor=None):
+                    voxel_size, view_valid=None, zero_floor=None, mats=None, out=None):
     """Kernel K3; the arguments and result of ``fuse_views_plain``.
 
     feats2d must be a contiguous (V, H, W, C) CUDA tensor, float32 or
     bfloat16, 16-byte aligned, with C = 32, 64 or 128 and H, W < 32768;
     depths a (V, H, W) float32 tensor on the same card. Its shared memory
     grows by 68 bytes a view. A ``zero_floor`` tensor is read on the
-    host (one sync).
+    host (one sync). ``mats``, the (V, 3, 4) float32 matrices already on the
+    card (``batch_operands``), stand in for poses and world_to_grid; ``out``,
+    a contiguous (X, Y, Z, C) tensor of feats2d's dtype there, takes the
+    result.
     """
-    lib, mats, valid, (fx, fy, cx, cy) = _kernel_operands(
-        "fuse_views_cuda", feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, view_valid,
-        (torch.float32, torch.bfloat16), "tpu3dsis_fuse_views_smem")
+    name = "fuse_views_cuda"
+    _check_maps(name, feats2d, depths, (torch.float32, torch.bfloat16))
+    _check_args(feats2d, depths, volume_dims, view_valid)
     v, h, w, c = feats2d.shape
     x, y, z = (int(n) for n in volume_dims)
     dev = feats2d.device
-    out = torch.empty((x, y, z, c), dtype=feats2d.dtype, device=dev)
+    if x * y * z * c >= 2**62:
+        raise ValueError("the volume is too large")
+    lib = _build.load_library()
+    nbytes = lib.tpu3dsis_fuse_views_smem(v)
+    if nbytes > torch.cuda.get_device_properties(dev).shared_memory_per_block_optin:
+        raise ValueError(f"{name}: {nbytes} bytes of shared memory do not fit a block")
+    if mats is None:
+        mats = _device_matrices(poses, world_to_grid, (v, 3, 4), dev)
+    _check_operand("mats", mats, (v, 3, 4), torch.float32, dev)
+    valid = _valid_flags(view_valid, (v,), dev)
+    if out is None:
+        out = torch.empty((x, y, z, c), dtype=feats2d.dtype, device=dev)
+    _check_operand("out", out, (x, y, z, c), feats2d.dtype, dev)
+    fx, fy, cx, cy = _intrinsic_floats(intrinsic)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tpu3dsis_fuse_views(
@@ -336,7 +399,7 @@ def fuse_views_cuda(feats2d, depths, poses, world_to_grid, intrinsic, volume_dim
             valid.data_ptr(), v, h, w, c, x, y, z, fx, fy, cx, cy, float(depth_min), float(depth_max),
             float(voxel_size), int(bool(zero_floor)) if zero_floor is not None else 0, out.data_ptr(), stream,
         )
-    _build.check(err, "fuse_views_cuda")
+    _build.check(err, name)
     fuse_views_cuda.launches += 1
     return out
 
@@ -345,38 +408,66 @@ fuse_views_cuda.launches = 0
 
 
 def fuse_views_backward_cuda(grad_out, feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min,
-                             depth_max, voxel_size, view_valid=None):
-    """Kernel K3b; the arguments and result of ``fuse_views_backward_plain``.
+                             depth_max, voxel_size, view_valid=None, mats=None, rank=None):
+    """Kernel K3b for a batch of samples, one launch (two kernels); the
+    arguments and result of ``fuse_views_backward_batch_plain``.
 
     feats2d and grad_out must be contiguous float32 CUDA tensors on one
-    card, 16-byte aligned: (V, H, W, C) with C = 32, 64 or 128 and H, W <
-    32768, and (X, Y, Z, C); depths a (V, H, W) float32 tensor there. The
-    gradient is zeroed here and the kernel adds each share with a float32
-    atomic, so a pixel's sum is taken in an order that can change from
-    call to call.
+    card, 16-byte aligned: (B, V, H, W, C) with C = 32, 64 or 128 and H, W <
+    32768, and (B, X, Y, Z, C); depths a (B, V, H, W) float32 tensor there.
+    ``mats`` (B, V, 3, 4) float32 and ``rank`` (B, V + 1) int32, made on the
+    card by ``batch_operands`` (the forward's), stand in for poses and
+    world_to_grid and the rank; with both, and view_valid a (B, V) uint8
+    tensor on the card, the call does no host work but its checks and
+    allocations, and does not wait for the stream. The kernel zeroes the
+    gradient and adds each share with a float32 atomic, so a pixel's sum is
+    taken in an order that can change from call to call. Its work list and
+    bitmap take 4 bytes and a bit a voxel of the batch.
     """
-    lib, mats, valid, (fx, fy, cx, cy) = _kernel_operands(
-        "fuse_views_backward_cuda", feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, view_valid,
-        (torch.float32,), "tpu3dsis_fuse_views_bwd_smem")
-    v, h, w, c = feats2d.shape
+    name = "fuse_views_backward_cuda"
+    _check_maps(name, feats2d, depths, (torch.float32,))
+    if feats2d.dim() != 5:
+        raise ValueError(f"{name} takes (B, V, H, W, C) features, not {tuple(feats2d.shape)}")
+    b, v, h, w, c = feats2d.shape
     x, y, z = (int(n) for n in volume_dims)
+    if tuple(depths.shape) != (b, v, h, w) or min(x, y, z) < 1:
+        raise ValueError(f"depths {tuple(depths.shape)} or the volume {volume_dims} do not match feats2d "
+                         f"{tuple(feats2d.shape)}")
     dev = feats2d.device
     if (not grad_out.is_cuda or grad_out.device != dev or grad_out.dtype != torch.float32
-            or not grad_out.is_contiguous() or grad_out.data_ptr() % 16 or tuple(grad_out.shape) != (x, y, z, c)):
-        raise ValueError(f"grad_out must be a contiguous, 16-byte aligned ({x}, {y}, {z}, {c}) float32 tensor on "
-                         f"feats2d's card, not {tuple(grad_out.shape)} {grad_out.dtype}")
-    # the valid views before each view, their total last
-    rank = torch.zeros(v + 1, dtype=torch.int32, device=dev)
-    torch.cumsum(valid, 0, dtype=torch.int32, out=rank[1:])
-    out = torch.zeros_like(feats2d)
+            or not grad_out.is_contiguous() or grad_out.data_ptr() % 16 or tuple(grad_out.shape) != (b, x, y, z, c)):
+        raise ValueError(f"grad_out must be a contiguous, 16-byte aligned ({b}, {x}, {y}, {z}, {c}) float32 tensor "
+                         f"on feats2d's card, not {tuple(grad_out.shape)} {grad_out.dtype}")
+    voxels = b * x * y * z
+    if voxels >= 2**31 or b * v * h * w >= 2**31:
+        raise ValueError(f"{name} takes under 2^31 voxels and pixels in a batch")
+    props = torch.cuda.get_device_properties(dev)
+    if voxels * 4 + voxels // 8 > props.total_memory // 4:
+        raise ValueError(f"{name}: the work list of {voxels} voxels passes a quarter of the card's memory")
+    lib = _build.load_library()
+    nbytes = lib.tpu3dsis_fuse_views_bwd_smem(v, c)
+    if nbytes > props.shared_memory_per_block_optin:
+        raise ValueError(f"{name}: {nbytes} bytes of shared memory do not fit a block")
+    valid = _valid_flags(view_valid, (b, v), dev)
+    if mats is None:
+        mats = _device_matrices(poses, world_to_grid, (b, v, 3, 4), dev)
+    if rank is None:
+        rank = torch.nn.functional.pad(torch.cumsum(valid, 1, dtype=torch.int32), (1, 0))
+    _check_operand("mats", mats, (b, v, 3, 4), torch.float32, dev)
+    _check_operand("view_valid", valid, (b, v), torch.uint8, dev)
+    _check_operand("rank", rank, (b, v + 1), torch.int32, dev)
+    out = torch.empty_like(feats2d)
+    work = torch.empty(voxels, dtype=torch.int32, device=dev)
+    scratch = torch.empty(1 + (voxels + 31) // 32, dtype=torch.int32, device=dev)  # its length, a bit a voxel
+    fx, fy, cx, cy = _intrinsic_floats(intrinsic)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tpu3dsis_fuse_views_bwd(
-            grad_out.data_ptr(), feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(), valid.data_ptr(),
+            b, grad_out.data_ptr(), feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(), valid.data_ptr(),
             rank.data_ptr(), v, h, w, c, x, y, z, fx, fy, cx, cy, float(depth_min), float(depth_max),
-            float(voxel_size), out.data_ptr(), stream,
+            float(voxel_size), work.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream,
         )
-    _build.check(err, "fuse_views_backward_cuda")
+    _build.check(err, name)
     fuse_views_backward_cuda.launches += 1
     return out
 
@@ -384,24 +475,80 @@ def fuse_views_backward_cuda(grad_out, feats2d, depths, poses, world_to_grid, in
 fuse_views_backward_cuda.launches = 0
 
 
-class _FuseViews(torch.autograd.Function):
-    """The view fusion with its gradient: K3 and K3b for CUDA features, the
-    plain pair for CPU ones. No gradient reaches the depths or views."""
+class _FuseViewsBatch(torch.autograd.Function):
+    """The view fusion of a batch of samples with its gradient: K3 per sample
+    and one K3b for the batch on the card, the plain pair per sample on the
+    CPU. The forward makes the batch's matrices, valid flags and rank once
+    and keeps them for the backward. No gradient reaches the depths or
+    views."""
 
     @staticmethod
     def forward(ctx, feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size,
                 view_valid):
-        args = (depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size, view_valid)
-        ctx.args = args
+        ctx.args = (depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size)
         ctx.save_for_backward(feats2d)
-        fuse = fuse_views_cuda if feats2d.is_cuda else fuse_views_plain
-        return fuse(feats2d, *args)
+        ctx.view_valid, ctx.mats, ctx.rank = view_valid, None, None
+        if not feats2d.is_cuda:
+            return _fuse_batch_plain(feats2d, *ctx.args, view_valid)
+        ctx.mats, ctx.view_valid, ctx.rank = batch_operands(poses, world_to_grid, view_valid, *feats2d.shape[:2],
+                                                            feats2d.device)
+        return _fuse_batch_cuda(feats2d, *ctx.args, ctx.view_valid, ctx.mats)
 
     @staticmethod
     def backward(ctx, grad):
         (feats2d,) = ctx.saved_tensors
-        backward = fuse_views_backward_cuda if feats2d.is_cuda else fuse_views_backward_plain
-        return (backward(grad.contiguous(), feats2d, *ctx.args),) + (None,) * 9
+        if feats2d.is_cuda:
+            d = fuse_views_backward_cuda(grad.contiguous(), feats2d, *ctx.args, view_valid=ctx.view_valid,
+                                         mats=ctx.mats, rank=ctx.rank)
+        else:
+            d = fuse_views_backward_batch_plain(grad, feats2d, *ctx.args, view_valid=ctx.view_valid)
+        return (d,) + (None,) * 9
+
+
+def _fuse_batch_plain(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max,
+                      voxel_size, view_valid):
+    return torch.stack([
+        fuse_views_plain(feats2d[i], depths[i], poses[i], world_to_grid[i], intrinsic, volume_dims, depth_min,
+                         depth_max, voxel_size, None if view_valid is None else view_valid[i])
+        for i in range(feats2d.shape[0])])
+
+
+def _fuse_batch_cuda(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size,
+                     valid, mats):
+    """K3 per sample on the batch's matrices and flags, each into its slice
+    of one (B, X, Y, Z, C) result."""
+    out = torch.empty((feats2d.shape[0], *(int(n) for n in volume_dims), feats2d.shape[-1]), dtype=feats2d.dtype,
+                      device=feats2d.device)
+    for i in range(feats2d.shape[0]):
+        fuse_views_cuda(feats2d[i], depths[i], poses[i], world_to_grid[i], intrinsic, volume_dims, depth_min,
+                        depth_max, voxel_size, view_valid=valid[i], mats=mats[i], out=out[i])
+    return out
+
+
+def fuse_views_batch(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max,
+                     voxel_size, view_valid=None):
+    """Max-fuse each sample's V views into its own volume: feats2d (B, V, H,
+    W, C), depths (B, V, H, W), poses (B, V, 4, 4), world_to_grid (B, 4, 4),
+    view_valid (B, V) or None -> (B, X, Y, Z, C) in feats2d's dtype.
+
+    On the card the batch's matrices are made in one host op and K3 runs per
+    sample on them; on the CPU the plain version runs per sample. Where
+    autograd would differentiate the features (float32 only), the gradient
+    is one K3b launch for the batch on the forward's operands
+    (``_FuseViewsBatch``), on the CPU the plain backward per sample."""
+    dims = tuple(int(n) for n in volume_dims)
+    if torch.is_grad_enabled() and feats2d.requires_grad:
+        if feats2d.dtype != torch.float32:
+            raise ValueError(f"the view fusion's gradient (K3b) takes float32 features, not {feats2d.dtype}: "
+                             "fuse before casting to the compute dtype")
+        return _FuseViewsBatch.apply(feats2d, depths, poses, world_to_grid, intrinsic, dims, depth_min, depth_max,
+                                     voxel_size, view_valid)
+    if feats2d.device.type == "cpu":
+        return _fuse_batch_plain(feats2d, depths, poses, world_to_grid, intrinsic, dims, depth_min, depth_max,
+                                 voxel_size, view_valid)
+    mats, valid, _ = batch_operands(poses, world_to_grid, view_valid, *feats2d.shape[:2], feats2d.device)
+    return _fuse_batch_cuda(feats2d, depths, poses, world_to_grid, intrinsic, dims, depth_min, depth_max, voxel_size,
+                            valid, mats)
 
 
 def fuse_views(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size,
@@ -409,16 +556,14 @@ def fuse_views(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, de
     """Max-fuse V views into one (X, Y, Z, C) volume: K3 for CUDA features,
     the plain version for CPU features (same arguments as
     ``fuse_views_plain``). Where autograd would differentiate the features,
-    the fusion has a gradient (``_FuseViews``: K3b on the card); it takes
-    float32 features and no ``zero_floor``."""
+    the fusion has a gradient: ``fuse_views_batch`` on a batch of one (K3b
+    on the card); it takes float32 features and no ``zero_floor``."""
     if torch.is_grad_enabled() and feats2d.requires_grad:
         if zero_floor is not None:
             raise ValueError("the view fusion's gradient takes zero_floor=None: fuse a tile's views under no_grad")
-        if feats2d.dtype != torch.float32:
-            raise ValueError(f"the view fusion's gradient (K3b) takes float32 features, not {feats2d.dtype}: "
-                             "fuse before casting to the compute dtype")
-        return _FuseViews.apply(feats2d, depths, poses, world_to_grid, intrinsic, tuple(volume_dims), depth_min,
-                                depth_max, voxel_size, view_valid)
+        return fuse_views_batch(feats2d[None], depths[None], torch.as_tensor(poses)[None],
+                                torch.as_tensor(world_to_grid)[None], intrinsic, volume_dims, depth_min, depth_max,
+                                voxel_size, None if view_valid is None else torch.as_tensor(view_valid)[None])[0]
     if feats2d.device.type == "cpu":
         return fuse_views_plain(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min,
                                 depth_max, voxel_size, view_valid, zero_floor)

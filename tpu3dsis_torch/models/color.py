@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from tpu3dsis_torch.config import DetectorConfig
-from tpu3dsis_torch.geometry.projection import fuse_views
+from tpu3dsis_torch.geometry.projection import fuse_views, fuse_views_batch
 
 
 class ColorProjector:
@@ -58,6 +58,15 @@ class ColorProjector:
         return fuse_views(feats2d, depths, poses, world_to_grid, self.intrinsic, tuple(volume_dims),
                           self.depth_min, self.depth_max, self.voxel_size, view_valid=view_valid,
                           zero_floor=zero_floor)
+
+    def project_batch(self, feats2d, depths, poses, world_to_grid, volume_dims, view_valid=None):
+        """Fuse each sample's views into its own volume: (B, V, H, W, C)
+        features -> (B, X, Y, Z, C) of their dtype (``fuse_views_batch``: the
+        batch's matrices made once, K3 per sample on the card). Float32
+        features that require a gradient get one through the fusion, one K3b
+        launch for the batch on the card."""
+        return fuse_views_batch(feats2d, depths, poses, world_to_grid, self.intrinsic, tuple(volume_dims),
+                                self.depth_min, self.depth_max, self.voxel_size, view_valid=view_valid)
 
 
 def shift_world_to_grid(world_to_grid, origin) -> np.ndarray:

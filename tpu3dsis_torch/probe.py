@@ -7,9 +7,10 @@ own proposals for K1, 32 x 400 and 32 x 1024 boxes for K2, the views of
 phase 7's 96-view room fused into its 240x48x240 volume for K3, and for K1b
 a geometry training step's own call (recorded from the step), the training
 call's shapes (two 8x24x12x24x128 level maps, 8 x 16 rois) and phase 2's
-rois, each in bf16 and float32, and for K3b one sample of the trainable-ENet
-color batch's views (float32, 5 views into 96x48x96). A cut copy computes
-nothing useful; only
+rois, each in bf16 and float32, and for K3b one batched call on the
+trainable-ENet color batch's views (float32, 4 samples of 5 views into
+96x48x96) and phase 10's 32-view room (one sample into 240x48x240). A cut
+copy computes nothing useful; only
 its time is read. K1b's copies are cut at its constants: "zeros only"
 stores every brick as zeros without the column pass or a scan of the rois
 (the write floor), "no column walk" takes each plane's max from one voxel
@@ -26,10 +27,13 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
     python -m tpu3dsis_torch.probe [K1] [K1b] [K2] [K3] [K3b] [--against DIR ...]
 
-(all five when none is named). K3b's copies: "no cull" (every valid view
-a candidate), "first walk only" (the max and tie count, no shares),
-"no atomics" (the shares computed, none added), and the zeroed gradient
-alone. It prints one JSON line per case: the full
+(all five when none is named). K3b's copies: "pass 1 only" (the zero fill
+and the list),
+"pass 2 only" (the gradient from a list a whole call left), "zero fill
+alone"; its counting copy (not timed) adds the accepted voxels and the
+most of them in one brick, one warp's slices and one slice: the chain of
+dependent walks that bounded the per-sample design. It prints one JSON line per
+case: the full
 kernel's and each cut copy's device time in ms, measured in turns (full,
 cuts, cuts reversed, full); K3's line adds the share of (brick, view) pairs
 its cull keeps. ``--against DIR`` (with K1b) also times the whole K1b
@@ -38,7 +42,10 @@ checkout of the repository (DIR holds its ``tpu3dsis_torch``, for example
 an earlier commit unpacked with ``git archive``) against this checkout's,
 on the same K1b inputs, each in a process started in its checkout, in
 turns (the others, this one, this one, the others reversed): one JSON line
-per case with each checkout's median ms.
+per case with each checkout's median ms. With K3b, ``--against DIR`` builds
+that checkout's per-sample K3b (the design before the batched one) and times it, a launch per
+sample, against this one's single launch on the same calls in this process
+(``against_k3b``).
 """
 
 from __future__ import annotations
@@ -55,7 +62,7 @@ import torch
 
 from tpu3dsis_torch import _build
 
-COUNTING = "counting"  # K1b's copy that counts what its kernels compute; built, not timed
+COUNTING = "counting"  # the copy of K1b or K3b that counts what its kernels compute; built, not timed
 
 _K3_CULL = "  const int ncand = cull_brick<kCullViews>(depths, mats, view_valid, V, lo, hi, k, s_mat, s_view, cs, culled);\n"
 # per source: cut name -> (text in the source, its replacement)
@@ -90,12 +97,17 @@ CUTS = {
                              "      if (V < 0) store_row(reinterpret_cast<Pack<T, CPL>*>(dst), r);"),
     },
     "fuse_views_bwd.cu": {
-        "no cull": ("constexpr bool kCullViews = true;", "constexpr bool kCullViews = false;"),
-        "first walk only": ("constexpr bool kScatter = true;", "constexpr bool kScatter = false;"),
-        "no atomics": ("                  atomicAdd(dst + i, ldexpf(g.v[i], -e));",
-                       "                  if (e < 0) atomicAdd(dst + i, ldexpf(g.v[i], -e));"),
+        "pass 1 only": ("constexpr bool kPass2 = true;", "constexpr bool kPass2 = false;"),
+        "pass 2 only": ("constexpr bool kPass1 = true;", "constexpr bool kPass1 = false;"),
+        "zero fill alone": ("constexpr bool kZeroOnly = false;", "constexpr bool kZeroOnly = true;"),
+        COUNTING: ("constexpr bool kCount = false;", "constexpr bool kCount = true;"),
     },
 }
+# The per-sample K3b (one sample a call, a block per brick walking its
+# voxels, the design before the batched one): its C interface, for
+# ``--against`` with a checkout that has it
+_K3B_PER_SAMPLE = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 2,
+                   ctypes.c_int)
 
 
 def build_cuts():
@@ -253,38 +265,91 @@ def call_k3(lib, feats2d, depths, mats, valid, fx, fy, cx, cy, volume_dims, dept
     _build.check(err, "probe K3")
 
 
+def k3b_scratch(feats2d, volume_dims):
+    """K3b's work list and its scratch (length and bitmap) for a batch."""
+    n = feats2d.shape[0] * int(np.prod(volume_dims))
+    return (torch.empty(n, dtype=torch.int32, device=feats2d.device),
+            torch.empty(1 + (n + 31) // 32, dtype=torch.int32, device=feats2d.device))
+
+
 def call_k3b(lib, grad, feats2d, depths, mats, valid, rank, fx, fy, cx, cy, volume_dims, depth_min, depth_max,
-             voxel_size):
-    v, h, w, c = feats2d.shape
-    out = torch.zeros_like(feats2d)
-    err = lib.tpu3dsis_fuse_views_bwd(grad.data_ptr(), feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(),
+             voxel_size, work=None, scratch=None):
+    """This checkout's K3b on a batch: one call, the gradient from
+    ``torch.empty`` (the kernel zeroes it), the work list and its scratch
+    from the arguments or ``k3b_scratch``."""
+    b, v, h, w, c = feats2d.shape
+    out = torch.empty_like(feats2d)
+    if work is None:
+        work, scratch = k3b_scratch(feats2d, volume_dims)
+    err = lib.tpu3dsis_fuse_views_bwd(b, grad.data_ptr(), feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(),
                                       valid.data_ptr(), rank.data_ptr(), v, h, w, c, *volume_dims, fx, fy, cx, cy,
-                                      depth_min, depth_max, voxel_size, out.data_ptr(),
-                                      torch.cuda.current_stream().cuda_stream)
+                                      depth_min, depth_max, voxel_size, work.data_ptr(), scratch.data_ptr(),
+                                      out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "probe K3b")
+    return out
+
+
+def call_k3b_per_sample(lib, grad, feats2d, depths, mats, valid, rank, fx, fy, cx, cy, volume_dims, depth_min,
+                        depth_max, voxel_size):
+    """The per-sample K3b (``_K3B_PER_SAMPLE``) on the same batch as its
+    wrapper ran it: a zeroed gradient and a launch for each sample."""
+    b, v, h, w, c = feats2d.shape
+    for i in range(b):
+        out = torch.zeros_like(feats2d[i])
+        err = lib.tpu3dsis_fuse_views_bwd(grad[i].data_ptr(), feats2d[i].data_ptr(), depths[i].data_ptr(),
+                                          mats[i].data_ptr(), valid[i].data_ptr(), rank[i].data_ptr(), v, h, w, c,
+                                          *volume_dims, fx, fy, cx, cy, depth_min, depth_max, voxel_size,
+                                          out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _build.check(err, "probe K3b, one sample")
+
+
+def k3b_counts(lib, kw):
+    """What the counting copy of K3b's pass 1 counts on one input: the
+    accepted voxels (the list), and the most of them in one brick, in one
+    warp's slices of a brick (the chain of dependent walks of the per-sample design,
+    which took them one at a time, twice) and in one slice; the bricks that
+    hold any."""
+    call_k3b(lib, **kw)
+    out = (ctypes.c_longlong * 5)()
+    _build.check(lib.tpu3dsis_fuse_views_bwd_counts(out), "probe K3b counts")
+    return dict(zip(("accepted_voxels", "most_in_a_brick", "most_in_a_warp", "most_in_a_slice", "bricks_with_any"),
+                    list(out)))
+
+
+def k3b_case_args(case):
+    """The kernels' arguments of a batched K3b call given as
+    ``fuse_views_backward_batch_plain``'s (``chip_smoke``'s cases): the
+    matrices, flags and rank made on the card once, the intrinsics as
+    floats."""
+    from tpu3dsis_torch.geometry.projection import _intrinsic_floats, batch_operands
+
+    feats = case["feats2d"]
+    mats, valid, rank = batch_operands(case["poses"], case["world_to_grid"], case.get("view_valid"),
+                                       *feats.shape[:2], feats.device)
+    fx, fy, cx, cy = _intrinsic_floats(case["intrinsic"])
+    return dict(grad=case["grad_out"], feats2d=feats, depths=case["depths"], mats=mats, valid=valid, rank=rank,
+                fx=fx, fy=fy, cx=cx, cy=cy, volume_dims=tuple(case["volume_dims"]), depth_min=case["depth_min"],
+                depth_max=case["depth_max"], voxel_size=case["voxel_size"])
 
 
 def k3b_inputs(cs, dev):
-    """K3b's arguments on the training call's shapes: one sample of
-    ``chip_smoke``'s trainable-ENet color batch (5 views of 32x41 depths,
+    """A batched K3b call on the training call's shapes: ``chip_smoke``'s
+    trainable-ENet color batch (4 samples of 5 views of 32x41 depths,
     bench_train's cameras) into 96x48x96, random float32 features and
-    cotangent (their values change the ties, not the work)."""
-    from tpu3dsis_torch.geometry.projection import view_matrices
-
+    cotangent (their values change the ties, not the work), as
+    ``fuse_views_backward_batch_plain``'s arguments."""
     cfg = cs.enet_train_config()
-    batch = cs.train_batch(np.random.RandomState(7), 1, cfg, color=True)
+    n = cs.TRAIN_BATCH["color"]
+    batch = cs.train_batch(np.random.RandomState(7), n, cfg, color=True)
     g = torch.Generator().manual_seed(3)
     v = int(cfg.NUM_IMAGES)
     w, h = cfg.DEPTH_SHAPE
-    k = cfg.INTRINSIC
-    return dict(grad=torch.randn((*cs.SHAPE, 128), generator=g).to(dev),
-                feats2d=torch.randn((v, h, w, 128), generator=g).to(dev),
-                depths=torch.from_numpy(batch["depths"][0]).to(dev),
-                mats=view_matrices(batch["poses"][0], batch["world_to_grid"][0]).to(dev),
-                valid=torch.ones(v, dtype=torch.uint8, device=dev),
-                rank=torch.arange(v + 1, dtype=torch.int32, device=dev), fx=k[0][0], fy=k[1][1], cx=k[0][2],
-                cy=k[1][2], volume_dims=cs.SHAPE, depth_min=cfg.PROJ_DEPTH_MIN, depth_max=cfg.PROJ_DEPTH_MAX,
-                voxel_size=cfg.VOXEL_SIZE)
+    return dict(grad_out=torch.randn((n, *cs.SHAPE, 128), generator=g).to(dev),
+                feats2d=torch.randn((n, v, h, w, 128), generator=g).to(dev),
+                depths=torch.from_numpy(batch["depths"]).to(dev), poses=batch["poses"],
+                world_to_grid=batch["world_to_grid"], intrinsic=cfg.INTRINSIC, volume_dims=cs.SHAPE,
+                depth_min=cfg.PROJ_DEPTH_MIN, depth_max=cfg.PROJ_DEPTH_MAX, voxel_size=cfg.VOXEL_SIZE,
+                view_valid=torch.from_numpy(batch["view_valid"]).to(dev))
 
 
 def k3_inputs(dev, cs):
@@ -322,8 +387,9 @@ def main(argv=()) -> int:
         others.append(str(Path(argv.pop(at + 1)).resolve()))
         argv.pop(at)
     which = set(argv) or {"K1", "K1b", "K2", "K3", "K3b"}
-    if not which <= {"K1", "K1b", "K2", "K3", "K3b"} or (others and "K1b" not in which):
-        print(f"probe: name K1, K1b, K2, K3 or K3b (K1b with --against), not {sorted(which)}", file=sys.stderr)
+    if not which <= {"K1", "K1b", "K2", "K3", "K3b"} or (others and not which & {"K1b", "K3b"}):
+        print(f"probe: name K1, K1b, K2, K3 or K3b (K1b or K3b with --against), not {sorted(which)}",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
@@ -342,7 +408,7 @@ def main(argv=()) -> int:
     if "K3" in which:
         probe_k3(cs, dev, libs, card)
     if "K3b" in which:
-        probe_k3b(cs, dev, libs, card)
+        probe_k3b(cs, dev, libs, card, others)
     return 0
 
 
@@ -446,12 +512,96 @@ def probe_k3(cs, dev, libs, card):
                           "card": card}), flush=True)
 
 
-def probe_k3b(cs, dev, libs, card):
-    args = k3b_inputs(cs, dev)
-    fns = {k: (lambda lib=lib: call_k3b(lib, **args)) for k, lib in libs["fuse_views_bwd"].items()}
-    fns["zeroed gradient alone"] = lambda: torch.zeros_like(args["feats2d"])
-    print(json.dumps({"case": f"K3b float32, 5 views from {cs.SHAPE} x 128 (the training call's shapes)",
-                      "ms": in_turns(fns, 20, cs.device_ms), "card": card}), flush=True)
+def probe_k3b(cs, dev, libs, card, others=()):
+    cases = {f"K3b float32, the training call's shapes: 4 samples x 5 views from {cs.SHAPE} x 128":
+             k3b_inputs(cs, dev),
+             f"K3b float32, a 32-view room (phase 10's) into {cs.SCENE_EXTENT} x 128":
+             cs.k3b_room_case(dev, np.random.RandomState(10))}
+    copies = dict(libs["fuse_views_bwd"])
+    counting = copies.pop(COUNTING)
+    counts = {}
+    for case, plain in cases.items():
+        kw = k3b_case_args(plain)
+        # "pass 2 only" reads the list that a whole call left in its own buffers
+        work, scratch = k3b_scratch(kw["feats2d"], kw["volume_dims"])
+        call_k3b(copies["full"], **kw, work=work, scratch=scratch)
+        fns = {k: (lambda lib=lib: call_k3b(lib, **kw)) for k, lib in copies.items()}
+        fns["pass 2 only"] = lambda: call_k3b(copies["pass 2 only"], **kw, work=work, scratch=scratch)
+        counts[case] = k3b_counts(counting, kw)
+        print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "counts": counts[case],
+                          "card": card}), flush=True)
+    if others:
+        against_k3b(cs, cases, counts, list(others), card)
+
+
+def against_k3b(cs, cases, counts, others, card):
+    """The per-sample K3b of each checkout in `others` (its ``fuse_views_bwd.cu``
+    built against its own header), a launch per sample, against this
+    checkout's, one launch for the batch, on the same calls in one process,
+    in turns (the others, this one, this one, the others reversed): device
+    ms of the kernels, and the host's ms of the whole call, its wrapper's
+    host work re-enacted (each sample's matrices made on the host and copied
+    up from pinned memory, its rank, its zeroed gradient) against this
+    checkout's wrapper on the forward's operands. One JSON line per case,
+    with the chain of the per-sample design (the most accepted voxels in one warp's
+    slices) and its device ms per voxel of that chain."""
+    from tpu3dsis_torch.geometry import projection
+
+    nvcc = _build._nvcc()
+    out = _build.BUILD_DIR / "probe"
+    libs = {}
+    for i, root in enumerate(others):
+        csrc = Path(root) / "tpu3dsis_torch" / "csrc"
+        lib_path = out / f"against_{i}_fuse_views_bwd.so"
+        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib_path), str(csrc / "fuse_views_bwd.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"probe: K3b of {root} did not build:\n{res.stdout[-4000:]}{res.stderr[-4000:]}")
+        lib = ctypes.CDLL(str(lib_path))
+        if hasattr(lib, "tpu3dsis_fuse_views_bwd_counts"):
+            raise RuntimeError(f"probe: {root}'s K3b is batched; --against K3b compares the per-sample design")
+        lib.tpu3dsis_fuse_views_bwd.argtypes, lib.tpu3dsis_fuse_views_bwd.restype = _K3B_PER_SAMPLE
+        libs[root] = lib
+    here = _build.load_library()
+    for case, plain in cases.items():
+        kw = k3b_case_args(plain)
+        b = kw["feats2d"].shape[0]
+        device, host = {}, {}
+
+        def per_sample_wrapper(lib):
+            for i in range(b):  # as the per-sample fuse_views_backward_cuda ran each sample
+                mats = projection.view_matrices(plain["poses"][i], plain["world_to_grid"][i]).pin_memory().to(
+                    kw["feats2d"].device, non_blocking=True)
+                valid = torch.as_tensor(plain["view_valid"][i], dtype=torch.bool).to(torch.uint8)
+                rank = torch.zeros(valid.shape[0] + 1, dtype=torch.int32, device=valid.device)
+                torch.cumsum(valid, 0, dtype=torch.int32, out=rank[1:])
+                one = {k: (v[i:i + 1] if k in ("grad", "feats2d", "depths") else v) for k, v in kw.items()}
+                call_k3b_per_sample(lib, **dict(one, mats=mats[None], valid=valid[None], rank=rank[None]))
+
+        def this_wrapper():
+            projection.fuse_views_backward_cuda(plain["grad_out"], plain["feats2d"], plain["depths"], plain["poses"],
+                                                plain["world_to_grid"], plain["intrinsic"], plain["volume_dims"],
+                                                plain["depth_min"], plain["depth_max"], plain["voxel_size"],
+                                                view_valid=kw["valid"], mats=kw["mats"], rank=kw["rank"])
+
+        turns = [*others, "this checkout", "this checkout", *others[::-1]]
+        for who in turns:
+            if who == "this checkout":
+                dev_fn, host_fn = (lambda: call_k3b(here, **kw)), this_wrapper
+            else:
+                dev_fn = lambda lib=libs[who]: call_k3b_per_sample(lib, **kw)  # noqa: E731
+                host_fn = lambda lib=libs[who]: per_sample_wrapper(lib)  # noqa: E731
+            device.setdefault(who, []).append(cs.device_ms(dev_fn, 20))
+            host.setdefault(who, []).append(cs.host_ms(host_fn, 20))
+        chain = counts[case]["most_in_a_warp"]
+        ms = {who: round(statistics.median(t), 5) for who, t in device.items()}
+        print(json.dumps({
+            "case": f"{case}: the per-sample design, a launch a sample, against this one, one launch",
+            "ms": ms, "host_ms": {who: round(statistics.median(t), 5) for who, t in host.items()},
+            "chain": {"most_in_a_warp": chain, "most_in_a_brick": counts[case]["most_in_a_brick"],
+                      "device_us_per_chained_voxel": {who: round(1e3 * t / b / max(chain, 1), 4)
+                                                      for who, t in ms.items() if who != "this checkout"}},
+            "card": card}), flush=True)
 
 
 if __name__ == "__main__":

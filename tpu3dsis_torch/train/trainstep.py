@@ -229,10 +229,11 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
         imageft = None
         if use_images:
             # The ENet takes every view of the batch in one call; K3 fuses
-            # each chunk's views into its volume. A frozen ENet (every
-            # shipped config) runs without a gradient, its features cast to
-            # the compute dtype before K3; a trained one keeps them float32
-            # through the fusion (K3b in the backward), and the volume is cast.
+            # each chunk's views into its volume, on matrices made once for
+            # the batch. A frozen ENet (every shipped config) runs without a
+            # gradient, its features cast to the compute dtype before K3; a
+            # trained one keeps them float32 through the fusion (one K3b
+            # launch for the batch in the backward), and the volume is cast.
             with torch.set_grad_enabled(train_enet), timer("color"):
                 proj = detector.color_projector
                 images = to_dev(batch["images"])
@@ -242,9 +243,8 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
                 feats2d = feats2d.reshape(*images.shape[:2], *feats2d.shape[1:])
                 depths = to_dev(batch["depths"], torch.float32)
                 view_valid = to_dev(batch["view_valid"], torch.bool)
-                imageft = torch.stack([proj.project(feats2d[i], depths[i], batch["poses"][i],
-                                                    batch["world_to_grid"][i], shape, view_valid=view_valid[i])
-                                       for i in range(b)]).to(detector.compute_dtype)
+                imageft = proj.project_batch(feats2d, depths, batch["poses"], batch["world_to_grid"], shape,
+                                             view_valid=view_valid).to(detector.compute_dtype)
         feats = detector.features(data, imageft)
         per_sample = {}
         rpn_out = detector.rpn_forward(feats)
