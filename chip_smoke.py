@@ -2497,27 +2497,42 @@ def k3b_samples(args):
 
 
 def k3b_bound(args):
-    """K3b's bound in ms on one batched call, its bound_by, its bytes and the
-    voxels that some valid view accepts, summed over the samples: the
-    cotangent rows of those voxels (the only rows the gradient reads) read
-    once, the feature maps, depths, matrices and flags read once and the
-    (B, V, H, W, C) float32 gradient written once (bytes), or K3's
-    projections for the (brick, view) pairs its cull keeps (operations, at
+    """K3b's bound in ms on one batched call, its bound_by, its bytes, the
+    voxels that some valid view accepts and the (view, pixel) rows that
+    accept some voxel, summed over the samples, and the bound in ms were
+    every feature row read: the cotangent rows of those voxels and the
+    feature rows of those pixels (the only rows the gradient depends on)
+    read once, the depths, matrices and flags read once and the (B, V, H,
+    W, C) float32 gradient written once (bytes), or K3's projections for
+    the (brick, view) pairs its cull keeps (operations, at
     K3_OPS_PER_PROJECTION a projection)."""
-    nbytes = projections = touched = 0
+    nbytes = projections = touched = rows = every_row = 0
     for one in k3b_samples(args):
         feats2d, depths = one["feats2d"], one["depths"]
         v, h, w, c = feats2d.shape
-        ones = torch.ones((v, h, w, 1), device=feats2d.device)
-        kw = {k: one[k] for k in ("poses", "world_to_grid", "intrinsic", "volume_dims", "depth_min", "depth_max",
-                                  "voxel_size", "view_valid")}
-        n = int((projection.fuse_views_plain(ones, depths, **kw) > 0).sum())
+        mats, intr, bounds, coords, depths32, valid = projection._plain_setup(
+            feats2d, depths, one["poses"], one["world_to_grid"], one["intrinsic"], one["volume_dims"],
+            one["depth_min"], one["depth_max"], one["voxel_size"], one["view_valid"])
+        accepted = torch.zeros(coords[0].numel(), dtype=torch.bool, device=feats2d.device)
+        for i in range(v):
+            if not bool(valid[i]):
+                continue
+            accept, pix = projection._project(mats[i], depths32[i], *intr, coords, *bounds)
+            accepted |= accept
+            rows += int(torch.zeros(h * w, dtype=torch.bool, device=feats2d.device).index_fill_(
+                0, pix[accept], True).sum())
+        n = int(accepted.sum())
         lo, hi = projection.brick_bounds(one["volume_dims"], depths.device)
         projections += int(((hi - lo + 1).prod(1) * k3_kept(one).sum(1)).sum())
-        nbytes += n * c * 4 + 2 * feats2d.numel() * 4 + depths.numel() * 4 + v * (12 * 4 + 1)
+        fixed = feats2d.numel() * 4 + depths.numel() * 4 + v * (12 * 4 + 1) + n * c * 4
+        nbytes += fixed
+        every_row += fixed + feats2d.numel() * 4
         touched += n
+    rows_bytes = rows * args["feats2d"].shape[-1] * 4
+    nbytes += rows_bytes
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, projections * K3_OPS_PER_PROJECTION / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"), nbytes, touched
+    every_ms = max(every_row / HBM_BYTES_PER_S * 1e3, t_ops)
+    return max(t_bytes, t_ops), ("operations" if t_ops > t_bytes else "bytes"), nbytes, touched, rows, every_ms
 
 
 def _k3b_case(name, args, phase=10):
@@ -2753,21 +2768,25 @@ def phase_enet(dev):
         events_ms = cuda_ms(call, 20)
         wrapper_ms = host_ms(call, 20)
         split = k3b_kernel_split(call)
-        bound, bound_by, nbytes, touched = k3b_bound(args)
+        bound, bound_by, nbytes, touched, rows, every_row_ms = k3b_bound(args)
         full_cot = int(np.prod(args["grad_out"].shape)) * 4
         plain = res["k3b_plain_ms"] if case == "training call" else room_plain_ms
         res["k3b_times"][case] = {"ms": ms, "ms_events": events_ms, "host_ms": wrapper_ms, "bound_ms": bound,
                                   "bound_by": bound_by, "bound_share": bound / ms, "plain_ms": plain,
-                                  "us_by_kernel": split, "launches_equal": same, "touched_voxels": touched}
+                                  "us_by_kernel": split, "launches_equal": same, "touched_voxels": touched,
+                                  "accepting_rows": rows, "every_row_bound_ms": every_row_ms,
+                                  "every_row_bound_share": every_row_ms / ms}
         log(f"[10] K3b on the {case} ({tuple(args['feats2d'].shape)} float32 from {tuple(args['grad_out'].shape)}, "
             f"one call): {ms:.5f} ms device time (20 calls queued behind a device sleep: the memset of the list's "
             f"length and bitmap, pass 1, pass 2); {events_ms:.5f} ms the median of CUDA events around each call; the wrapper's host "
             f"time {wrapper_ms:.5f} ms (the host's clock around the call); us by kernel "
             f"{ {k: round(v, 2) for k, v in split.items()} if split else 'not captured'}; plain {plain:.1f} ms, "
             f"bound {bound:.5f} ms by {bound_by} ({nbytes:,} B: the cotangent rows of the {touched:,} voxels some "
-            f"view accepts, features read and gradient written, depths; the whole cotangent would add "
+            f"view accepts and the feature rows of the {rows:,} (view, pixel) rows that accept some voxel read, the "
+            f"gradient written, depths; the whole cotangent would add "
             f"{(full_cot - touched * args['feats2d'].shape[-1] * 4) / HBM_BYTES_PER_S * 1e3:.5f} ms), "
-            f"{bound / ms:.3f} of it; two launches torch.equal: {same}; K3b launches per training step "
+            f"{bound / ms:.3f} of it; with every feature row read the bound would be {every_row_ms:.5f} ms "
+            f"({every_row_ms / ms:.3f} of it); two launches torch.equal: {same}; K3b launches per training step "
             f"{per_step['fuse_views_backward_cuda']:.0f} [{CARD}]")
     train_call = res["k3b_times"]["training call"]
     res["k3b_ms"], res["k3b_bound_ms"], res["k3b_bound_by"] = (train_call["ms"], train_call["bound_ms"],

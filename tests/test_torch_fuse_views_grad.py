@@ -268,47 +268,80 @@ def _k3b_const(name):
 
 
 KROWS = int(_k3b_const("kRows"))
-CAM_ERROR, PIXEL_SLACK, GRID_SLACK = (np.float32(_k3b_const(n)) for n in ("kCamError", "kPixelSlack", "kGridSlack"))
+# pass 1's margins, of the magnitudes they scale with
+ULPS = torch.tensor(_k3b_const("kUlps") * float(np.finfo(np.float32).eps), dtype=torch.float32)
 
 
-def slab_boxes(mats, depths, valid, dims, depth_min, voxel_size, intrinsic=EK, depth_max=DMAX):
-    """K3b pass 1's box of each (view, pixel) in float32, as the kernel forms
-    it (its margins read from its source): (V, H * W, 3) first and last voxel, empty (first > last) where the
-    view is invalid or the pixel's depth is out of range. The camera-to-grid
-    map is the adjugate of the matrix's 3x3 over its determinant."""
+def cam_margin(mats, dims):
+    """K3b pass 1's margin for a voxel's camera coordinates, per view: kUlps
+    FLT_EPSILON of the view's extent over the grid (the largest row of
+    |m_r0| (X - 1) + |m_r1| (Y - 1) + |m_r2| (Z - 1) + |m_r3|)."""
+    m = mats.reshape(-1, 12)
+    ext = torch.zeros(m.shape[0])
+    for r in range(3):
+        ext = torch.maximum(ext, ((m[:, 4 * r].abs() * float(dims[0] - 1) + m[:, 4 * r + 1].abs() * float(dims[1] - 1))
+                                  + m[:, 4 * r + 2].abs() * float(dims[2] - 1)) + m[:, 4 * r + 3].abs())
+    return ULPS * ext
+
+
+def slab_boxes(mats, depths, valid, dims, depth_min, voxel_size, intrinsic=EK, depth_max=DMAX, inverse_error=False):
+    """K3b pass 1's box of each (view, pixel), in the kernel's float32
+    operations and their order (its margins read from its source): (V, H *
+    W, 3) first and last voxel, empty (first > last) where the view is
+    invalid or the pixel's depth is out of range. A slab's 8 corners go to
+    the grid through the adjugate of the matrix's 3x3 times the reciprocal
+    of its determinant, each widened by the camera coordinates' error
+    through that inverse and by the inverse's own. With ``inverse_error``
+    also the largest ratio, over the live corners, of the float32 corner's
+    distance from its float64 image to the inverse's margin."""
     v, h, w = depths.shape
     fx, fy, cx, cy = P._intrinsics(intrinsic)
     m = mats.reshape(v, 12)
+    cam_err = cam_margin(mats, dims)[:, None]
+    slack = ULPS * (float(max(w, h)) + torch.maximum(cx.abs(), cy.abs()))
     a = torch.stack([m[:, 5] * m[:, 10] - m[:, 6] * m[:, 9], m[:, 2] * m[:, 9] - m[:, 1] * m[:, 10],
                      m[:, 1] * m[:, 6] - m[:, 2] * m[:, 5], m[:, 6] * m[:, 8] - m[:, 4] * m[:, 10],
                      m[:, 0] * m[:, 10] - m[:, 2] * m[:, 8], m[:, 2] * m[:, 4] - m[:, 0] * m[:, 6],
                      m[:, 4] * m[:, 9] - m[:, 5] * m[:, 8], m[:, 1] * m[:, 8] - m[:, 0] * m[:, 9],
-                     m[:, 0] * m[:, 5] - m[:, 1] * m[:, 4]], 1)
-    det = m[:, 0] * a[:, 0] + m[:, 1] * a[:, 3] + m[:, 2] * a[:, 6]
-    inv = (a / det[:, None]).reshape(v, 1, 3, 3)
+                     m[:, 0] * m[:, 5] - m[:, 1] * m[:, 4]], 1)[:, None, :]  # (V, 1, 9)
+    rdet = (1 / ((m[:, 0] * a[:, 0, 0] + m[:, 1] * a[:, 0, 3]) + m[:, 2] * a[:, 0, 6]))[:, None]
+    amax = a.abs().amax(-1)
     d = depths.reshape(v, -1)
-    eps, foot = np.float32(P.CULL_EPS), np.float32(P.FOOTPRINT_Z)
+    eps = np.float32(P.CULL_EPS)
     z0 = torch.clamp((d - np.float32(voxel_size)) - eps, min=0.0)
     z1 = (d + np.float32(voxel_size)) + eps
     u0, v0 = (torch.arange(h * w) % w).float(), (torch.arange(h * w) // w).float()
-    near = ~(z0 > foot)
-    slack = PIXEL_SLACK + torch.where(near, 0.0, CAM_ERROR * torch.maximum(fx, fy) / z0)
-    ulo = torch.where(near, -0.5, u0 - 0.5) - slack
-    uhi = torch.where(near, w - 0.5, u0 + 0.5) + slack
-    vlo = torch.where(near, -0.5, v0 - 0.5) - slack
-    vhi = torch.where(near, h - 0.5, v0 + 0.5) + slack
     lo, hi = torch.full((v, h * w, 3), torch.inf), torch.full((v, h * w, 3), -torch.inf)
+    live = valid[:, None] & (d >= depth_min) & (d <= depth_max)
+    inv64 = torch.linalg.inv(mats[:, :, :3].double())[:, None]  # (V, 1, 3, 3)
+    worst = 0.0
     for i in range(8):
         zc = z1 if i & 4 else z0
-        c = torch.stack([((uhi if i & 1 else ulo) - cx) / fx * zc - m[:, 3:4],
-                         ((vhi if i & 2 else vlo) - cy) / fy * zc - m[:, 7:8], zc - m[:, 11:12]], -1)
-        g = (inv[..., 0] * c[..., 0:1] + inv[..., 1] * c[..., 1:2]) + inv[..., 2] * c[..., 2:3]
-        lo, hi = torch.minimum(lo, g), torch.maximum(hi, g)
+        e = [((u0 + (0.5 + slack if i & 1 else -0.5 - slack)) - cx) * (1 / fx) * zc,
+             ((v0 + (0.5 + slack if i & 2 else -0.5 - slack)) - cy) * (1 / fy) * zc, zc]
+        c = [e[j] - m[:, 4 * j + 3:4 * j + 4] for j in range(3)]
+        size = ((e[0].abs() + m[:, 3:4].abs()) + (e[1].abs() + m[:, 7:8].abs())) + (e[2].abs() + m[:, 11:12].abs())
+        inv_err = ULPS * size * amax * rdet.abs()
+        if inverse_error:
+            c64 = torch.stack([((u0.double() + (0.5 + slack.double() if i & 1 else -0.5 - slack.double()))
+                                - cx.double()) / fx.double() * zc.double(),
+                               ((v0.double() + (0.5 + slack.double() if i & 2 else -0.5 - slack.double()))
+                                - cy.double()) / fy.double() * zc.double(), zc.double()], -1)
+            g64 = (inv64 @ (c64 - m[:, None, 3::4].double())[..., None])[..., 0]
+        for r in range(3):
+            ar = a[..., 3 * r:3 * r + 3]
+            g = ((ar[..., 0] * c[0] + ar[..., 1] * c[1]) + ar[..., 2] * c[2]) * rdet
+            wr = cam_err * ((ar[..., 0].abs() + ar[..., 1].abs()) + ar[..., 2].abs()) * rdet.abs() + inv_err
+            finite = torch.isfinite(g - wr) & torch.isfinite(g + wr)
+            if inverse_error:
+                worst = max(worst, float(((g.double() - g64[..., r]).abs() / inv_err)[live].max()))
+            lo[..., r] = torch.minimum(lo[..., r], torch.where(finite, g - wr, -torch.inf))
+            hi[..., r] = torch.maximum(hi[..., r], torch.where(finite, g + wr, torch.inf))
     top = torch.tensor(dims, dtype=torch.float32) - 1
-    first = torch.clamp(torch.ceil(lo - GRID_SLACK), min=0)
-    last = torch.minimum(torch.floor(hi + GRID_SLACK), top)
-    live = valid[:, None] & (d >= depth_min) & (d <= depth_max)
-    return torch.where(live[..., None], first, 1.0), torch.where(live[..., None], last, 0.0)
+    first = torch.where(torch.isfinite(lo), torch.clamp(torch.ceil(lo), min=0), 0.0)
+    last = torch.where(torch.isfinite(hi), torch.minimum(torch.floor(hi), top), top)
+    boxes = torch.where(live[..., None], first, 1.0), torch.where(live[..., None], last, 0.0)
+    return (*boxes, worst) if inverse_error else boxes
 
 
 def k3b_emulated(grad_out, feats, depths, poses, w2g, dims, view_valid, count_culled=True, rows_held=KROWS):
@@ -406,41 +439,103 @@ def k3b_emulated(grad_out, feats, depths, poses, w2g, dims, view_valid, count_cu
     return out.reshape(v, h, w, c), keep, int(zero_ties.sum()), reads, int(n_acc.sum()), int(held.sum())
 
 
+def _slab_setup(name, rng, depth_min=DMIN):
+    """(dims, voxel size, intrinsic, depth_min, depth_max, poses, world_to_grid,
+    depths) of 8 views: "near_camera", cameras inside a small grid at random
+    angles with depths down to 2 cm (with depth_min 0, slabs reach the
+    camera plane); "scene", the color scene's 240x48x240 grid at 0.047 m
+    with its room offset and cameras standing in the room; "train", the
+    training call's 96x48x96 grid at 0.094 m, its offset and bench_train's
+    cameras 1 m in front of it."""
+    v = 8
+    if name == "near_camera":
+        ext = np.asarray(EDIMS) * EVOX
+        poses = [chip_smoke.camera_pose(rng.uniform(0.1, 0.9, 3) * ext, rng.uniform(0, 360), rng.uniform(-60, 60))
+                 for _ in range(v)]
+        w2g = np.diag([1 / EVOX] * 3 + [1.0])
+        w2g[:3, 3] = rng.uniform(-0.5, 0.5, 3)
+        depths = rng.uniform(0.02, 3.0, (v, EH, EW))
+        depths[::2] = rng.uniform(0.02, 0.3, (v // 2, EH, EW))  # every other view sees a wall at arm's length
+        return EDIMS, EVOX, EK, depth_min, DMAX, poses, w2g, depths
+    if name == "train":
+        cfg = chip_smoke.enet_train_config()
+        poses = np.tile(np.eye(4), (v, 1, 1))
+        poses[:, 2, 3] = -1.0
+        vs, dims = float(cfg.VOXEL_SIZE), chip_smoke.SHAPE
+        w2g = np.diag([1 / vs] * 3 + [1.0])
+        w2g[:3, 3] = [dims[0] / 2, 0.0, dims[2] / 2]
+        return dims, vs, cfg.INTRINSIC, cfg.PROJ_DEPTH_MIN, cfg.PROJ_DEPTH_MAX, poses, w2g, \
+            rng.uniform(0.4, 4.0, (v, EH, EW))
+    cfg = chip_smoke.scannet_color_scene_config()
+    dims, vs = chip_smoke.SCENE_EXTENT, chip_smoke.VOXEL
+    room = (np.asarray(dims) - 2 * chip_smoke.ROOM_OFFSET) * vs
+    poses = [chip_smoke.camera_pose(np.array([rng.uniform(0.5, room[0] - 0.5), rng.uniform(1.25, 1.85),
+                                              rng.uniform(0.5, room[2] - 0.5)]), rng.uniform(0, 360),
+                                    rng.uniform(-5, 30)) for _ in range(v)]
+    w2g = np.diag([1 / vs] * 3 + [1.0])
+    w2g[:3, 3] = chip_smoke.ROOM_OFFSET
+    return dims, vs, cfg.INTRINSIC, cfg.PROJ_DEPTH_MIN, cfg.PROJ_DEPTH_MAX, poses, w2g, \
+        rng.uniform(0.05, 4.5, (v, EH, EW))
+
+
+def _check_slabs(dims, vs, k, dmin, dmax, poses, w2g, depths):
+    """Every accepting (voxel, view) pair of the whole grid lies in its
+    pixel's slab box; the boxes hold a few voxels; the float error the
+    margins cover, measured against float64 at the accepting voxels (their
+    camera coordinates) and at every live corner (its image in the grid),
+    stays under a quarter of its margin. Returns the accepting pairs whose
+    slab reaches the camera plane."""
+    v = len(poses)
+    poses, w2g = np.asarray(poses, np.float32), np.asarray(w2g, np.float32)
+    depths = torch.from_numpy(np.asarray(depths, np.float32))
+    valid = torch.ones(v, dtype=torch.bool)
+    mats = P.view_matrices(poses, w2g)
+    fx, fy, cx, cy = P._intrinsics(k)
+    g = torch.meshgrid(*(torch.arange(n, dtype=torch.float32) for n in dims), indexing="ij")
+    coords = tuple(t.reshape(-1) for t in g)
+    first, last, inv_ratio = slab_boxes(mats, depths, valid, dims, dmin, vs, intrinsic=k, depth_max=dmax,
+                                        inverse_error=True)
+    cam_err = cam_margin(mats, dims)
+    pairs = at_plane = 0
+    cam_ratio = 0.0
+    for i in range(v):
+        a, pix = P._project(mats[i], depths[i], fx, fy, cx, cy, coords, torch.tensor(dmin), torch.tensor(dmax),
+                            torch.tensor(vs))
+        idx = torch.nonzero(a).flatten()
+        grid = torch.stack([t[idx] for t in coords], 1)
+        inside = ((grid >= first[i][pix[idx]]) & (grid <= last[i][pix[idx]])).all(1)
+        assert bool(inside.all()), f"view {i}: an accepting voxel outside its pixel's slab"
+        cam32 = torch.stack([((mats[i, r, 0] * grid[:, 0] + mats[i, r, 1] * grid[:, 1]) + mats[i, r, 2] * grid[:, 2])
+                             + mats[i, r, 3] for r in range(3)], 1)
+        cam64 = grid.double() @ mats[i, :, :3].double().T + mats[i, :, 3].double()
+        if idx.numel():
+            cam_ratio = max(cam_ratio, float((cam32.double() - cam64).abs().max()) / float(cam_err[i]))
+        pairs += idx.numel()
+        at_plane += int((depths[i].reshape(-1)[pix[idx]] - vs - P.CULL_EPS <= 0).sum())
+    sizes = (last - first + 1).clamp(min=0).prod(-1)
+    # a few voxels a pixel, not the grid
+    assert pairs > 100 and float(sizes[sizes > 0].float().mean()) < 50
+    assert cam_ratio < 0.25 and inv_ratio < 0.25, (cam_ratio, inv_ratio)
+    return at_plane
+
+
 @pytest.mark.parametrize("depth_min", [0.0, DMIN])
 def test_k3b_pixel_slabs_hold_every_accepting_voxel(depth_min):
     """Every (voxel, view) pair that accepts lies in the slab box of its
-    pixel, the box K3b's pass 1 searches: cameras inside the grid at random
-    angles, depths down to 2 cm, and with depth_min 0 the slabs that start
-    within FOOTPRINT_Z of the camera (the whole image's there)."""
+    pixel, the box K3b's pass 1 searches (``_check_slabs``): cameras inside
+    the grid at random angles, depths down to 2 cm, and with depth_min 0
+    slabs that reach the camera plane."""
     rng = np.random.RandomState(int(depth_min * 10) + 5)
-    v = 8
-    ext = np.asarray(EDIMS) * EVOX
-    poses = np.asarray([chip_smoke.camera_pose(rng.uniform(0.1, 0.9, 3) * ext, rng.uniform(0, 360),
-                                               rng.uniform(-60, 60)) for _ in range(v)], np.float32)
-    w2g = np.diag([1 / EVOX] * 3 + [1.0]).astype(np.float32)
-    w2g[:3, 3] = rng.uniform(-0.5, 0.5, 3)
-    depths = rng.uniform(0.02, 3.0, (v, EH, EW)).astype(np.float32)
-    depths[::2] = rng.uniform(0.02, 0.3, (v // 2, EH, EW))  # every other view sees a wall at arm's length
-    depths = torch.from_numpy(depths)
-    valid = torch.ones(v, dtype=torch.bool)
-    mats = P.view_matrices(poses, w2g)
-    fx, fy, cx, cy = P._intrinsics(EK)
-    g = torch.meshgrid(*(torch.arange(n, dtype=torch.float32) for n in EDIMS), indexing="ij")
-    coords = tuple(t.reshape(-1) for t in g)
-    grid = torch.stack(coords, 1)
-    first, last = slab_boxes(mats, depths, valid, EDIMS, depth_min, EVOX)
-    pairs = near = 0
-    for i in range(v):
-        a, pix = P._project(mats[i], depths[i], fx, fy, cx, cy, coords, torch.tensor(depth_min),
-                            torch.tensor(DMAX), torch.tensor(EVOX))
-        inside = ((grid >= first[i][pix]) & (grid <= last[i][pix])).all(1)
-        assert not bool((a & ~inside).any()), f"view {i}: an accepting voxel outside its pixel's slab"
-        pairs += int(a.sum())
-        near += int((a & (depths[i].reshape(-1)[pix] - EVOX - P.CULL_EPS <= P.FOOTPRINT_Z)).sum())
-    sizes = (last - first + 1).clamp(min=0).prod(-1)
-    assert pairs > 100 and float(sizes[sizes > 0].float().mean()) < 50  # a few voxels a pixel, not the grid
+    at_plane = _check_slabs(*_slab_setup("near_camera", rng, depth_min))
     if depth_min == 0.0:
-        assert near > 0  # slabs that reach the camera plane were exercised
+        assert at_plane > 0  # slabs that reach the camera plane were exercised
+
+
+@pytest.mark.parametrize("name", ["scene", "train"])
+def test_k3b_pixel_slabs_hold_on_the_shipped_grids(name):
+    """``_check_slabs`` on every voxel of the shipped color scene's and
+    training call's grids, with their voxel sizes, offsets and intrinsics."""
+    _check_slabs(*_slab_setup(name, np.random.RandomState(sum(map(ord, name)))))
 
 
 @pytest.mark.parametrize("rows_held", [KROWS, 1])
@@ -479,6 +574,7 @@ def test_k3b_algorithm_matches_plain_gradient(case, rows_held):
     # each accepting view's row read once, and again only in an earlier round's marked rows
     assert accepted <= reads <= accepted + earlier and (reads > accepted) == (earlier > 0)
     assert earlier > 0 or rows_held == KROWS
-    # and those culled views matter: leaving them out of the zero count is wrong
-    wrong = k3b_emulated(g, feats, depths, poses, w2g, EDIMS, valid, count_culled=False, rows_held=rows_held)[0]
-    assert float((wrong - want).abs().max()) > 1e-3 * float(want.abs().max())
+    # and those culled views matter: leaving them out of the zero count is wrong (the reads do not change it)
+    if rows_held == KROWS:
+        wrong = k3b_emulated(g, feats, depths, poses, w2g, EDIMS, valid, count_culled=False)[0]
+        assert float((wrong - want).abs().max()) > 1e-3 * float(want.abs().max())

@@ -60,7 +60,6 @@ _SIGNATURES = {
                                  _P, _P, _P, _P], _I),
     "tpu3dsis_fuse_views_bwd_smem": ([_I, _I], _LL),
     "tpu3dsis_fuse_views_bwd_launches": ([], _LL),
-    "tpu3dsis_fuse_views_bwd_counts": ([_P], _I),
 }
 
 

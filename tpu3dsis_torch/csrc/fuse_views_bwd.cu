@@ -65,6 +65,7 @@
 //     an order that can change from launch to launch.
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 
 #include <algorithm>
@@ -78,42 +79,44 @@ using namespace fuse_views_common;
 constexpr bool kPass1 = true;      // the probe's "pass 2 only" copy reuses the list of the call before
 constexpr bool kPass2 = true;      // the probe's "pass 1 only" copy stops after the list
 constexpr bool kZeroOnly = false;  // the probe's "zero fill alone" copy
-// the probe's counting copy: pass 1 counts each listed voxel in its K3
-// brick, in the brick's warp of the per-sample design (x-slices w and w +
-// kWarps) and in its x-slice, into g_counts, read by
-// tpu3dsis_fuse_views_bwd_counts
-constexpr bool kCount = false;
 constexpr int kListThreads = 256;  // pass 1's block
 constexpr int kSlabLanes = 8;      // pass 1's lanes a pixel: a corner of its slab each, then its voxels in turn
 static_assert(kSlabLanes % 8 == 0 && 32 % kSlabLanes == 0, "a slab's 8 corners to a pixel's lanes");
 constexpr int kGradThreads = 128;  // pass 2's block
 constexpr int kRows = 4;           // feature rows a lane holds in registers
-// margins of a pixel's slab for float error: a voxel's camera coordinates
-// are off by a few ulps of their terms (about 1e-5 m for grids of hundreds of
-// voxels of centimetres; kCamError bounds it ten times over), which moves
-// its pixel by kCamError * f / z; kPixelSlack more pixels, and kGridSlack
-// voxels beyond the box of the slab's corners (their own error)
-constexpr float kCamError = 1e-4f;
-constexpr float kPixelSlack = 0.01f;
-constexpr float kGridSlack = 0.01f;
-constexpr int kCountSlots = kCount ? 1 << 15 : 1;  // bricks counted
-constexpr int kCountPer = 1 + kWarps + kBX;         // a brick's counts: in all, per warp, per slice
+// pass 1's margins for float error, in FLT_EPSILON (2u, u = 2^-24) of the
+// magnitudes each error scales with (see k3b_list_pass): about 4 times the
+// bound of the inverse's error, 20 and 30 times those of the pixel's and
+// the camera coordinates'
+constexpr float kUlps = 64.0f;
 
 long long g_launches = 0;
-__device__ unsigned g_counts[kCountSlots][kCountPer];
 
 // Pass 1: kSlabLanes lanes per (sample, view, pixel). A voxel accepts the
 // view at pixel p only if its rounded projection is p and its camera depth
-// lies within voxel_size of p's depth d: its centre lies in p's slab, the
-// pixel's square (widened for float error) between camera depths d -
-// voxel_size - kEps and d + voxel_size + kEps, or, where that starts nearer
-// than kFootprintZ, the whole image's. Each lane takes a corner of the slab
-// through the inverse of the view's matrix (the box is a bound, so its
-// divisions are reciprocals); the box of the 8 corners in the grid, widened
-// by kGridSlack, comes from shuffles. The lanes then run the predicate's own
-// code on the box's voxels in turn; the voxels that accept at p are marked
-// in a bitmap, and those marked first are appended to the list, one atomic
-// a warp. Every voxel some valid view accepts is listed once; no others.
+// lies within voxel_size of p's depth d. So the camera coordinates that the
+// predicate computes for it lie in p's slab: the frustum of p's square
+// between camera depths z0 = max(d - voxel_size - kEps, 0) and z1 = d +
+// voxel_size + kEps, its square widened by the pixel's rounding error (the
+// division and the sum of project(): at most 3u (|q| + |q + c|), q + c in
+// the image, so 6u (max(W, H) + max(|cx|, |cy|)) pixels). Its exact camera
+// coordinates are off from those by cam_row's error: three products and
+// three sums, at most 4u of the row's summed magnitudes, which over the grid
+// are at most the view's extent, the largest row of |m_r0| (X - 1) + |m_r1|
+// (Y - 1) + |m_r2| (Z - 1) + |m_r3|. Each lane maps a corner of the slab to
+// the grid through the inverse of the view's 3x3, R (the adjugate over the
+// determinant), and widens it on each axis r by that error through R^-1
+// (cam_err * sum_j |R^-1_rj|) and by the inverse's own error (the corner's
+// arithmetic, the adjugate, the determinant and the product: at most about
+// 33u of max |R^-1| times the sum of the corner's and the translation's
+// magnitudes, for R a rotation times a uniform scale, as every view matrix
+// of a rigid pose and a grid of cubic voxels is). Each margin is kUlps
+// FLT_EPSILON (128u) of its magnitude, so it grows with the grid, the image
+// and the coordinates. The box of the 8 widened corners comes from
+// shuffles. The lanes then run the predicate's own code on the box's voxels
+// in turn; the voxels that accept at p are marked in a bitmap, and those
+// marked first are appended to the list, one atomic a warp. Every voxel
+// some valid view accepts is listed once; no others.
 __global__ void __launch_bounds__(kListThreads)
 k3b_list_pass(const float* __restrict__ depths, const float* __restrict__ mats,
               const unsigned char* __restrict__ view_valid, int B, int V, int X, int Y, int Z, Intrinsics k,
@@ -134,24 +137,42 @@ k3b_list_pass(const float* __restrict__ depths, const float* __restrict__ mats,
   float m[12];
 #pragma unroll
   for (int i = 0; i < 12; ++i) m[i] = live ? __ldg(mats + bv * 12 + i) : 0.0f;
+  float extent = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    extent = fmaxf(extent, fabsf(m[4 * r]) * (X - 1) + fabsf(m[4 * r + 1]) * (Y - 1) +
+                               fabsf(m[4 * r + 2]) * (Z - 1) + fabsf(m[4 * r + 3]));
+  }
+  const float cam_err = kUlps * FLT_EPSILON * extent;
+  const float slack = kUlps * FLT_EPSILON * (fmaxf(k.W, k.H) + fmaxf(fabsf(k.cx), fabsf(k.cy)));
   // camera to grid: g = R^-1 (c - t), R and t the matrix's 3x3 and last column
-  const float a00 = m[5] * m[10] - m[6] * m[9], a01 = m[2] * m[9] - m[1] * m[10], a02 = m[1] * m[6] - m[2] * m[5];
-  const float a10 = m[6] * m[8] - m[4] * m[10], a11 = m[0] * m[10] - m[2] * m[8], a12 = m[2] * m[4] - m[0] * m[6];
-  const float a20 = m[4] * m[9] - m[5] * m[8], a21 = m[1] * m[8] - m[0] * m[9], a22 = m[0] * m[5] - m[1] * m[4];
-  const float rdet = 1.0f / (m[0] * a00 + m[1] * a10 + m[2] * a20);
+  const float a[3][3] = {{m[5] * m[10] - m[6] * m[9], m[2] * m[9] - m[1] * m[10], m[1] * m[6] - m[2] * m[5]},
+                         {m[6] * m[8] - m[4] * m[10], m[0] * m[10] - m[2] * m[8], m[2] * m[4] - m[0] * m[6]},
+                         {m[4] * m[9] - m[5] * m[8], m[1] * m[8] - m[0] * m[9], m[0] * m[5] - m[1] * m[4]}};
+  const float rdet = 1.0f / (m[0] * a[0][0] + m[1] * a[1][0] + m[2] * a[2][0]);
   const float z0 = fmaxf((d0 - k.voxel_size) - kEps, 0.0f), z1 = (d0 + k.voxel_size) + kEps;
-  const bool near = !(z0 > kFootprintZ);
-  const float slack = kPixelSlack + (near ? 0.0f : kCamError * fmaxf(k.fx, k.fy) / z0);
-  const float u = part & 1 ? (near ? k.W - 0.5f : (p0 % k.W) + 0.5f) + slack
-                           : (near ? -0.5f : (p0 % k.W) - 0.5f) - slack;
-  const float v = part & 2 ? (near ? k.H - 0.5f : (p0 / k.W) + 0.5f) + slack
-                           : (near ? -0.5f : (p0 / k.W) - 0.5f) - slack;
+  const float u = (p0 % k.W) + (part & 1 ? 0.5f + slack : -0.5f - slack);
+  const float v = (p0 / k.W) + (part & 2 ? 0.5f + slack : -0.5f - slack);
   const float zc = part & 4 ? z1 : z0;
-  const float c0 = (u - k.cx) * (1.0f / k.fx) * zc - m[3], c1 = (v - k.cy) * (1.0f / k.fy) * zc - m[7];
-  const float c2 = zc - m[11];
-  float lo[3] = {(a00 * c0 + a01 * c1 + a02 * c2) * rdet, (a10 * c0 + a11 * c1 + a12 * c2) * rdet,
-                 (a20 * c0 + a21 * c1 + a22 * c2) * rdet};
-  float hi[3] = {lo[0], lo[1], lo[2]};
+  const float e[3] = {(u - k.cx) * (1.0f / k.fx) * zc, (v - k.cy) * (1.0f / k.fy) * zc, zc};
+  const float c[3] = {e[0] - m[3], e[1] - m[7], e[2] - m[11]};
+  const float size = (fabsf(e[0]) + fabsf(m[3])) + (fabsf(e[1]) + fabsf(m[7])) + (fabsf(e[2]) + fabsf(m[11]));
+  float amax = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) amax = fmaxf(amax, fmaxf(fabsf(a[r][0]), fmaxf(fabsf(a[r][1]), fabsf(a[r][2]))));
+  const float inv_err = kUlps * FLT_EPSILON * size * amax * fabsf(rdet);
+  float lo[3], hi[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float g = (a[r][0] * c[0] + a[r][1] * c[1] + a[r][2] * c[2]) * rdet;
+    const float w = cam_err * ((fabsf(a[r][0]) + fabsf(a[r][1])) + fabsf(a[r][2])) * fabsf(rdet) + inv_err;
+    lo[r] = g - w;
+    hi[r] = g + w;
+    if (!(isfinite(lo[r]) && isfinite(hi[r]))) {  // a singular matrix: the whole grid (fminf would drop a NaN)
+      lo[r] = -INFINITY;
+      hi[r] = INFINITY;
+    }
+  }
 #pragma unroll
   for (int o = 1; o < kSlabLanes; o <<= 1) {
 #pragma unroll
@@ -160,14 +181,13 @@ k3b_list_pass(const float* __restrict__ depths, const float* __restrict__ mats,
       hi[r] = fmaxf(hi[r], __shfl_xor_sync(kFull, hi[r], o));
     }
   }
-  // the box's voxels, clamped to the grid (a corner that is not finite
-  // widens it to the whole grid)
+  // the box's voxels, clamped to the grid
   const int dims[3] = {X, Y, Z};
   int first[3], n[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
-    const float l = isfinite(lo[r]) ? fmaxf(ceilf(lo[r] - kGridSlack), 0.0f) : 0.0f;
-    const float h = isfinite(hi[r]) ? fminf(floorf(hi[r] + kGridSlack), dims[r] - 1.0f) : dims[r] - 1.0f;
+    const float l = isfinite(lo[r]) ? fmaxf(ceilf(lo[r]), 0.0f) : 0.0f;
+    const float h = isfinite(hi[r]) ? fminf(floorf(hi[r]), dims[r] - 1.0f) : dims[r] - 1.0f;
     first[r] = static_cast<int>(l);
     n[r] = h >= l ? static_cast<int>(h) - first[r] + 1 : 0;
   }
@@ -176,10 +196,9 @@ k3b_list_pass(const float* __restrict__ depths, const float* __restrict__ mats,
   const int rounds = static_cast<int>(__reduce_max_sync(kFull, (total + kSlabLanes - 1) / kSlabLanes));
   for (int j = part; j < rounds * kSlabLanes; j += kSlabLanes) {  // uniform across the warp
     bool fresh = false;
-    int vox = 0, x = 0;
+    int vox = 0;
     if (j < total) {
-      const int z = first[2] + j % n[2], y = first[1] + (j / n[2]) % n[1];
-      x = first[0] + j / (n[2] * n[1]);
+      const int z = first[2] + j % n[2], y = first[1] + (j / n[2]) % n[1], x = first[0] + j / (n[2] * n[1]);
       int pix;
       float zv;
       if (project(m, static_cast<float>(x), static_cast<float>(y), static_cast<float>(z), k, pix, zv) &&
@@ -195,16 +214,6 @@ k3b_list_pass(const float* __restrict__ depths, const float* __restrict__ mats,
       if (lane == 0) base = atomicAdd(scratch, __popc(set));
       base = __shfl_sync(kFull, base, 0);
       if (fresh) list[base + __popc(set & ((1u << lane) - 1))] = vox;
-      if (kCount && fresh) {
-        const int at = vox - b * xyz, zz = at % Z, yy = (at / Z) % Y;
-        const int nby = (Y + kBY - 1) / kBY, nbz = (Z + kBZ - 1) / kBZ;
-        const int slot = (b * ((X + kBX - 1) / kBX) + x / kBX) * nby * nbz + (yy / kBY) * nbz + zz / kBZ;
-        if (slot < kCountSlots) {
-          atomicAdd(&g_counts[slot][0], 1u);
-          atomicAdd(&g_counts[slot][1 + (x % kBX) % kWarps], 1u);
-          atomicAdd(&g_counts[slot][1 + kWarps + x % kBX], 1u);
-        }
-      }
     }
   }
 }
@@ -409,28 +418,6 @@ extern "C" long long tpu3dsis_fuse_views_bwd_smem(int V, int C) { return C >= 4 
 // call with a non-empty volume).
 extern "C" long long tpu3dsis_fuse_views_bwd_launches() { return g_launches; }
 
-// The probe's counting build (kCount), after a call: out[0] the listed
-// voxels, out[1] the most in one K3 brick, out[2] the most in one warp's
-// kSlices x-slices of a brick (the chain of the per-sample design), out[3]
-// the most in one slice, out[4] the bricks that hold any; the first
-// kCountSlots bricks of the batch. Waits for the card. Returns the
-// cudaError_t (cudaErrorNotSupported in a build that does not count).
-extern "C" int tpu3dsis_fuse_views_bwd_counts(long long* out) {
-  if (!kCount) return static_cast<int>(cudaErrorNotSupported);
-  static unsigned host[kCountSlots][kCountPer];
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(host, g_counts, sizeof(host));
-  for (int i = 0; i < 5; ++i) out[i] = 0;
-  for (int b = 0; err == cudaSuccess && b < kCountSlots; ++b) {
-    out[0] += host[b][0];
-    out[1] = std::max(out[1], static_cast<long long>(host[b][0]));
-    for (int w = 0; w < kWarps; ++w) out[2] = std::max(out[2], static_cast<long long>(host[b][1 + w]));
-    for (int x = 0; x < kBX; ++x) out[3] = std::max(out[3], static_cast<long long>(host[b][1 + kWarps + x]));
-    out[4] += host[b][0] > 0;
-  }
-  return static_cast<int>(err);
-}
-
 // B samples. grad: (B, X, Y, Z, C) float32 cotangent of K3's outputs; feats:
 // (B, V, H, W, C) float32; depths: (B, V, H, W) float32; mats: (B, V, 3, 4)
 // float32 grid-to-camera rows; view_valid: (B, V) uint8; valid_rank: (B, V +
@@ -456,16 +443,11 @@ extern "C" int tpu3dsis_fuse_views_bwd(int B, const void* grad, const void* feat
   int* lst = static_cast<int*>(list);
   int* scr = static_cast<int*>(scratch);
   cudaError_t err = cudaSuccess;
-  if (kCount) {
-    void* counts = nullptr;
-    err = cudaGetSymbolAddress(&counts, g_counts);
-    if (err == cudaSuccess) err = cudaMemsetAsync(counts, 0, sizeof(g_counts), s);
-  }
-  if (kPass1 && err == cudaSuccess) {
+  if (kPass1) {
     err = cudaMemsetAsync(scr, 0, static_cast<size_t>(1 + (voxels + 31) / 32) * sizeof(int), s);
-    const long long warps = static_cast<long long>(B) * V * H * W;
-    constexpr int kPerBlock = kListThreads / 32;
-    const long long blocks = std::max((warps + kPerBlock - 1) / kPerBlock, 1LL);
+    // a thread for each of a pixel's lanes and for each float4 of the zero fill
+    const long long threads = std::max(static_cast<long long>(B) * V * H * W * kSlabLanes, n4);
+    const long long blocks = std::max((threads + kListThreads - 1) / kListThreads, 1LL);
     if (err == cudaSuccess) {
       k3b_list_pass<<<static_cast<unsigned>(blocks), kListThreads, 0, s>>>(dp, mt, vv, B, V, X, Y, Z, k,
                                                                            static_cast<float4*>(dfeats), n4, lst, scr);

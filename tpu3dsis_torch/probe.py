@@ -28,24 +28,26 @@ Run from the repository root on a machine with a CUDA card and nvcc:
     python -m tpu3dsis_torch.probe [K1] [K1b] [K2] [K3] [K3b] [--against DIR ...]
 
 (all five when none is named). K3b's copies: "pass 1 only" (the zero fill
-and the list),
-"pass 2 only" (the gradient from a list a whole call left), "zero fill
-alone"; its counting copy (not timed) adds the accepted voxels and the
-most of them in one brick, one warp's slices and one slice: the chain of
-dependent walks that bounded the per-sample design. It prints one JSON line per
-case: the full
-kernel's and each cut copy's device time in ms, measured in turns (full,
-cuts, cuts reversed, full); K3's line adds the share of (brick, view) pairs
-its cull keeps. ``--against DIR`` (with K1b) also times the whole K1b
-wrapper, ``ops/roi_pool3d.py::roi_pool3d_backward_cuda``, of another
+and the list), "pass 2 only" (the gradient from a list a whole call
+left), "zero fill alone"; its line adds what pass 1 listed, counted from
+the list: the accepted voxels and the most of them in one of K3's bricks,
+one warp's slices of a brick and one slice (the chain of dependent walks
+that bounded the per-sample design). It prints one JSON line per case:
+the full kernel's and each cut copy's device time in ms, measured in
+turns (full, cuts, cuts reversed, full); K3's line adds the share of
+(brick, view) pairs its cull keeps. ``--against DIR`` (with K1b or K3b)
+also times the whole wrapper, ``ops/roi_pool3d.py::roi_pool3d_backward_cuda``
+or ``geometry/projection.py::fuse_views_backward_cuda``, of another
 checkout of the repository (DIR holds its ``tpu3dsis_torch``, for example
 an earlier commit unpacked with ``git archive``) against this checkout's,
-on the same K1b inputs, each in a process started in its checkout, in
-turns (the others, this one, this one, the others reversed): one JSON line
-per case with each checkout's median ms. With K3b, ``--against DIR`` builds
-that checkout's per-sample K3b (the design before the batched one) and times it, a launch per
-sample, against this one's single launch on the same calls in this process
-(``against_k3b``).
+on the same inputs, each in a process started in its checkout, in turns
+(the others, this one, this one, the others reversed): one JSON line per
+case with each checkout's median ms (for K3b also the host's ms of a call
+and the device's busy ms, its kernels, copies and memsets summed from
+``torch.profiler``, which the host's pace does not stretch). A checkout
+whose K3b takes a batch (it has ``fuse_views_batch``) is called once for
+the batch on the forward's operands, as its train step calls it; an
+earlier one once a sample.
 """
 
 from __future__ import annotations
@@ -62,7 +64,7 @@ import torch
 
 from tpu3dsis_torch import _build
 
-COUNTING = "counting"  # the copy of K1b or K3b that counts what its kernels compute; built, not timed
+COUNTING = "counting"  # the copy of K1b that counts what its kernels compute; built, not timed
 
 _K3_CULL = "  const int ncand = cull_brick<kCullViews>(depths, mats, view_valid, V, lo, hi, k, s_mat, s_view, cs, culled);\n"
 # per source: cut name -> (text in the source, its replacement)
@@ -100,14 +102,11 @@ CUTS = {
         "pass 1 only": ("constexpr bool kPass2 = true;", "constexpr bool kPass2 = false;"),
         "pass 2 only": ("constexpr bool kPass1 = true;", "constexpr bool kPass1 = false;"),
         "zero fill alone": ("constexpr bool kZeroOnly = false;", "constexpr bool kZeroOnly = true;"),
-        COUNTING: ("constexpr bool kCount = false;", "constexpr bool kCount = true;"),
     },
 }
-# The per-sample K3b (one sample a call, a block per brick walking its
-# voxels, the design before the batched one): its C interface, for
-# ``--against`` with a checkout that has it
-_K3B_PER_SAMPLE = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 2,
-                   ctypes.c_int)
+# warps of one of K3's bricks (fuse_views_common.cuh's kWarps): warp w takes
+# its x-slices w and w + kWarps
+_K3_WARPS = 4
 
 
 def build_cuts():
@@ -189,13 +188,12 @@ def k1b_counts(lib, kw):
             "brick_row_maxima_per_column_row_max": brick_rows / max(column_rows, 1)}
 
 
-# Run in another checkout's root by against(): the K1b wrapper of that
-# checkout on the saved inputs, each case's device time in ms (as
-# chip_smoke.device_ms measures it: calls queued behind a device sleep).
-_WRAPPER_TIMER = r"""
-import json, sys
+# Run in another checkout's root by against(): the device time in ms of a
+# wrapper of that checkout on the saved inputs (calls queued behind a device
+# sleep, as chip_smoke.device_ms measures it), and the host's ms of a call
+_TIMING = r"""
+import json, statistics, sys, time
 import torch
-from tpu3dsis_torch.ops.roi_pool3d import roi_pool3d_backward_cuda
 
 def device_ms(fn, iters=20):
     for _ in range(2):
@@ -210,34 +208,89 @@ def device_ms(fn, iters=20):
     end.synchronize()
     return start.elapsed_time(end) / iters
 
+def host_ms(fn, iters=20):
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+"""
+
+# K1b's whole wrapper, each case's device ms
+_K1B_TIMER = _TIMING + r"""
+from tpu3dsis_torch.ops.roi_pool3d import roi_pool3d_backward_cuda
+
 out = {}
 for case, kw in torch.load(sys.argv[1]).items():
     kw = {k: [t.cuda() for t in v] if k == "feats" else v.cuda() if torch.is_tensor(v) else v for k, v in kw.items()}
-    out[case] = device_ms(lambda: roi_pool3d_backward_cuda(**kw))
+    out[case] = {"ms": device_ms(lambda: roi_pool3d_backward_cuda(**kw))}
+print(json.dumps(out))
+"""
+
+# K3b's whole wrapper on a batch, each case's device ms, host ms and busy ms
+# (the device's kernels, copies and memsets of a call, summed from
+# torch.profiler: the device time however the host paces the calls): one
+# call for the batch on the forward's operands where the checkout has the
+# batched fusion, else one call a sample
+_K3B_TIMER = _TIMING + r"""
+from torch.profiler import ProfilerActivity, profile
+from tpu3dsis_torch.geometry import projection as P
+
+def busy_ms(fn):
+    fn()
+    for calls in (10, 100):  # as chip_smoke.k3b_kernel_split: 100 where 10 brought back no device event
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if us:
+            return sum(us) / calls / 1e3
+    return float("nan")
+
+PER_SAMPLE = ("grad_out", "feats2d", "depths", "poses", "world_to_grid", "view_valid")
+out = {}
+for case, kw in torch.load(sys.argv[1]).items():
+    kw = {k: v.cuda() if k in ("grad_out", "feats2d", "depths", "view_valid") else v for k, v in kw.items()}
+    if hasattr(P, "fuse_views_batch"):
+        if hasattr(P, "batch_operands"):
+            mats, valid, rank = P.batch_operands(kw["poses"], kw["world_to_grid"], kw["view_valid"],
+                                                 *kw["feats2d"].shape[:2], kw["feats2d"].device)
+            kw = dict(kw, mats=mats, view_valid=valid, rank=rank)
+        call = lambda: P.fuse_views_backward_cuda(**kw)
+    else:
+        samples = [{k: v[i] if k in PER_SAMPLE else v for k, v in kw.items()} for i in range(kw["feats2d"].shape[0])]
+        call = lambda: [P.fuse_views_backward_cuda(**one) for one in samples]
+    out[case] = {"ms": device_ms(call), "host_ms": host_ms(call), "busy_ms": busy_ms(call)}
 print(json.dumps(out))
 """
 
 
-def against(cases, others, card):
-    """The whole K1b wrapper of each checkout in `others` and of this one on
-    the same inputs, each checkout in its own processes, in turns; one JSON
-    line per case with each checkout's median ms."""
+def against(cases, others, card, timer, what):
+    """A whole wrapper of each checkout in `others` and of this one on the
+    same inputs (`cases`, CPU tensors and plain values), run by `timer` in
+    processes started in each checkout, in turns; one JSON line per case with
+    each checkout's median of each number the timer reports."""
     here = str(Path(__file__).resolve().parents[1])
-    saved = _build.BUILD_DIR / "probe" / "k1b_cases.pt"
+    saved = _build.BUILD_DIR / "probe" / "against_cases.pt"
     saved.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({case: {k: [t.cpu() for t in v] if k == "feats" else v.cpu() if torch.is_tensor(v) else v
-                       for k, v in kw.items()} for case, kw in cases.items()}, saved)
+    torch.save(cases, saved)
     times = {root: [] for root in [*others, here]}
     for root in [*others, here, here, *others[::-1]]:
-        res = subprocess.run([sys.executable, "-c", _WRAPPER_TIMER, str(saved)], cwd=root, capture_output=True,
-                             text=True)
+        res = subprocess.run([sys.executable, "-c", timer, str(saved)], cwd=root, capture_output=True, text=True)
         if res.returncode:
-            raise RuntimeError(f"probe: K1b's wrapper in {root} failed:\n{res.stderr[-4000:]}")
+            raise RuntimeError(f"probe: the wrapper of {root} failed:\n{res.stderr[-4000:]}")
         times[root].append(json.loads(res.stdout.strip().splitlines()[-1]))
     for case in cases:
-        ms = {("this checkout" if root == here else root): round(statistics.median(t[case] for t in runs), 5)
-              for root, runs in times.items()}
-        print(json.dumps({"case": f"{case}: the whole wrapper", "ms": ms, "card": card}), flush=True)
+        line = {"case": f"{case}: {what}"}
+        for metric in times[here][0][case]:
+            line[metric] = {("this checkout" if root == here else root):
+                            round(statistics.median(t[case][metric] for t in runs), 5) for root, runs in times.items()}
+        print(json.dumps({**line, "card": card}), flush=True)
 
 
 def zero_and_cast(feats):
@@ -289,31 +342,31 @@ def call_k3b(lib, grad, feats2d, depths, mats, valid, rank, fx, fy, cx, cy, volu
     return out
 
 
-def call_k3b_per_sample(lib, grad, feats2d, depths, mats, valid, rank, fx, fy, cx, cy, volume_dims, depth_min,
-                        depth_max, voxel_size):
-    """The per-sample K3b (``_K3B_PER_SAMPLE``) on the same batch as its
-    wrapper ran it: a zeroed gradient and a launch for each sample."""
-    b, v, h, w, c = feats2d.shape
-    for i in range(b):
-        out = torch.zeros_like(feats2d[i])
-        err = lib.tpu3dsis_fuse_views_bwd(grad[i].data_ptr(), feats2d[i].data_ptr(), depths[i].data_ptr(),
-                                          mats[i].data_ptr(), valid[i].data_ptr(), rank[i].data_ptr(), v, h, w, c,
-                                          *volume_dims, fx, fy, cx, cy, depth_min, depth_max, voxel_size,
-                                          out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "probe K3b, one sample")
-
-
 def k3b_counts(lib, kw):
-    """What the counting copy of K3b's pass 1 counts on one input: the
-    accepted voxels (the list), and the most of them in one brick, in one
-    warp's slices of a brick (the chain of dependent walks of the per-sample design,
-    which took them one at a time, twice) and in one slice; the bricks that
-    hold any."""
-    call_k3b(lib, **kw)
-    out = (ctypes.c_longlong * 5)()
-    _build.check(lib.tpu3dsis_fuse_views_bwd_counts(out), "probe K3b counts")
-    return dict(zip(("accepted_voxels", "most_in_a_brick", "most_in_a_warp", "most_in_a_slice", "bricks_with_any"),
-                    list(out)))
+    """What K3b's pass 1 lists on one input, counted from its list: the
+    accepted voxels, and the most of them in one of K3's bricks, in one
+    warp's slices of a brick (the chain of dependent walks of the per-sample
+    design, which took them one at a time, twice) and in one slice; the
+    bricks that hold any."""
+    from tpu3dsis_torch.geometry.projection import BRICK
+
+    work, scratch = k3b_scratch(kw["feats2d"], kw["volume_dims"])
+    call_k3b(lib, **kw, work=work, scratch=scratch)
+    n = int(scratch[0])
+    x_, y_, z_ = (int(d) for d in kw["volume_dims"])
+    e = work[:n].long()
+    b, vox = e // (x_ * y_ * z_), e % (x_ * y_ * z_)
+    x, y, z = vox // (y_ * z_), vox // z_ % y_, vox % z_
+    nb = [-(-d // k) for d, k in zip((x_, y_, z_), BRICK)]
+    brick = ((b * nb[0] + x // BRICK[0]) * nb[1] + y // BRICK[1]) * nb[2] + z // BRICK[2]
+    slab = x % BRICK[0]
+
+    def most(ids):
+        return int(torch.bincount(ids).max()) if n else 0
+
+    return {"accepted_voxels": n, "most_in_a_brick": most(brick), "most_in_a_warp": most(brick * _K3_WARPS
+                                                                                       + slab % _K3_WARPS),
+            "most_in_a_slice": most(brick * BRICK[0] + slab), "bricks_with_any": int(brick.unique().numel())}
 
 
 def k3b_case_args(case):
@@ -484,7 +537,9 @@ def probe_k1b(cs, dev, libs, card, others=()):
         print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "counts": k1b_counts(counting, kw),
                           "card": card}), flush=True)
     if others:
-        against(cases, list(others), card)
+        saved = {case: {k: [t.cpu() for t in v] if k == "feats" else v.cpu() if torch.is_tensor(v) else v
+                        for k, v in kw.items()} for case, kw in cases.items()}
+        against(saved, list(others), card, _K1B_TIMER, "the whole wrapper")
 
 
 def probe_k2(cs, dev, libs, card):
@@ -517,9 +572,7 @@ def probe_k3b(cs, dev, libs, card, others=()):
              k3b_inputs(cs, dev),
              f"K3b float32, a 32-view room (phase 10's) into {cs.SCENE_EXTENT} x 128":
              cs.k3b_room_case(dev, np.random.RandomState(10))}
-    copies = dict(libs["fuse_views_bwd"])
-    counting = copies.pop(COUNTING)
-    counts = {}
+    copies = libs["fuse_views_bwd"]
     for case, plain in cases.items():
         kw = k3b_case_args(plain)
         # "pass 2 only" reads the list that a whole call left in its own buffers
@@ -527,81 +580,12 @@ def probe_k3b(cs, dev, libs, card, others=()):
         call_k3b(copies["full"], **kw, work=work, scratch=scratch)
         fns = {k: (lambda lib=lib: call_k3b(lib, **kw)) for k, lib in copies.items()}
         fns["pass 2 only"] = lambda: call_k3b(copies["pass 2 only"], **kw, work=work, scratch=scratch)
-        counts[case] = k3b_counts(counting, kw)
-        print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "counts": counts[case],
-                          "card": card}), flush=True)
+        print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms),
+                          "counts": k3b_counts(copies["full"], kw), "card": card}), flush=True)
     if others:
-        against_k3b(cs, cases, counts, list(others), card)
-
-
-def against_k3b(cs, cases, counts, others, card):
-    """The per-sample K3b of each checkout in `others` (its ``fuse_views_bwd.cu``
-    built against its own header), a launch per sample, against this
-    checkout's, one launch for the batch, on the same calls in one process,
-    in turns (the others, this one, this one, the others reversed): device
-    ms of the kernels, and the host's ms of the whole call, its wrapper's
-    host work re-enacted (each sample's matrices made on the host and copied
-    up from pinned memory, its rank, its zeroed gradient) against this
-    checkout's wrapper on the forward's operands. One JSON line per case,
-    with the chain of the per-sample design (the most accepted voxels in one warp's
-    slices) and its device ms per voxel of that chain."""
-    from tpu3dsis_torch.geometry import projection
-
-    nvcc = _build._nvcc()
-    out = _build.BUILD_DIR / "probe"
-    libs = {}
-    for i, root in enumerate(others):
-        csrc = Path(root) / "tpu3dsis_torch" / "csrc"
-        lib_path = out / f"against_{i}_fuse_views_bwd.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(lib_path), str(csrc / "fuse_views_bwd.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode:
-            raise RuntimeError(f"probe: K3b of {root} did not build:\n{res.stdout[-4000:]}{res.stderr[-4000:]}")
-        lib = ctypes.CDLL(str(lib_path))
-        if hasattr(lib, "tpu3dsis_fuse_views_bwd_counts"):
-            raise RuntimeError(f"probe: {root}'s K3b is batched; --against K3b compares the per-sample design")
-        lib.tpu3dsis_fuse_views_bwd.argtypes, lib.tpu3dsis_fuse_views_bwd.restype = _K3B_PER_SAMPLE
-        libs[root] = lib
-    here = _build.load_library()
-    for case, plain in cases.items():
-        kw = k3b_case_args(plain)
-        b = kw["feats2d"].shape[0]
-        device, host = {}, {}
-
-        def per_sample_wrapper(lib):
-            for i in range(b):  # as the per-sample fuse_views_backward_cuda ran each sample
-                mats = projection.view_matrices(plain["poses"][i], plain["world_to_grid"][i]).pin_memory().to(
-                    kw["feats2d"].device, non_blocking=True)
-                valid = torch.as_tensor(plain["view_valid"][i], dtype=torch.bool).to(torch.uint8)
-                rank = torch.zeros(valid.shape[0] + 1, dtype=torch.int32, device=valid.device)
-                torch.cumsum(valid, 0, dtype=torch.int32, out=rank[1:])
-                one = {k: (v[i:i + 1] if k in ("grad", "feats2d", "depths") else v) for k, v in kw.items()}
-                call_k3b_per_sample(lib, **dict(one, mats=mats[None], valid=valid[None], rank=rank[None]))
-
-        def this_wrapper():
-            projection.fuse_views_backward_cuda(plain["grad_out"], plain["feats2d"], plain["depths"], plain["poses"],
-                                                plain["world_to_grid"], plain["intrinsic"], plain["volume_dims"],
-                                                plain["depth_min"], plain["depth_max"], plain["voxel_size"],
-                                                view_valid=kw["valid"], mats=kw["mats"], rank=kw["rank"])
-
-        turns = [*others, "this checkout", "this checkout", *others[::-1]]
-        for who in turns:
-            if who == "this checkout":
-                dev_fn, host_fn = (lambda: call_k3b(here, **kw)), this_wrapper
-            else:
-                dev_fn = lambda lib=libs[who]: call_k3b_per_sample(lib, **kw)  # noqa: E731
-                host_fn = lambda lib=libs[who]: per_sample_wrapper(lib)  # noqa: E731
-            device.setdefault(who, []).append(cs.device_ms(dev_fn, 20))
-            host.setdefault(who, []).append(cs.host_ms(host_fn, 20))
-        chain = counts[case]["most_in_a_warp"]
-        ms = {who: round(statistics.median(t), 5) for who, t in device.items()}
-        print(json.dumps({
-            "case": f"{case}: the per-sample design, a launch a sample, against this one, one launch",
-            "ms": ms, "host_ms": {who: round(statistics.median(t), 5) for who, t in host.items()},
-            "chain": {"most_in_a_warp": chain, "most_in_a_brick": counts[case]["most_in_a_brick"],
-                      "device_us_per_chained_voxel": {who: round(1e3 * t / b / max(chain, 1), 4)
-                                                      for who, t in ms.items() if who != "this checkout"}},
-            "card": card}), flush=True)
+        saved = {case: {k: torch.as_tensor(v).cpu() if k in ("poses", "world_to_grid") or torch.is_tensor(v)
+                        else v for k, v in plain.items()} for case, plain in cases.items()}
+        against(saved, list(others), card, _K3B_TIMER, "the whole wrapper, one call a batch or one a sample")
 
 
 if __name__ == "__main__":
