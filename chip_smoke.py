@@ -102,10 +102,30 @@ result):
      ``suncg_train_config()`` (the shipped SUNCG yml): 10 bf16 steps at
      batch 4, finite, counted; its chunk detection with the color stream on
      one chunk's frames, card vs CPU in float32, and bf16 chunks/s at batch
-     32.
+     32;
+ 11. the mask FCN's color branch (``MASK_USE_IMAGES``, on
+     ``scannet_color_scene_config()``; the fixture's weights where the
+     shapes match, the new branches' from a seed): every K1, K2 and K3 call
+     of one fused room against its plain version, and K3 on the per-window
+     route's calls (each mask window fusing its own views with
+     ``zero_floor``); phase 7's rooms in both dtypes through the fused
+     route, counted, with peak memory per room; bfloat16 against float32
+     under the color contract, mask agreement logged; on a 144x48x144 room
+     of 16 views (no window meets more than the view cap), float32, the
+     fused route, the host-planned route on the resident volume and the
+     per-window route give the same masks, and the card agrees with the
+     CPU; color masked scenes/min with and without the branch, stages;
+     training with the branch and the ENet trained: a float32 step card vs
+     CPU (phase 9's contract), 30 bf16 steps counted (K3 a sample and K3b
+     once a step), the step's K3b call against its plain version; the
+     color-only backbone (``ONLY_IMAGES``) serving two rooms and training 3
+     steps with the ENet trained, counted; and the port's benchmark export
+     (``export_scene``, ``evaluate``, ``remap_benchmark_labels``) of phase
+     8's test-mode artifacts.
 
 ``--phases 9`` (a comma-separated list) runs only those phases after 0 and
-1, for work on one phase, and prints no result line. The last three lines
+1, for work on one phase, and prints no result line (``--phases 11`` runs
+phase 8 first). The last three lines
 of a whole run are the kernels' JSON, the card's name and power limit as
 ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
 """
@@ -119,6 +139,7 @@ import inspect
 import json
 import os
 import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1120,10 +1141,13 @@ def scene_stages(si, scene, prep=None):
         det = si._stitch(tiles, origins, scene.shape[:3])
         plans = si._plan_queues(det, scene_dev.shape[:3])
 
+        def crops(name):  # the mask windows' color crops (MASK_USE_IMAGES)
+            return si._crops(prep["color"], plans[name]["starts"], si._queue_canvas[name])
+
         def fcn(name):
             q = plans[name]
             return si._window_masks(scene_dev, q["starts"], q["locals6"], det["pred_class"][q["roi_idx"].long()],
-                                    si._queue_canvas[name])
+                                    si._queue_canvas[name], crops(name) if si._mask_color else None)
 
         stages = {"tiles": cuda_ms(lambda: si._tile_outputs(scene_dev, origins, prep), 5)}
         if prep is not None:
@@ -1134,6 +1158,8 @@ def scene_stages(si, scene, prep=None):
             "mask_fcn_small": cuda_ms(lambda: fcn("mask_small"), 5),
             "mask_fcn_large": cuda_ms(lambda: fcn("mask_large"), 5),
         })
+        if si._mask_color:  # included in mask_fcn_*
+            stages.update({f"color_crops_of_{k}": cuda_ms(lambda k=k: crops(k), 5) for k in ("mask_small", "mask_large")})
         host = _to_host(si._fused(scene_dev, origins, scene.shape[:3], prep))
         kv = host["det_valid"].astype(bool)
         t0 = time.perf_counter()
@@ -1808,6 +1834,22 @@ def check_artifacts(listing, n_scenes, test_mode):
     return n_det
 
 
+def driver_artifacts(dev):
+    """Phase 8's scenes through ``run_scenes`` in test mode with phase 6's
+    weights, in this process: the artifacts' directory (in a directory of
+    its own that the caller removes). For ``--phases 11`` alone."""
+    from tpu3dsis_torch.config import DetectorConfig, cfg_from_file, finalize_config
+    from tpu3dsis_torch.infer.driver import run_scenes
+
+    keep = tempfile.mkdtemp()
+    filelist = write_driver_scenes(keep)
+    cfg_path = write_overlay(os.path.join(keep, "overlay"), USE_IMAGES=False, TEST_FILELIST=filelist,
+                             TEST_SAVE_DIR=os.path.join(keep, "test"))
+    cfg = finalize_config(cfg_from_file(cfg_path + ".yml"))
+    run_scenes(cfg, load_jax_params(Detector(DetectorConfig.from_cfg(cfg), device=dev), scene_params()), "test")
+    return cfg.TEST_SAVE_DIR
+
+
 def load_scene_artifacts(scene_dir):
     det = {k: np.load(os.path.join(scene_dir, f"{k}.npy")) for k in ("pred_box", "pred_class", "pred_conf")}
     with open(os.path.join(scene_dir, "pred_mask"), "rb") as f:
@@ -1914,6 +1956,8 @@ def phase_drivers(dev, params, cparams, cscenes, cgts, cframes, scene_t, color_t
                 box_tol=1e-4, tie_stride=FEAT_STRIDE[0])
         check(cpu_map == card_map, "the card's and the CPU's mAP differ")
         res["map"] = card_map
+        # the test mode's artifacts, kept for phase 11's benchmark export (which removes them)
+        res["test_artifacts"] = shutil.copytree(test_dir, os.path.join(tempfile.mkdtemp(), "test"))
 
         # (d) the geometry driver in this process: read and encode, infer,
         # writes and mAP per scene; test mode (the first pass of this
@@ -2544,7 +2588,8 @@ def _k3b_case(name, args, phase=10):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    want = projection.fuse_views_backward_batch_plain(**{k: v for k, v in args.items() if k not in ("mats", "rank")})
+    want = projection.fuse_views_backward_batch_plain(**{k: v for k, v in args.items()
+                                                         if k not in ("mats", "rank", "margins")})
     end.record()
     end.synchronize()
     scale = float(want.abs().max())
@@ -2578,7 +2623,7 @@ def k3b_edge_cases(args, rng):
     invalid = torch.ones((b, v), dtype=torch.bool, device=feats.device)
     invalid[0, 1] = False
     invalid[min(2, b - 1)] = False
-    base = dict(args, mats=None, rank=None)
+    base = dict(args, mats=None, rank=None, margins=None)
     yield "duplicated views (ties of 3 and 2)", dict(base, feats2d=dup_f, depths=dup_d, poses=dup_p)
     yield "exact zeros and plateaus", dict(base, feats2d=zeros)
     yield "invalid views, a sample with none valid", dict(base, view_valid=invalid)
@@ -2739,7 +2784,7 @@ def phase_enet(dev):
     check(matrix_calls == [(TRAIN_BATCH["color"], int(enet_train_config().NUM_IMAGES), 4, 4)],
           f"a step made its view matrices other than once for the batch: {matrix_calls}")
     training = k3b_calls[0]
-    check(all(torch.is_tensor(training[k]) and training[k].is_cuda for k in ("mats", "rank", "view_valid")),
+    check(all(torch.is_tensor(training[k]) and training[k].is_cuda for k in ("mats", "rank", "view_valid", "margins")),
           "the step's K3b call did not take the forward's operands on the card")
     torch.cuda.set_sync_debug_mode("error")  # the backward's call waits for nothing on the host
     try:
@@ -2757,7 +2802,7 @@ def phase_enet(dev):
     res["k3b_times"] = {}
     for case, args in (("training call", training), ("32-view room", room)):
         if case == "32-view room":  # the wrapper's own operands, then the forward's, as the step gives them
-            args = dict(args, **dict(zip(("mats", "view_valid", "rank"), projection.batch_operands(
+            args = dict(args, **dict(zip(("mats", "view_valid", "rank", "margins"), projection.batch_operands(
                 args["poses"], args["world_to_grid"], args["view_valid"], *args["feats2d"].shape[:2], dev))))
         call = lambda: projection.fuse_views_backward_cuda(**args)  # noqa: E731
         first, second = call(), call()
@@ -2799,12 +2844,327 @@ def phase_enet(dev):
     return res
 
 
+# --- phase 11: the mask FCN's color branch, the color-only backbone, the benchmark export ---------
+
+MASK_COLOR_STEPS = 30
+ONLY_IMAGES_STEPS = 3
+MASK_FLIPS = 0.005  # the share of a box's mask voxels that may flip at the threshold (compare_card_cpu's)
+
+
+def matching_params(cfg, seed=11):
+    """Weights for a detector of ``cfg``: the trained color fixture's where
+    the shapes match, the rest (the branches no shipped config has: the mask
+    FCN's color and combine branches and its geometry branch's last conv,
+    the color-only stream's last convs) from a seeded generator."""
+    from tpu3dsis_torch.checkpoint import module_params
+
+    own = module_params(Detector(cfg, device="cpu").init_params(torch.Generator().manual_seed(seed)))
+    fixture = color_params()
+    return {k: (fixture[k] if k in fixture and fixture[k].shape == v.shape else v) for k, v in own.items()}
+
+
+def mask_routes_agree(routes, det, label, phase=11):
+    """Each route's masks against the first's: the same boxes, each within
+    MASK_FLIPS of its voxels. Returns the flips per route."""
+    names = list(routes)
+    want = routes[names[0]]
+    out = {}
+    for name in names[1:]:
+        got = routes[name]
+        check(len(got) == len(want) == len(det["pred_box"]), f"{label}: {name} gave {len(got)} masks")
+        worst, flipped = 0.0, 0
+        for a, b in zip(got, want):
+            check(a.shape == b.shape and a.dtype == np.uint8, f"{label}: {name} mask shape {a.shape} vs {b.shape}")
+            if a.size:
+                worst = max(worst, float((a != b).mean()))
+                flipped += int((a != b).sum())
+        out[name] = {"flipped": flipped, "worst_box": worst}
+        check(worst < MASK_FLIPS, f"{label}: {name}'s masks differ from {names[0]}'s in {worst} of a box's voxels")
+    log(f"[{phase}] {label}: {len(want)} masks ({sum(m.size for m in want)} voxels); against {names[0]}: "
+        + json.dumps(out) + f" [{CARD}]")
+    return out
+
+
+def phase_mask_color(dev, cparams, scenes, frames, drv):
+    """Phase 11: the mask FCN's color branch (MASK_USE_IMAGES) served and
+    trained, the color-only backbone (ONLY_IMAGES) served and trained, and
+    the benchmark export of phase 8's artifacts."""
+    t_phase = time.time()
+    res = {"k3_err": 0.0, "k1_err": 0.0, "k2_err": 0.0}
+    base = scannet_color_scene_config().replace(MASK_USE_IMAGES=True)
+    params = matching_params(base)
+    sis = {dt: SceneInference(load_jax_params(Detector(base.replace(TPU_COMPUTE_DTYPE=dt), device=dev), params),
+                              base.replace(TPU_COMPUTE_DTYPE=dt)) for dt in ("float32", "bfloat16")}
+
+    # (a) every kernel call of one fused room, and K3's per-window calls
+    # (TPU_SCENE_COLOR_RESIDENT "never": each mask window fuses its own views)
+    with torch.inference_mode():
+        for dt, si in sis.items():
+            calls = recorded_kernel_calls(si, scenes[1], dict(frames[1]))
+            k3 = [a for kind, a in calls if kind == "fuse_views_cuda"]
+            check(len(k3) == 1, f"{dt}: the fused MASK_USE_IMAGES room made {len(k3)} K3 calls, not 1")
+            res["k3_err"] = max(res["k3_err"], _k3_case(f"{dt} resident volume, MASK_USE_IMAGES", k3[0], quiet=True,
+                                                        phase=11)[0])
+            errs = check_recorded_k1_k2(calls, f"{dt} MASK_USE_IMAGES room", phase=11)
+            res["k1_err"] = max(res["k1_err"], errs["k1_err"])
+            res["k2_err"] = max(res["k2_err"], errs["k2_err"], errs["class_aware_err"])
+        si = sis["bfloat16"]
+        never = SceneInference(si.det, si.cfg.replace(TPU_SCENE_COLOR_RESIDENT="never"))
+        det, _ = si.infer(scenes[3], frames[3])
+        with recording_kernel_calls() as calls:
+            never.predict_masks(scenes[3], det, frames=dict(frames[3]))
+        windows = [a for kind, a in calls if kind == "fuse_views_cuda" and tuple(a["volume_dims"]) in
+                   (tuple(base.TPU_MASK_INFER_CANVAS), tuple(base.TPU_MASK_INFER_CANVAS_SMALL))]
+        floors = sum(bool(a["zero_floor"]) for a in windows)
+        for i, a in enumerate(windows):
+            res["k3_err"] = max(res["k3_err"], _k3_case(f"per-window call {i}", a, quiet=True, phase=11)[0])
+        log(f"[11] K3 on the per-window route of the {COLOR_VIEWS[3]}-view room's {len(det['pred_box'])} detections: "
+            f"{len(windows)} window calls (grids {sorted({tuple(a['volume_dims']) for a in windows})}), all exact; "
+            f"views per window max {max(a['feats2d'].shape[0] for a in windows)}; zero_floor on {floors} [{CARD}]")
+        check(len(windows) > 0 and floors > 0, "the per-window route made no K3 call, or none with zero_floor")
+        check(max(a["feats2d"].shape[0] for a in windows) <= base.TPU_MAX_TILE_VIEWS, "a window took more views")
+        del never
+
+    # (b) the path: phase 7's rooms in both dtypes through the fused route,
+    # every count set to 0 just before and read just after; peak memory by room
+    reset_launch_counts()
+    before = device_launches()
+    outs, peaks = {}, {}
+    for dt, si in sis.items():
+        outs[dt], peaks[dt] = [], []
+        for sc, f in zip(scenes, frames):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            det, masks = si.infer(sc, f)
+            torch.cuda.synchronize()
+            peaks[dt].append(torch.cuda.max_memory_allocated() / 1e9)
+            check(si.last_fused, f"{dt}: a MASK_USE_IMAGES room was not served by the fused path")
+            check(np.isfinite(det["pred_box"]).all() and len(masks) == len(det["pred_box"]), f"{dt}: bad output")
+            outs[dt].append((det, masks))
+    torch.cuda.synchronize()
+    launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
+                "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches,
+                "fuse_views_cuda": projection.fuse_views_cuda.launches}
+    kernel_launches = {k: v - before[k] for k, v in device_launches().items() if k in launches}
+    log(f"[11] MASK_USE_IMAGES rooms: {2 * len(scenes)} scenes (views {list(COLOR_VIEWS)}, float32 and bfloat16), "
+        f"all fused; wrapper calls {launches}, kernel launches {kernel_launches}; detections per room "
+        + json.dumps({dt: [len(d["pred_box"]) for d, _ in o] for dt, o in outs.items()})
+        + "; mask voxels per room " + json.dumps({dt: [int(sum(m.sum() for m in ms)) for _, ms in o]
+                                                  for dt, o in outs.items()})
+        + "; peak memory GB per room " + json.dumps({dt: [round(p, 3) for p in v] for dt, v in peaks.items()})
+        + f" [{CARD}]")
+    for k in launches:
+        check(launches[k] > 0 and kernel_launches.get(k, launches[k]) == launches[k],
+              f"{k} was not launched on the mask color path")
+    check(launches["fuse_views_cuda"] == 2 * len(scenes), "K3 did not launch once per MASK_USE_IMAGES room")
+    res["launches"], res["peak_gb"] = launches, peaks
+    bf16_vs_fp32(outs, len(scenes), phase=11, iou_thresh=0.25, max_drift=0.3, slack_div=4)
+
+    # (c) the routes where the view cap lets them agree (a room of 16 views:
+    # no window meets more than TPU_MAX_TILE_VIEWS), float32: fused, the
+    # host-planned path on the resident volume, each window's own fusion;
+    # then the card against the CPU on that room
+    scene, _, frame = make_color_scene(np.random.RandomState(31), CARD_VS_CPU_VIEWS, SCENE_SMALL, n_objects=10)
+    si = sis["float32"]
+    det, fused = si.infer(scene, frame)
+    check(si.last_fused, "the 16-view room was not fused")
+    never = SceneInference(si.det, si.cfg.replace(TPU_SCENE_COLOR_RESIDENT="never"))
+    routes = {"fused": fused, "host-planned, resident": si.predict_masks(scene, det, frames=frame),
+              "host-planned, per window": never.predict_masks(scene, det, frames=frame)}
+    res["routes"] = mask_routes_agree(routes, det, f"the three routes on a {SCENE_SMALL} room of "
+                                                   f"{CARD_VS_CPU_VIEWS} views, float32")
+    del never
+    cpu_si = SceneInference(load_jax_params(Detector(si.cfg, device="cpu"), params), si.cfg)
+    t0 = time.time()
+    cpu = cpu_si.infer(scene, frame)
+    cpu_s = time.time() - t0
+    check(cpu_si.last_fused, "the CPU's MASK_USE_IMAGES room was not fused")
+    compare_card_cpu((det, fused), cpu, f"one {SCENE_SMALL} MASK_USE_IMAGES room with {CARD_VS_CPU_VIEWS} views",
+                     cpu_s, phase=11)
+    del cpu_si
+
+    # (d) time: color masked scenes/min over a prefetched stream of 8, with and
+    # without the branch (the same rooms and weights but the mask FCN's), bf16
+    plain_cfg = scannet_color_scene_config()
+    plain = SceneInference(load_jax_params(Detector(plain_cfg, device=dev), cparams), plain_cfg)
+    res["timing"] = {}
+    for name, sx in (("MASK_USE_IMAGES", sis["bfloat16"]), ("phase 7's config", plain)):
+        peak = []
+        for sc, f in zip(scenes, frames):  # each room alone, its prep included: its own rise over what was held
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            sx.infer(sc.copy(), dict(f))
+            torch.cuda.synchronize()
+            peak.append(round((torch.cuda.max_memory_allocated() - held) / 1e9, 3))
+        stream = [(sc.copy(), dict(f)) for _ in range(2) for sc, f in zip(scenes, frames)]
+        sx.infer(*stream[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sx.prefetch_scene(stream[0][0])
+        sx.prefetch_frames(stream[0][1], stream[0][0].shape)
+        for j, (sc, f) in enumerate(stream):
+            if j + 1 < len(stream):
+                sx.prefetch_scene(stream[j + 1][0])
+                sx.prefetch_frames(stream[j + 1][1], stream[j + 1][0].shape)
+            sx.infer(sc, f)
+        wall = (time.perf_counter() - t0) / len(stream)
+        dev_s = sx.device_seconds(scenes[1], frames[1], iters=6)
+        stages, kv, n_windows = scene_stages(sx, scenes[1], sx._device_color(frames[1], scenes[1].shape[:3]))
+        res["timing"][name] = {"scenes_per_min": 60.0 / wall, "device_s": dev_s, "stages": stages, "peak_gb": peak}
+        log(f"[11] {name}, bfloat16: {60.0 / wall:.2f} color masked scenes/min (a prefetched stream of 8, views "
+            f"{list(COLOR_VIEWS)} twice); peak memory GB per room alone, over what was held before it {peak}; "
+            f"device_seconds of the "
+            f"{COLOR_VIEWS[1]}-view room {dev_s:.4f} s; "
+            f"{int(kv.sum())} detections, valid windows {n_windows}; per-stage ms "
+            + json.dumps({k: round(v, 4) for k, v in stages.items()}) + f" [{CARD}]")
+    del plain, sis
+    torch.cuda.empty_cache()
+
+    # (e) training with the branch and the ENet trained: card vs CPU (phase 9's
+    # contract), 30 bf16 steps counted (K3 a sample, K3b once a step), the
+    # step's one K3b call against its plain version
+    cfg = enet_train_config()
+    cfg.MASK_USE_IMAGES = True
+    res["train_card_vs_cpu"] = train_card_vs_cpu(dev, "trainable-ENet MASK_USE_IMAGES", cfg, phase=11)
+    cfg = enet_train_config()
+    cfg.MASK_USE_IMAGES = True
+    run, tdet, opt, step, batch, gen = train_run(dev, "trainable-ENet MASK_USE_IMAGES", cfg, TRAIN_BATCH["color"],
+                                                 steps=MASK_COLOR_STEPS, phase=11)
+    per_step = {k: run["launches"][k] / MASK_COLOR_STEPS for k in ("fuse_views_cuda", "fuse_views_backward_cuda")}
+    check(per_step == {"fuse_views_cuda": TRAIN_BATCH["color"], "fuse_views_backward_cuda": 1}
+          and run["kernel_launches"]["fuse_views_backward_cuda"] == MASK_COLOR_STEPS,
+          f"a MASK_USE_IMAGES step launches K3 once a sample and K3b once: {per_step}")
+    with recording_kernel_calls() as calls:
+        step(opt, batch, generator=gen)
+    torch.cuda.synchronize()
+    k3b = [a for kind, a in calls if kind == "fuse_views_backward_cuda"]
+    check(len(k3b) == 1, f"{len(k3b)} K3b calls in a MASK_USE_IMAGES step, not one")
+    res["k3b_err"] = _k3b_case("the MASK_USE_IMAGES step's batched call (backbone and mask cotangents summed)", k3b[0],
+                               phase=11)[0]
+    res["k3b_ms"] = device_ms(lambda: projection.fuse_views_backward_cuda(**k3b[0]), 20)
+    log(f"[11] K3b on the MASK_USE_IMAGES step's call: {res['k3b_ms']:.5f} ms device time (20 calls queued behind a "
+        f"device sleep) [{CARD}]")
+    res["train"] = dict(run, per_step=per_step)
+    del tdet, opt, step, batch, calls, k3b
+    torch.cuda.empty_cache()
+
+    # (f) the color-only backbone: rooms served, then steps with the ENet trained
+    only = scannet_color_scene_config().replace(ONLY_IMAGES=True)
+    osi = SceneInference(load_jax_params(Detector(only, device=dev), matching_params(only)), only)
+    check(osi.det.geometry1 is None, "ONLY_IMAGES built a geometry stream")
+    reset_launch_counts()
+    for sc, f in zip(scenes[:2], frames[:2]):
+        det, masks = osi.infer(sc, f)
+        check(np.isfinite(det["pred_box"]).all() and len(masks) == len(det["pred_box"]), "ONLY_IMAGES: bad output")
+    olaunch = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
+               "fuse_views_cuda": projection.fuse_views_cuda.launches}
+    for k, v in olaunch.items():
+        check(v > 0, f"{k} was not launched on the ONLY_IMAGES path")
+    prep = osi._device_color(frames[1], scenes[1].shape[:3])
+    ostages = scene_stages(osi, scenes[1], prep)[0]
+    odev = osi.device_seconds(scenes[1], frames[1], iters=6)
+    ref = res["timing"]["phase 7's config"]
+    log(f"[11] ONLY_IMAGES rooms (bf16, views {list(COLOR_VIEWS[:2])}): launches {olaunch}; device_seconds of the "
+        f"{COLOR_VIEWS[1]}-view room {odev:.4f} s (phase 7's config {ref['device_s']:.4f}); per-stage ms "
+        + json.dumps({k: round(v, 4) for k, v in ostages.items()}) + f" (tiles in phase 7's config "
+        f"{ref['stages']['tiles']:.4f}) [{CARD}]")
+    res["only_images"] = {"launches": olaunch, "device_s": odev, "stages": ostages}
+    del osi
+    cfg = enet_train_config()
+    cfg.ONLY_IMAGES = True
+    tdet = train_detector(dev, cfg)
+    from tpu3dsis_torch.train.trainstep import build_train_step
+
+    opt_init, step = build_train_step(tdet, cfg, SHAPE)
+    opt = opt_init()
+    batch = train_batch(np.random.RandomState(7), TRAIN_BATCH["color"], cfg, True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    reset_launch_counts()
+    metrics = [step(opt, batch, generator=gen) for _ in range(ONLY_IMAGES_STEPS)]
+    torch.cuda.synchronize()
+    tl = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "roi_pool3d_backward_cuda": rp.roi_pool3d_backward_cuda.launches,
+          "nms3d_cuda": nms.nms3d_cuda.launches, "fuse_views_cuda": projection.fuse_views_cuda.launches,
+          "fuse_views_backward_cuda": projection.fuse_views_backward_cuda.launches}
+    losses = [float(m["total_loss"]) for m in metrics]
+    log(f"[11] ONLY_IMAGES training with the ENet trained, bf16, batch {TRAIN_BATCH['color']}: {ONLY_IMAGES_STEPS} "
+        f"steps, total_loss {[round(x, 5) for x in losses]}, step_finite "
+        f"{[float(m['step_finite']) for m in metrics]}; wrapper calls {tl} [{CARD}]")
+    check(all(float(m["step_finite"]) == 1.0 for m in metrics), "an ONLY_IMAGES step was not finite")
+    check(tl["fuse_views_backward_cuda"] == ONLY_IMAGES_STEPS and all(v > 0 for v in tl.values()),
+          f"ONLY_IMAGES training launches {tl}")
+    res["only_images"]["train_launches"] = tl
+    del tdet, opt, step
+    torch.cuda.empty_cache()
+
+    # (g) the port's benchmark export of phase 8's test-mode artifacts: a mesh
+    # and ground truth per scene made from its gt masks, export_scene,
+    # evaluate, then the submission's nyu40 labels
+    res["export"] = export_artifacts(drv["test_artifacts"])
+    shutil.rmtree(os.path.dirname(drv["test_artifacts"]), ignore_errors=True)
+    log(f"[11] phase 11 in {time.time() - t_phase:.1f} s")
+    return res
+
+
+def export_artifacts(art_dir):
+    """``tpu3dsis_torch.eval.scannet_benchmark`` on a directory of test-mode
+    artifacts: each scene's mesh is a vertex at every 2nd voxel along each
+    axis of its gt masks (ground truth class * 1000 + instance) and at every
+    4th of the rest (unlabelled), its world2grid the identity with the fixed
+    padding;
+    export_scene, evaluate, remap_benchmark_labels. Returns the averages."""
+    from tpu3dsis_torch.eval import scannet_benchmark as sb
+    from tpu3dsis_torch.tools.ply import write_ply
+
+    out = tempfile.mkdtemp()
+    bench, gt_dir = os.path.join(out, "bench"), os.path.join(out, "gt")
+    os.makedirs(gt_dir)
+    t0 = time.time()
+    preds, gts, n_inst = [], [], 0
+    for scene in sorted(os.listdir(art_dir)):
+        extent = np.load(os.path.join(art_dir, scene, "scene.npy")).shape[:3]
+        ids = np.zeros(extent, np.int64)
+        with open(os.path.join(art_dir, scene, "gt_mask"), "rb") as f:
+            gt_masks = pickle.load(f)
+        gt_box, gt_class = np.load(os.path.join(art_dir, scene, "gt_box.npy")), np.load(
+            os.path.join(art_dir, scene, "gt_class.npy"))
+        for j, (box, cls, m) in enumerate(zip(gt_box, gt_class, gt_masks)):
+            r = np.round(box[:6]).astype(int)
+            sub = ids[r[0]:r[3], r[1]:r[4], r[2]:r[5]]
+            m = np.asarray(m)[:sub.shape[0], :sub.shape[1], :sub.shape[2]] != 0
+            sub[m & (sub == 0)] = int(cls) * 1000 + j + 1
+        grid = np.indices(extent)
+        keep = ((ids > 0) & (grid % 2 == 0).all(0)) | (grid % 4 == 0).all(0)
+        verts = np.argwhere(keep).astype(np.float32)
+        write_ply(os.path.join(out, f"{scene}.ply"), verts)
+        w2g = np.eye(4)
+        w2g[:3, 3] = (10, 16, 10)  # load_world2grid_padded takes the padding off
+        np.savetxt(os.path.join(out, f"{scene}_w2g.txt"), w2g)
+        np.savetxt(os.path.join(gt_dir, f"{scene}.txt"), ids[keep], fmt="%d")
+        sb.export_scene(os.path.join(art_dir, scene), os.path.join(out, f"{scene}.ply"),
+                        os.path.join(out, f"{scene}_w2g.txt"), bench, scene)
+        preds.append(os.path.join(bench, f"{scene}.txt"))
+        gts.append(os.path.join(gt_dir, f"{scene}.txt"))
+        n_inst += len(open(preds[-1]).read().splitlines())
+    avgs = sb.evaluate(preds, gts, output_file=os.path.join(out, "evaluation.txt"), verbose=False)
+    sb.remap_benchmark_labels(bench)
+    labels = {int(l.split()[1]) for p in preds for l in open(p)}
+    log(f"[11] benchmark export of phase 8's {len(preds)} test-mode scenes (tpu3dsis_torch.eval.scannet_benchmark): "
+        f"{n_inst} instances exported; official AP {avgs['all_ap']:.4f}, AP50 {avgs['all_ap_50%']:.4f}, AP25 "
+        f"{avgs['all_ap_25%']:.4f}; nyu40 labels after remap {sorted(labels)}; {time.time() - t0:.1f} s")
+    check(n_inst > 0 and all(np.isfinite(avgs[k]) for k in ("all_ap", "all_ap_50%", "all_ap_25%")),
+          f"the export gave {n_inst} instances, AP {avgs['all_ap']}")
+    check(labels <= set(sb.CONSECUTIVE_TO_NYU40.values()), f"remapped labels {labels}")
+    shutil.rmtree(out, ignore_errors=True)
+    return {k: avgs[k] for k in ("all_ap", "all_ap_50%", "all_ap_25%")} | {"instances": n_inst}
+
+
 def main(argv=None) -> int:
     global CARD, CLOCK_MHZ
     import argparse
 
     parser = argparse.ArgumentParser(description="the port's paths on one NVIDIA card")
-    parser.add_argument("--phases", default="2,3,4,5,6,7,8,9,10",
+    parser.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11",
                         help="comma-separated phases to run after 0 and 1 (all by default; a subset prints no "
                              "result line)")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -2834,12 +3194,18 @@ def main(argv=None) -> int:
             log(f"[1]   {line.strip()}")
 
     rng = np.random.RandomState(0)
-    if phases != {2, 3, 4, 5, 6, 7, 8, 9, 10}:
-        # a subset, for working on one phase: phase 9 takes phase 2's inputs and phase 6's weights
+    if phases != {2, 3, 4, 5, 6, 7, 8, 9, 10, 11}:
+        # a subset, for working on one phase: phase 9 takes phase 2's inputs and phase 6's weights,
+        # phase 11 phase 7's rooms and test-mode artifacts of phase 8's scenes (driver_artifacts)
         if 9 in phases:
             phase_train(dev, kernel_inputs(dev, rng), scene_params())
         if 10 in phases:
             phase_enet(dev)
+        if 11 in phases:
+            cparams = color_params()
+            made = [make_color_scene(np.random.RandomState(20 + i), v) for i, v in enumerate(COLOR_VIEWS)]
+            cscenes, cgts, cframes = (list(x) for x in zip(*made))
+            phase_mask_color(dev, cparams, cscenes, cframes, {"test_artifacts": driver_artifacts(dev)})
         log(f"[done] phases {sorted(phases)} passed in {time.time() - t_start:.1f} s; no result line for a subset")
         return 0
     kernel_res, kernel_data = phase_kernels(dev, rng)
@@ -2870,6 +3236,8 @@ def main(argv=None) -> int:
     geo, col = train["runs"]["geometry"], train["runs"]["color"]
     enet = phase_enet(dev)
     ent = enet["run"]["launches"]
+    mc = phase_mask_color(dev, cparams, cscenes, cframes, drv)
+    mcp, mct = mc["launches"], mc["train"]["launches"]
 
     k1, k2 = kernel_res["roi_pool3d_cuda"], kernel_res["nms3d_cuda"]
     # K1 at the bench's compute dtype, bf16, and K2 at N = 400, thresh 0.1
@@ -2884,7 +3252,8 @@ def main(argv=None) -> int:
          "launches_train_path": geo["launches"]["roi_pool3d_cuda"],
          "launches_train_color_path": col["launches"]["roi_pool3d_cuda"],
          "launches_train_enet_path": ent["roi_pool3d_cuda"],
-         "max_abs_err": max(k1["err"], k2c["k1_err"], k3r["k1_err"], train["k1_err"], enet["k1_err"]),
+         "launches_mask_color_path": mcp["roi_pool3d_cuda"], "launches_train_mask_color_path": mct["roi_pool3d_cuda"],
+         "max_abs_err": max(k1["err"], k2c["k1_err"], k3r["k1_err"], train["k1_err"], enet["k1_err"], mc["k1_err"]),
          "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"],
          "bound_ms": kernels["k1_bfloat16_bound"], "bound_by": "bytes", "library_ms": None},
         {"name": "roi_pool3d_backward_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/roi_pool3d_bwd.cu",
@@ -2892,6 +3261,7 @@ def main(argv=None) -> int:
          "launches_per_step": geo["launches"]["roi_pool3d_backward_cuda"] / TRAIN_STEPS,
          "launches_train_color_path": col["launches"]["roi_pool3d_backward_cuda"],
          "launches_train_enet_path": ent["roi_pool3d_backward_cuda"],
+         "launches_train_mask_color_path": mct["roi_pool3d_backward_cuda"],
          "launches_entry_train": train["entry"]["launches"]["roi_pool3d_backward_cuda"],
          "max_abs_err": train["k1b_err"], "ms": train["k1b_ms"], "plain_ms": train["k1b_plain_ms"],
          "bound_ms": train["k1b_bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -2905,7 +3275,8 @@ def main(argv=None) -> int:
          "launches_train_path": geo["launches"]["nms3d_cuda"],
          "launches_train_color_path": col["launches"]["nms3d_cuda"],
          "launches_train_enet_path": ent["nms3d_cuda"],
-         "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"], train["k2_err"], enet["k2_err"]),
+         "launches_mask_color_path": mcp["nms3d_cuda"], "launches_train_mask_color_path": mct["nms3d_cuda"],
+         "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"], train["k2_err"], enet["k2_err"], mc["k2_err"]),
          "ms": kernels["k2_400_0.1"], "plain_ms": kernels["k2_plain_0.1"],
          "bound_ms": kernels["k2_400_bound"], "bound_by": kernels["k2_400_bound_by"], "library_ms": None},
         {"name": "nms3d_cuda (class-aware, scene stitch)", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
@@ -2913,7 +3284,8 @@ def main(argv=None) -> int:
          "launches": scene_launches["nms3d_cuda_class_aware"],
          "launches_per_scene": per_scene["nms3d_cuda_class_aware"],
          "launches_driver_path": drv["launches"]["nms3d_cuda_class_aware"],
-         "launches_driver_color_path": drv["color"]["launches"]["nms3d_cuda_class_aware"], "max_abs_err": k2c["err"],
+         "launches_driver_color_path": drv["color"]["launches"]["nms3d_cuda_class_aware"],
+         "launches_mask_color_path": mcp["nms3d_cuda_class_aware"], "max_abs_err": k2c["err"],
          "ms": scene_t["k2_class_aware"]["ms"], "plain_ms": scene_t["k2_class_aware"]["plain_ms"],
          "bound_ms": scene_t["k2_class_aware"]["bound_ms"], "bound_by": scene_t["k2_class_aware"]["bound_by"],
          "library_ms": None},
@@ -2923,13 +3295,18 @@ def main(argv=None) -> int:
          "launches_driver_color_path": drv["color"]["launches"]["fuse_views_cuda"],
          "launches_train_color_path": col["launches"]["fuse_views_cuda"],
          "launches_train_enet_path": ent["fuse_views_cuda"],
-         "max_abs_err": max(k3r["err"], drv["color"]["k3_err"], train.get("k3_err", 0.0), enet.get("k3_err", 0.0)),
+         "launches_mask_color_path": mcp["fuse_views_cuda"], "launches_train_mask_color_path": mct["fuse_views_cuda"],
+         "max_abs_err": max(k3r["err"], drv["color"]["k3_err"], train.get("k3_err", 0.0), enet.get("k3_err", 0.0),
+                            mc["k3_err"]),
          "ms": color_t["bfloat16"]["k3_ms"], "plain_ms": color_t["bfloat16"]["k3_plain_ms"],
          "bound_ms": color_t["bfloat16"]["k3_bound_ms"], "bound_by": color_t["bfloat16"]["k3_bound_by"],
          "library_ms": None, "cull_kept_share": k3r["kept_share"]},
         {"name": "fuse_views_backward_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/fuse_views_bwd.cu",
          "replaces": "tpu3dsis/geometry/projection.py:173", "launches": ent["fuse_views_backward_cuda"],
-         "launches_per_step": enet["per_step"]["fuse_views_backward_cuda"], "max_abs_err": enet["k3b_err"],
+         "launches_per_step": enet["per_step"]["fuse_views_backward_cuda"],
+         "launches_train_mask_color_path": mct["fuse_views_backward_cuda"],
+         "launches_per_step_mask_color": mc["train"]["per_step"]["fuse_views_backward_cuda"],
+         "max_abs_err": max(enet["k3b_err"], mc["k3b_err"]),
          "ms": enet["k3b_ms"], "plain_ms": enet["k3b_plain_ms"], "bound_ms": enet["k3b_bound_ms"],
          "bound_by": enet["k3b_bound_by"], "library_ms": None, "times": enet["k3b_times"]},
     ]}

@@ -55,15 +55,19 @@ def _color_loop_check():
 
 def test_color_scene_config_is_bench_color_scene():
     """``scannet_color_scene_config()`` is what ``bench.py::bench_color_scene``
-    builds: ``color_loop_check.build_cfg`` on benchmark.yml; the branches the
-    port has not got are refused."""
+    builds: ``color_loop_check.build_cfg`` on benchmark.yml; its color
+    options read through, and the combinations the JAX package cannot run
+    are refused."""
     cfg = _color_loop_check().build_cfg("")
     assert DetectorConfig.from_cfg(cfg) == scannet_color_scene_config()
     for key in ("MASK_USE_IMAGES", "ONLY_IMAGES"):
         cfg[key] = True
-        with pytest.raises(NotImplementedError):
-            DetectorConfig.from_cfg(cfg)
+        assert DetectorConfig.from_cfg(cfg) == scannet_color_scene_config().replace(**{key: True})
         cfg[key] = False
+    cfg.MASK_ONLY_IMAGES = True  # the color branch alone, without the branch
+    with pytest.raises(ValueError, match="MASK_ONLY_IMAGES needs MASK_USE_IMAGES"):
+        DetectorConfig.from_cfg(cfg)
+    cfg.MASK_ONLY_IMAGES = False
     with pytest.raises(ValueError):
         scannet_color_scene_config().replace(TPU_SCENE_COLOR_RESIDENT="sometimes")
 

@@ -14,8 +14,8 @@ scenes' gt boxes are some of the detections themselves, so that both mAPs
 are above 0; the two mAP dicts must be equal. Then: benchmark mode skips
 finished scenes, a color scene goes through its frames directory, the entry
 module ``tpu3dsis_torch.main`` gives ``run_scenes``' artifacts, and the
-JAX package's ``export_scene`` takes the port's artifacts as it takes its
-own.
+port's ``export_scene`` writes from them what the JAX package's writes from
+its own.
 """
 
 import copy
@@ -30,12 +30,13 @@ import torch
 from test_torch_scene import TORCH_THREADS, _assert_same_up_to_ties, _numpy_params
 
 from tpu3dsis import config as jax_config
-from tpu3dsis.eval import scannet_benchmark as sb
+from tpu3dsis.eval import scannet_benchmark as jax_sb
 from tpu3dsis.infer import driver as jax_driver
 from tpu3dsis.models import Detector as JaxDetector
 from tpu3dsis.tools.ply import write_ply
 from tpu3dsis_torch import Detector, SceneInference, load_jax_params, main, scannet_scene_config, yaml_subset
 from tpu3dsis_torch import config
+from tpu3dsis_torch.eval import scannet_benchmark
 from tpu3dsis_torch.infer import driver
 from tpu3dsis_torch.infer.single_shot import SingleShotInference
 from tpu3dsis_torch.io import SceneDataset, write_chunk_file
@@ -236,8 +237,9 @@ def test_main_entry_matches_run_scenes(runs, tmp_path, monkeypatch):
 
 
 def test_export_scene_takes_port_artifacts(runs, tmp_path):
-    """The JAX package's ScanNet export (``tools/vox2mesh.py``) on the port's
-    artifacts writes what it writes on its own."""
+    """The port's ScanNet export (``python -m tpu3dsis_torch.tools.vox2mesh``)
+    on the port's artifacts writes what the JAX package's
+    (``tools/vox2mesh.py``) writes on its own."""
     name = os.path.basename(runs["paths"][0])[:12]
     boxes = np.load(os.path.join(runs["cfg"].TEST_SAVE_DIR, name, "pred_box.npy"))
     verts = np.concatenate([np.random.RandomState(4).uniform(b[:3], b[3:], (60, 3)) for b in boxes[:4]])
@@ -247,7 +249,8 @@ def test_export_scene_takes_port_artifacts(runs, tmp_path):
     w2g[:3, 3] = (10, 16, 10)  # the padding export_scene takes off
     np.savetxt(tmp_path / "world2grid.txt", w2g, fmt="%.6f")
     out = {}
-    for side, save_dir in (("port", runs["cfg"].TEST_SAVE_DIR), ("jax", runs["jcfg"].TEST_SAVE_DIR)):
+    for side, save_dir, sb in (("port", runs["cfg"].TEST_SAVE_DIR, scannet_benchmark),
+                               ("jax", runs["jcfg"].TEST_SAVE_DIR, jax_sb)):
         sb.export_scene(os.path.join(save_dir, name), mesh, str(tmp_path / "world2grid.txt"),
                         str(tmp_path / side), name)
         with open(tmp_path / side / f"{name}.txt") as f:

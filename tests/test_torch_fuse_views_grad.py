@@ -291,7 +291,8 @@ def slab_boxes(mats, depths, valid, dims, depth_min, voxel_size, intrinsic=EK, d
     invalid or the pixel's depth is out of range. A slab's 8 corners go to
     the grid through the adjugate of the matrix's 3x3 times the reciprocal
     of its determinant, each widened by the camera coordinates' error
-    through that inverse and by the inverse's own. With ``inverse_error``
+    through that inverse and by the inverse's own (times the view's
+    ``margin_scales``). With ``inverse_error``
     also the largest ratio, over the live corners, of the float32 corner's
     distance from its float64 image to the inverse's margin."""
     v, h, w = depths.shape
@@ -306,6 +307,7 @@ def slab_boxes(mats, depths, valid, dims, depth_min, voxel_size, intrinsic=EK, d
                      m[:, 0] * m[:, 5] - m[:, 1] * m[:, 4]], 1)[:, None, :]  # (V, 1, 9)
     rdet = (1 / ((m[:, 0] * a[:, 0, 0] + m[:, 1] * a[:, 0, 3]) + m[:, 2] * a[:, 0, 6]))[:, None]
     amax = a.abs().amax(-1)
+    scales = P.margin_scales(mats)[:, None]  # the square of each 3x3's condition number
     d = depths.reshape(v, -1)
     eps = np.float32(P.CULL_EPS)
     z0 = torch.clamp((d - np.float32(voxel_size)) - eps, min=0.0)
@@ -321,7 +323,7 @@ def slab_boxes(mats, depths, valid, dims, depth_min, voxel_size, intrinsic=EK, d
              ((v0 + (0.5 + slack if i & 2 else -0.5 - slack)) - cy) * (1 / fy) * zc, zc]
         c = [e[j] - m[:, 4 * j + 3:4 * j + 4] for j in range(3)]
         size = ((e[0].abs() + m[:, 3:4].abs()) + (e[1].abs() + m[:, 7:8].abs())) + (e[2].abs() + m[:, 11:12].abs())
-        inv_err = ULPS * size * amax * rdet.abs()
+        inv_err = ULPS * size * amax * rdet.abs() * scales
         if inverse_error:
             c64 = torch.stack([((u0.double() + (0.5 + slack.double() if i & 1 else -0.5 - slack.double()))
                                 - cx.double()) / fx.double() * zc.double(),
@@ -457,6 +459,14 @@ def _slab_setup(name, rng, depth_min=DMIN):
         depths = rng.uniform(0.02, 3.0, (v, EH, EW))
         depths[::2] = rng.uniform(0.02, 0.3, (v // 2, EH, EW))  # every other view sees a wall at arm's length
         return EDIMS, EVOX, EK, depth_min, DMAX, poses, w2g, depths
+    if name in ("sheared", "uneven"):
+        # the near-camera views on a grid whose world_to_grid is sheared, or
+        # scaled unevenly (3x3 condition numbers about 20 and 6)
+        dims, vs, k, dmin, dmax, poses, w2g, depths = _slab_setup("near_camera", rng, depth_min)
+        lin = (np.array([[1.0, 2.5, -1.5], [0.0, 1.0, 2.0], [0.0, 0.0, 1.0]]) if name == "sheared"
+               else np.diag([1.0, 3.0, 0.5]))
+        w2g[:3, :3] = lin @ w2g[:3, :3]
+        return dims, vs, k, dmin, dmax, poses, w2g, depths
     if name == "train":
         cfg = chip_smoke.enet_train_config()
         poses = np.tile(np.eye(4), (v, 1, 1))
@@ -478,7 +488,7 @@ def _slab_setup(name, rng, depth_min=DMIN):
         rng.uniform(0.05, 4.5, (v, EH, EW))
 
 
-def _check_slabs(dims, vs, k, dmin, dmax, poses, w2g, depths):
+def _check_slabs(dims, vs, k, dmin, dmax, poses, w2g, depths, mean_box=50):
     """Every accepting (voxel, view) pair of the whole grid lies in its
     pixel's slab box; the boxes hold a few voxels; the float error the
     margins cover, measured against float64 at the accepting voxels (their
@@ -514,7 +524,7 @@ def _check_slabs(dims, vs, k, dmin, dmax, poses, w2g, depths):
         at_plane += int((depths[i].reshape(-1)[pix[idx]] - vs - P.CULL_EPS <= 0).sum())
     sizes = (last - first + 1).clamp(min=0).prod(-1)
     # a few voxels a pixel, not the grid
-    assert pairs > 100 and float(sizes[sizes > 0].float().mean()) < 50
+    assert pairs > 100 and float(sizes[sizes > 0].float().mean()) < mean_box, float(sizes[sizes > 0].float().mean())
     assert cam_ratio < 0.25 and inv_ratio < 0.25, (cam_ratio, inv_ratio)
     return at_plane
 
@@ -529,6 +539,20 @@ def test_k3b_pixel_slabs_hold_every_accepting_voxel(depth_min):
     at_plane = _check_slabs(*_slab_setup("near_camera", rng, depth_min))
     if depth_min == 0.0:
         assert at_plane > 0  # slabs that reach the camera plane were exercised
+
+
+@pytest.mark.parametrize("name", ["sheared", "uneven"])
+def test_k3b_pixel_slabs_hold_for_any_invertible_grid(name):
+    """``_check_slabs`` where world_to_grid is sheared or scaled unevenly,
+    so that each view's 3x3 is no rotation times a uniform scale: pass 1's
+    inverse-map margin, widened by the square of the 3x3's condition number
+    (``margin_scales``), keeps every accepting voxel in its box and the
+    inverse's float error under a quarter of it."""
+    setup = _slab_setup(name, np.random.RandomState(sum(map(ord, name))))
+    mats = P.view_matrices(np.asarray(setup[5], np.float32), np.asarray(setup[6], np.float32))
+    assert float(P.margin_scales(mats).min()) > 30  # well outside the rigid envelope
+    # a slab is no longer near a box of the grid's axes: boxes of up to 200 voxels, of the grid's 14,848
+    _check_slabs(*setup, mean_box=200)
 
 
 @pytest.mark.parametrize("name", ["scene", "train"])

@@ -1,5 +1,6 @@
-"""The port's paths (chunk, scene, color scene, the test and benchmark
-drivers, training and their entry module) import no JAX, YAML, PIL or JAX
+"""The port's paths (chunk, scene, color scene with the mask FCN's color
+branch, the test and benchmark drivers, the benchmark export, training and
+their entry module) import no JAX, YAML, PIL or JAX
 package (nor ``ml_dtypes``, in training); the probe's cuts still fit the
 kernel sources; its kernels on the card."""
 
@@ -33,10 +34,11 @@ si = tt.SceneInference(det, cfg)
 boxes, masks = si.infer(np.random.RandomState(1).randn(20, 16, 20, 2).astype(np.float32))
 assert si.last_fused and len(masks) == len(boxes["pred_box"]) > 0
 # the color scene path: uint8 images -> ENet -> view fusion -> the resident
-# volume the tiles crop (images 32x40, so 2D features and depths are 4x5)
+# volume the tiles and, with the mask FCN's color branch, the mask windows
+# crop (images 32x40, so 2D features and depths are 4x5)
 f = 6.0
 cfg = tt.scannet_color_scene_config().replace(
-    TPU_COMPUTE_DTYPE="float32", TPU_TILE_SIZE=(16, 16, 16), TPU_TILE_STRIDE=(12, 12, 12),
+    MASK_USE_IMAGES=True, TPU_COMPUTE_DTYPE="float32", TPU_TILE_SIZE=(16, 16, 16), TPU_TILE_STRIDE=(12, 12, 12),
     TPU_MASK_INFER_CANVAS=(16, 16, 16), TPU_MASK_INFER_CANVAS_SMALL=(8, 8, 8), TEST=tt.ProposalConfig(16, 4, 0.1),
     CLASS_THRESH=0.0, IMAGE_SHAPE=(40, 32), DEPTH_SHAPE=(5, 4), VOXEL_SIZE=0.25,
     INTRINSIC=((f, 0.0, 2.5, 0.0), (0.0, f, 2.0, 0.0), (0.0, 0.0, 1.0, 0.0), (0.0, 0.0, 0.0, 1.0)))
@@ -70,8 +72,9 @@ _TINY_DRIVERS = """
 import os, sys, tempfile
 import numpy as np
 from tpu3dsis_torch import main, yaml_subset
-from tpu3dsis_torch.eval import DetectionMAP
+from tpu3dsis_torch.eval import DetectionMAP, gt_export, scannet_benchmark
 from tpu3dsis_torch.infer import driver, single_shot
+from tpu3dsis_torch.tools import evaluate_benchmark, export_gt, ply, proj_label, vox2mesh
 from tpu3dsis_torch.io import SceneDataset, chunk_format, dataset, frames
 from tpu3dsis_torch.io import write_chunk_file
 
@@ -102,7 +105,8 @@ print("MODULES", " ".join(m for m in sys.modules
 
 def test_drivers_import_no_jax_yaml_or_pil():
     """The entry module in test and benchmark mode on a tiny geometry scene
-    (no frames on disk, so no PIL either)."""
+    (no frames on disk, so no PIL either), and the benchmark export's
+    modules and entries."""
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run(
         [sys.executable, "-c", _TINY_DRIVERS], cwd=ROOT, env=env,

@@ -111,8 +111,8 @@ def test_scene_config_is_bench_masked_scene():
     cfg = tpc.build_cfg(steps=700, lr=0.003)
     cfg.USE_MASK = True
     assert DetectorConfig.from_cfg(cfg) == scannet_scene_config()
-    cfg.MASK_USE_IMAGES = True
-    with pytest.raises(NotImplementedError):
+    cfg.MASK_USE_IMAGES = True  # the mask FCN's color branch reads a color volume this config has not
+    with pytest.raises(ValueError, match="needs USE_IMAGES"):
         DetectorConfig.from_cfg(cfg)
 
 

@@ -56,8 +56,8 @@ _SIGNATURES = {
                             _I),
     "tpu3dsis_fuse_views_smem": ([_I], _LL),
     "tpu3dsis_fuse_views_launches": ([], _LL),
-    "tpu3dsis_fuse_views_bwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _F,
-                                 _P, _P, _P, _P], _I),
+    "tpu3dsis_fuse_views_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F,
+                                 _F, _P, _P, _P, _P], _I),
     "tpu3dsis_fuse_views_bwd_smem": ([_I, _I], _LL),
     "tpu3dsis_fuse_views_bwd_launches": ([], _LL),
 }

@@ -313,6 +313,7 @@ class DetectorConfig:
     # --- whole-scene inference (tpu3dsis/config/config.py:109-110, 201-219)
     USE_MASK: bool = False
     MASK_USE_IMAGES: bool = False
+    MASK_ONLY_IMAGES: bool = False
     CLASS_THRESH: float = 0.9
     MASK_THRESH: float = 0.5
     TPU_TILE_SIZE: tuple = (96, 48, 96)
@@ -342,10 +343,19 @@ class DetectorConfig:
     TPU_COLOR_VOLUME_MAX_MB: int = 2048
 
     def __post_init__(self):
-        if self.MASK_USE_IMAGES:
-            raise NotImplementedError("the port's mask FCN has no color branch yet (MASK_USE_IMAGES)")
-        if self.ONLY_IMAGES:
-            raise NotImplementedError("the port has no color-only backbone (ONLY_IMAGES)")
+        # the combinations the JAX package cannot run: its mask FCN's color
+        # branch reads the color volume, which only USE_IMAGES makes (its
+        # trainstep.py:310-314 hands the branch None), and MASK_ONLY_IMAGES
+        # without that branch returns its input unchanged; its ScanNet
+        # backbone under ONLY_IMAGES without USE_IMAGES ends geometry1 at 0
+        # channels and geometry2 reads 128 (backbones.py:112-142)
+        if self.MASK_USE_IMAGES and not self.USE_IMAGES:
+            raise ValueError("MASK_USE_IMAGES needs USE_IMAGES: the mask FCN's color branch reads the color volume")
+        if self.MASK_ONLY_IMAGES and not self.MASK_USE_IMAGES:
+            raise ValueError("MASK_ONLY_IMAGES needs MASK_USE_IMAGES: it runs the mask FCN's color branch alone")
+        if self.ONLY_IMAGES and not self.USE_IMAGES and self.NET == "ScanNet_Backbone":
+            raise ValueError("ONLY_IMAGES on the ScanNet backbone needs USE_IMAGES: without the color stream "
+                             "its level 1 has no channels")
         if self.TPU_SCENE_COLOR_RESIDENT not in ("auto", "never", "always"):
             raise ValueError(f"TPU_SCENE_COLOR_RESIDENT must be auto, never or always, "
                              f"not {self.TPU_SCENE_COLOR_RESIDENT!r}")
@@ -376,6 +386,7 @@ class DetectorConfig:
             USE_CLASS=bool(cfg.USE_CLASS),
             USE_MASK=bool(cfg.USE_MASK),
             MASK_USE_IMAGES=bool(cfg.MASK_USE_IMAGES),
+            MASK_ONLY_IMAGES=bool(cfg.MASK_ONLY_IMAGES),
             CLASS_THRESH=float(cfg.CLASS_THRESH),
             MASK_THRESH=float(cfg.MASK_THRESH),
             TPU_TILE_SIZE=_ints(cfg.TPU_TILE_SIZE),

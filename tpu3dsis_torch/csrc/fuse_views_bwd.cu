@@ -110,15 +110,18 @@ long long g_launches = 0;
 // arithmetic, the adjugate, the determinant and the product: at most about
 // 33u of max |R^-1| times the sum of the corner's and the translation's
 // magnitudes, for R a rotation times a uniform scale, as every view matrix
-// of a rigid pose and a grid of cubic voxels is). Each margin is kUlps
-// FLT_EPSILON (128u) of its magnitude, so it grows with the grid, the image
-// and the coordinates. The box of the 8 widened corners comes from
+// of a rigid pose and a grid of cubic voxels is; for any other R the
+// adjugate's and the determinant's cancellations grow it by at most the
+// square of R's condition number, the view's margin[] factor, which the
+// host computes with the matrices). Each margin is kUlps FLT_EPSILON (128u)
+// of its magnitude, so it grows with the grid, the image and the
+// coordinates. The box of the 8 widened corners comes from
 // shuffles. The lanes then run the predicate's own code on the box's voxels
 // in turn; the voxels that accept at p are marked in a bitmap, and those
 // marked first are appended to the list, one atomic a warp. Every voxel
 // some valid view accepts is listed once; no others.
 __global__ void __launch_bounds__(kListThreads)
-k3b_list_pass(const float* __restrict__ depths, const float* __restrict__ mats,
+k3b_list_pass(const float* __restrict__ depths, const float* __restrict__ mats, const float* __restrict__ margin,
               const unsigned char* __restrict__ view_valid, int B, int V, int X, int Y, int Z, Intrinsics k,
               float4* __restrict__ dfeats, long long n4, int* __restrict__ list, int* __restrict__ scratch) {
   asm volatile("griddepcontrol.launch_dependents;");  // pass 2 may start: it waits where it reads the list
@@ -160,7 +163,7 @@ k3b_list_pass(const float* __restrict__ depths, const float* __restrict__ mats,
   float amax = 0.0f;
 #pragma unroll
   for (int r = 0; r < 3; ++r) amax = fmaxf(amax, fmaxf(fabsf(a[r][0]), fmaxf(fabsf(a[r][1]), fabsf(a[r][2]))));
-  const float inv_err = kUlps * FLT_EPSILON * size * amax * fabsf(rdet);
+  const float inv_err = kUlps * FLT_EPSILON * size * amax * fabsf(rdet) * (live ? __ldg(margin + bv) : 1.0f);
   float lo[3], hi[3];
 #pragma unroll
   for (int r = 0; r < 3; ++r) {
@@ -420,15 +423,17 @@ extern "C" long long tpu3dsis_fuse_views_bwd_launches() { return g_launches; }
 
 // B samples. grad: (B, X, Y, Z, C) float32 cotangent of K3's outputs; feats:
 // (B, V, H, W, C) float32; depths: (B, V, H, W) float32; mats: (B, V, 3, 4)
-// float32 grid-to-camera rows; view_valid: (B, V) uint8; valid_rank: (B, V +
+// float32 grid-to-camera rows; margin: (B, V) float32, each view's factor
+// on pass 1's inverse-map margin (at least 1: the square of its 3x3's
+// condition number); view_valid: (B, V) uint8; valid_rank: (B, V +
 // 1) int32, the valid views before each view and their total last; list:
 // B * X * Y * Z int32 of scratch; scratch: 1 + ceil(B * X * Y * Z / 32)
 // int32 (the list's length, then a bit a voxel), zeroed here; dfeats: (B,
 // V, H, W, C) float32, written whole. C = 32, 64 or 128; H, W < 32768; B * V
 // * H * W and B * X * Y * Z under 2^31. Returns the cudaError_t.
 extern "C" int tpu3dsis_fuse_views_bwd(int B, const void* grad, const void* feats, const void* depths,
-                                       const void* mats, const void* view_valid, const void* valid_rank, int V, int H,
-                                       int W, int C, int X, int Y, int Z, float fx, float fy, float cx, float cy,
+                                       const void* mats, const void* margin, const void* view_valid,
+                                       const void* valid_rank, int V, int H, int W, int C, int X, int Y, int Z, float fx, float fy, float cx, float cy,
                                        float depth_min, float depth_max, float voxel_size, void* list, void* scratch,
                                        void* dfeats, void* stream) {
   if (C != 32 && C != 64 && C != 128) return static_cast<int>(cudaErrorInvalidValue);
@@ -449,7 +454,8 @@ extern "C" int tpu3dsis_fuse_views_bwd(int B, const void* grad, const void* feat
     const long long threads = std::max(static_cast<long long>(B) * V * H * W * kSlabLanes, n4);
     const long long blocks = std::max((threads + kListThreads - 1) / kListThreads, 1LL);
     if (err == cudaSuccess) {
-      k3b_list_pass<<<static_cast<unsigned>(blocks), kListThreads, 0, s>>>(dp, mt, vv, B, V, X, Y, Z, k,
+      k3b_list_pass<<<static_cast<unsigned>(blocks), kListThreads, 0, s>>>(dp, mt, static_cast<const float*>(margin),
+                                                                           vv, B, V, X, Y, Z, k,
                                                                            static_cast<float4*>(dfeats), n4, lst, scr);
       err = cudaGetLastError();  // else pass 2 would read a list never written
     }

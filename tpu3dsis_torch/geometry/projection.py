@@ -60,6 +60,21 @@ def view_matrices(poses, world_to_grid) -> torch.Tensor:
     return m[..., :3, :].contiguous()
 
 
+def margin_scales(mats) -> torch.Tensor:
+    """(..., V, 3, 4) view matrices -> (..., V) float32 factors for K3b
+    pass 1's margin on the map from camera to grid coordinates: the square
+    of each 3x3's condition number (largest over smallest singular value of
+    its float32 entries, taken in float64), at least 1. The margin is sized
+    for a rotation times a uniform scale (condition number 1); the float
+    error of the adjugate and the determinant of any other 3x3 grows with
+    at most the square of its condition number, so with this factor every
+    invertible pose keeps each accepting voxel in its pixel's slab box. A
+    singular 3x3 gives inf, and the kernel then searches the whole grid, as
+    it does for a non-finite inverse."""
+    s = torch.linalg.svdvals(torch.as_tensor(mats)[..., :3].double())
+    return torch.clamp((s[..., 0] / s[..., 2]) ** 2, min=1.0).float()
+
+
 def _intrinsics(intrinsic) -> tuple:
     k = torch.as_tensor(intrinsic, dtype=torch.float32).cpu()
     return k[0, 0], k[1, 1], k[0, 2], k[1, 2]
@@ -347,16 +362,29 @@ def _device_matrices(poses, world_to_grid, shape, dev) -> torch.Tensor:
     return mats.pin_memory().to(dev, non_blocking=True)
 
 
+def _device_matrices_and_margins(poses, world_to_grid, shape, dev):
+    """``view_matrices`` and their ``margin_scales``, made on the host and
+    copied up to the card in one copy from pinned memory: (*shape) and
+    (*shape[:-2]) float32 tensors there."""
+    mats = view_matrices(poses, world_to_grid)
+    if tuple(mats.shape) != shape:
+        raise ValueError(f"poses and world_to_grid give matrices {tuple(mats.shape)}, not {shape}")
+    host = torch.cat([mats.reshape(-1), margin_scales(mats).reshape(-1)]).pin_memory()
+    both = host.to(dev, non_blocking=True)
+    return both[:mats.numel()].view(shape), both[mats.numel():].view(shape[:-2])
+
+
 def batch_operands(poses, world_to_grid, view_valid, batch, views, dev):
     """The kernels' operands of a batch of samples, made once: (B, V, 3, 4)
-    float32 matrices (``view_matrices``, one host op, copied up once from
-    pinned memory, so no call waits for the stream), the (B, V) uint8 valid
-    flags and the (B, V + 1) int32 valid rank (the valid views before each
-    view, their total last), both made on the card."""
-    mats = _device_matrices(poses, world_to_grid, (batch, views, 3, 4), dev)
+    float32 matrices (``view_matrices``, one host op) with K3b's (B, V)
+    float32 ``margin_scales``, both copied up once from pinned memory, so no
+    call waits for the stream, the (B, V) uint8 valid flags and the (B, V +
+    1) int32 valid rank (the valid views before each view, their total
+    last), both made on the card. Returns (mats, valid, rank, margins)."""
+    mats, margins = _device_matrices_and_margins(poses, world_to_grid, (batch, views, 3, 4), dev)
     valid = _valid_flags(view_valid, (batch, views), dev)
     rank = torch.nn.functional.pad(torch.cumsum(valid, 1, dtype=torch.int32), (1, 0))
-    return mats, valid, rank
+    return mats, valid, rank, margins
 
 
 def fuse_views_cuda(feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max,
@@ -408,18 +436,19 @@ fuse_views_cuda.launches = 0
 
 
 def fuse_views_backward_cuda(grad_out, feats2d, depths, poses, world_to_grid, intrinsic, volume_dims, depth_min,
-                             depth_max, voxel_size, view_valid=None, mats=None, rank=None):
+                             depth_max, voxel_size, view_valid=None, mats=None, rank=None, margins=None):
     """Kernel K3b for a batch of samples, one launch (two kernels); the
     arguments and result of ``fuse_views_backward_batch_plain``.
 
     feats2d and grad_out must be contiguous float32 CUDA tensors on one
     card, 16-byte aligned: (B, V, H, W, C) with C = 32, 64 or 128 and H, W <
     32768, and (B, X, Y, Z, C); depths a (B, V, H, W) float32 tensor there.
-    ``mats`` (B, V, 3, 4) float32 and ``rank`` (B, V + 1) int32, made on the
-    card by ``batch_operands`` (the forward's), stand in for poses and
-    world_to_grid and the rank; with both, and view_valid a (B, V) uint8
-    tensor on the card, the call does no host work but its checks and
-    allocations, and does not wait for the stream. The kernel zeroes the
+    ``mats`` (B, V, 3, 4) float32, ``margins`` (B, V) float32 and ``rank``
+    (B, V + 1) int32, made on the card by ``batch_operands`` (the
+    forward's), stand in for poses and world_to_grid and the rank; with
+    them, and view_valid a (B, V) uint8 tensor on the card, the call does no
+    host work but its checks and allocations, and does not wait for the
+    stream. ``mats`` and ``margins`` come together. The kernel zeroes the
     gradient and adds each share with a float32 atomic, so a pixel's sum is
     taken in an order that can change from call to call. Its work list and
     bitmap take 4 bytes and a bit a voxel of the batch.
@@ -449,11 +478,14 @@ def fuse_views_backward_cuda(grad_out, feats2d, depths, poses, world_to_grid, in
     if nbytes > props.shared_memory_per_block_optin:
         raise ValueError(f"{name}: {nbytes} bytes of shared memory do not fit a block")
     valid = _valid_flags(view_valid, (b, v), dev)
+    if (mats is None) != (margins is None):
+        raise ValueError(f"{name}: pass mats and margins together (batch_operands makes both)")
     if mats is None:
-        mats = _device_matrices(poses, world_to_grid, (b, v, 3, 4), dev)
+        mats, margins = _device_matrices_and_margins(poses, world_to_grid, (b, v, 3, 4), dev)
     if rank is None:
         rank = torch.nn.functional.pad(torch.cumsum(valid, 1, dtype=torch.int32), (1, 0))
     _check_operand("mats", mats, (b, v, 3, 4), torch.float32, dev)
+    _check_operand("margins", margins, (b, v), torch.float32, dev)
     _check_operand("view_valid", valid, (b, v), torch.uint8, dev)
     _check_operand("rank", rank, (b, v + 1), torch.int32, dev)
     out = torch.empty_like(feats2d)
@@ -463,8 +495,8 @@ def fuse_views_backward_cuda(grad_out, feats2d, depths, poses, world_to_grid, in
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.tpu3dsis_fuse_views_bwd(
-            b, grad_out.data_ptr(), feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(), valid.data_ptr(),
-            rank.data_ptr(), v, h, w, c, x, y, z, fx, fy, cx, cy, float(depth_min), float(depth_max),
+            b, grad_out.data_ptr(), feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(), margins.data_ptr(),
+            valid.data_ptr(), rank.data_ptr(), v, h, w, c, x, y, z, fx, fy, cx, cy, float(depth_min), float(depth_max),
             float(voxel_size), work.data_ptr(), scratch.data_ptr(), out.data_ptr(), stream,
         )
     _build.check(err, name)
@@ -478,8 +510,8 @@ fuse_views_backward_cuda.launches = 0
 class _FuseViewsBatch(torch.autograd.Function):
     """The view fusion of a batch of samples with its gradient: K3 per sample
     and one K3b for the batch on the card, the plain pair per sample on the
-    CPU. The forward makes the batch's matrices, valid flags and rank once
-    and keeps them for the backward. No gradient reaches the depths or
+    CPU. The forward makes the batch's matrices, K3b's margin scales, valid
+    flags and rank once and keeps them for the backward. No gradient reaches the depths or
     views."""
 
     @staticmethod
@@ -487,11 +519,11 @@ class _FuseViewsBatch(torch.autograd.Function):
                 view_valid):
         ctx.args = (depths, poses, world_to_grid, intrinsic, volume_dims, depth_min, depth_max, voxel_size)
         ctx.save_for_backward(feats2d)
-        ctx.view_valid, ctx.mats, ctx.rank = view_valid, None, None
+        ctx.view_valid, ctx.mats, ctx.rank, ctx.margins = view_valid, None, None, None
         if not feats2d.is_cuda:
             return _fuse_batch_plain(feats2d, *ctx.args, view_valid)
-        ctx.mats, ctx.view_valid, ctx.rank = batch_operands(poses, world_to_grid, view_valid, *feats2d.shape[:2],
-                                                            feats2d.device)
+        ctx.mats, ctx.view_valid, ctx.rank, ctx.margins = batch_operands(poses, world_to_grid, view_valid,
+                                                                         *feats2d.shape[:2], feats2d.device)
         return _fuse_batch_cuda(feats2d, *ctx.args, ctx.view_valid, ctx.mats)
 
     @staticmethod
@@ -499,7 +531,7 @@ class _FuseViewsBatch(torch.autograd.Function):
         (feats2d,) = ctx.saved_tensors
         if feats2d.is_cuda:
             d = fuse_views_backward_cuda(grad.contiguous(), feats2d, *ctx.args, view_valid=ctx.view_valid,
-                                         mats=ctx.mats, rank=ctx.rank)
+                                         mats=ctx.mats, rank=ctx.rank, margins=ctx.margins)
         else:
             d = fuse_views_backward_batch_plain(grad, feats2d, *ctx.args, view_valid=ctx.view_valid)
         return (d,) + (None,) * 9
@@ -546,7 +578,7 @@ def fuse_views_batch(feats2d, depths, poses, world_to_grid, intrinsic, volume_di
     if feats2d.device.type == "cpu":
         return _fuse_batch_plain(feats2d, depths, poses, world_to_grid, intrinsic, dims, depth_min, depth_max,
                                  voxel_size, view_valid)
-    mats, valid, _ = batch_operands(poses, world_to_grid, view_valid, *feats2d.shape[:2], feats2d.device)
+    mats, valid, _, _ = batch_operands(poses, world_to_grid, view_valid, *feats2d.shape[:2], feats2d.device)
     return _fuse_batch_cuda(feats2d, depths, poses, world_to_grid, intrinsic, dims, depth_min, depth_max, voxel_size,
                             valid, mats)
 

@@ -34,8 +34,14 @@ pinned memory on a side stream, and ``_device_scene`` waits on the copy's
 event), ``jnp.packbits`` of the masks (the ``uint8`` windows come down once
 per scene), the ``lax.map`` over window chunks (one batch per queue), and
 the padding of the view count to a multiple of 32 (a recompile guard). Not
-ported yet: ``mesh=`` (the multi-GPU slice), which raises, and the mask
-FCN's color branch (``MASK_USE_IMAGES``, refused by the config).
+ported yet: ``mesh=`` (the multi-GPU slice), which raises.
+
+With the mask FCN's color branch (``MASK_USE_IMAGES``) every mask window
+also takes a color crop beside its TSDF crop, region-masked alike: from
+the resident volume where the scene has one (the fused program and the
+host-planned path), else from the window's own fusion of the first
+``TPU_MAX_TILE_VIEWS`` views whose frusta meet it (one K3 launch a window,
+floored at 0 where a scene view was left out; ``tiling.py:374, 436``).
 """
 
 from __future__ import annotations
@@ -169,6 +175,8 @@ class SceneInference:
         # guards both prefetch dicts and the upload thread's start: a driver
         # may prefetch from its loader thread while this one infers
         self._prefetch_lock = threading.Lock()
+        # the mask FCN's color branch (MASK_USE_IMAGES): every mask window takes a color crop
+        self._mask_color = detector.mask_backbone is not None and detector.mask_backbone.color is not None
         self.last_fused = False  # did the fused path serve the last infer()?
         self.host_path_scenes = 0  # infer() calls an overflow sent to detect + predict_masks
 
@@ -372,21 +380,11 @@ class SceneInference:
     # --- stages of the fused program (device tensors, no host sync) -----------
     def _tile_color(self, prep: dict, origins: torch.Tensor) -> torch.Tensor:
         """The color input of a batch of tiles, (B, *tile, C): crops of the
-        resident volume or, without one, each tile's own fusion of the first
-        ``TPU_MAX_TILE_VIEWS`` views whose frusta meet it, on the tile's grid
-        (``shift_world_to_grid``), floored at 0 where a scene view was left
-        out (``tiling.py:775-793``)."""
+        resident volume or, without one, each tile's own fusion of its views
+        (``_window_color``, ``tiling.py:775-793``)."""
         if "color" in prep:
             return self._crops(prep["color"], origins, self.tile)
-        proj = self.det.color_projector
-        vols = []
-        for o in origins.cpu().numpy():
-            idx, ok, floor = select_views_for_tile(prep["frusta"], o, self.tile, self.cfg.TPU_MAX_TILE_VIEWS)
-            idx = idx[ok]
-            sel = torch.from_numpy(idx.astype(np.int64)).to(self.device)
-            vols.append(proj.project(prep["feats2d"][sel], prep["depths"][sel], prep["poses"][idx],
-                                     shift_world_to_grid(prep["world_to_grid"], o), self.tile, zero_floor=floor))
-        return torch.stack(vols)
+        return self._window_color(prep, origins.cpu().numpy(), self.tile)
 
     def _tile_outputs(self, scene_dev: torch.Tensor, origins: torch.Tensor, prep: dict | None = None) -> dict:
         """Every tile through the chunk detector, ``tile_batch`` at a time ->
@@ -460,28 +458,54 @@ class SceneInference:
                                        self.cfg.TPU_FUSED_LARGE_WINDOWS, allow_drop=True),
         }
 
-    def _window_masks(self, scene_dev: torch.Tensor, starts, locals6, labels, canvas) -> torch.Tensor:
+    def _window_masks(self, scene_dev: torch.Tensor, starts, locals6, labels, canvas,
+                      imageft: torch.Tensor | None = None) -> torch.Tensor:
         """Crop + region mask + mask FCN + threshold of the label's channel:
-        (M, 3) starts, (M, 6) roi in window coords, (M,) labels -> (M, *canvas)
-        uint8. The sigmoid and the threshold are in the compute dtype."""
+        (M, 3) starts, (M, 6) roi in window coords, (M,) labels and, for the
+        color branch, the windows' (M, *canvas, C) color crops -> (M,
+        *canvas) uint8. The sigmoid and the threshold are in the compute
+        dtype."""
         crop = self._crops(scene_dev, starts, canvas)
         axes = []
         for d, size in enumerate(canvas):
             a = torch.arange(size, device=crop.device)
             axes.append((a >= locals6[:, d, None]) & (a < locals6[:, d + 3, None]))
-        region = (axes[0][:, :, None, None] & axes[1][:, None, :, None] & axes[2][:, None, None, :])
-        region = region.to(crop.dtype)[..., None]
-        probs = self.det.mask_backbone(crop * region, region)
+        region = (axes[0][:, :, None, None] & axes[1][:, None, :, None] & axes[2][:, None, None, :])[..., None]
+        if imageft is not None:
+            imageft = imageft * region.to(imageft.dtype)
+        region = region.to(crop.dtype)
+        probs = self.det.mask_backbone(crop * region, region, imageft=imageft)
         idx = labels.long()[:, None, None, None, None].expand(*probs.shape[:4], 1)
         return (torch.gather(probs, -1, idx)[..., 0] >= self.cfg.MASK_THRESH).to(torch.uint8)
 
+    def _window_color(self, prep: dict, starts: np.ndarray, canvas) -> torch.Tensor:
+        """The color input of windows at host origins ``starts`` without a
+        resident volume, (M, *canvas, C): each window's own fusion of the
+        first ``TPU_MAX_TILE_VIEWS`` views whose frusta meet it, on the
+        window's grid (``shift_world_to_grid``), floored at 0 where a scene
+        view was left out; for tiles (``tiling.py:775-793``) and mask windows
+        (``_build_mask_color_fn``)."""
+        proj = self.det.color_projector
+        vols = []
+        for s in starts:
+            idx, ok, floor = select_views_for_tile(prep["frusta"], s, canvas, self.cfg.TPU_MAX_TILE_VIEWS)
+            idx = idx[ok]
+            sel = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+            vols.append(proj.project(prep["feats2d"][sel], prep["depths"][sel], prep["poses"][idx],
+                                     shift_world_to_grid(prep["world_to_grid"], s), canvas, zero_floor=floor))
+        return torch.stack(vols)
+
     def _fused(self, scene_dev: torch.Tensor, origins: torch.Tensor, extent, prep: dict | None = None) -> dict:
         """The whole fused program on the device, enqueued without a host
-        sync; a color prep holds the resident volume the tiles crop."""
+        sync; a color prep holds the resident volume the tiles crop, and
+        under ``MASK_USE_IMAGES`` the mask windows too."""
         out = self._stitch(self._tile_outputs(scene_dev, origins, prep), origins, extent)
         for name, plan in self._plan_queues(out, scene_dev.shape[:3]).items():
+            canvas = self._queue_canvas[name]
+            imageft = (self._crops(prep["color"], plan["starts"], canvas)
+                       if self._mask_color and prep is not None else None)
             plan["masks"] = self._window_masks(scene_dev, plan["starts"], plan["locals6"],
-                                               out["pred_class"][plan["roi_idx"].long()], self._queue_canvas[name])
+                                               out["pred_class"][plan["roi_idx"].long()], canvas, imageft)
             del plan["locals6"]
             out[name] = plan
         return out
@@ -532,7 +556,7 @@ class SceneInference:
                 if delivered[slot] < len(plan_windows_np(det_out["pred_box"][b], data.shape[:3], large)):
                     short.append(b)
             if short:
-                redo = self.predict_masks(scene_data, {k: v[short] for k, v in det_out.items()})
+                redo = self.predict_masks(scene_data, {k: v[short] for k, v in det_out.items()}, frames=frames)
                 for b, mk in zip(short, redo):
                     masks[b] = mk
         return det_out, masks
@@ -619,16 +643,22 @@ class SceneInference:
 
         Halo windows are planned on the host (``plan_windows_np``), cut from
         the device scene and run through the mask FCN in device batches of
-        ``batch`` large windows or ``4 * batch`` small ones. ``frames`` is
-        accepted and not read: the mask FCN has no color branch here
-        (``MASK_USE_IMAGES`` is refused by the config), as in the JAX
-        package's configurations without it."""
+        ``batch`` large windows or ``4 * batch`` small ones. With the mask
+        FCN's color branch (``MASK_USE_IMAGES``) it needs the scene's
+        ``frames``, as ``detect`` does: each window crops the resident color
+        volume where the scene has one at its bucket, else fuses its own
+        views (``_window_color``); without the branch ``frames`` is not
+        read."""
         if self.det.mask_backbone is None:
             return []
+        if self._mask_color and frames is None:
+            raise ValueError("MASK_USE_IMAGES: predict_masks needs the scene's frames")
         n = len(det_out["pred_box"])
         if n == 0:
             return []
         data, scene_dev = self._device_scene(scene_data)
+        prep = self._device_color(frames, scene_data.shape[:3]) if self._mask_color else None
+        resident = prep is not None and "color" in prep and tuple(prep["color"].shape[:3]) == data.shape[:3]
         small, large = self._queue_canvas["mask_small"], self._queue_canvas["mask_large"]
         queues = {"large": (large, [], batch), "small": (small, [], batch * 4)}
         full_sizes = []
@@ -650,7 +680,11 @@ class SceneInference:
                 def dev(k, dtype=np.int64):
                     return torch.from_numpy(np.stack([np.asarray(it[k], dtype) for it in part])).to(self.device)
 
-                got = self._window_masks(scene_dev, dev(1), dev(2), dev(4), canvas).cpu().numpy()
+                imageft = None
+                if prep is not None:
+                    imageft = (self._crops(prep["color"], dev(1), canvas) if resident
+                               else self._window_color(prep, [it[1] for it in part], canvas))
+                got = self._window_masks(scene_dev, dev(1), dev(2), dev(4), canvas, imageft).cpu().numpy()
                 for j, (b, st, _, own, _) in enumerate(part):
                     crop = got[j][own[0] - st[0]:own[3] - st[0], own[1] - st[1]:own[4] - st[1],
                                   own[2] - st[2]:own[5] - st[2]]

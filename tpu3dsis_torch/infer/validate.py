@@ -42,7 +42,13 @@ class ChunkValidator:
     @torch.inference_mode()
     def masks_for_boxes(self, data, boxes, labels, batch: int = 8) -> list:
         """Thresholded box-crop masks of `boxes` (with their `labels`) on
-        one chunk, `batch` boxes a mask-FCN call."""
+        one chunk, `batch` boxes a mask-FCN call. The mask FCN's color
+        branch (``MASK_USE_IMAGES``) raises: the JAX package's validator
+        hands it no color volume (``tpu3dsis/infer/validate.py:33-50``), so
+        it has no result to match."""
+        if self.det.mask_backbone.color is not None:
+            raise NotImplementedError("chunk validation of the mask FCN's color branch (MASK_USE_IMAGES): the JAX "
+                                      "package's ChunkValidator passes it no color volume and fails there")
         masks = []
         scene = torch.as_tensor(data, device=self.det.device)
         top = np.asarray([*self.shape, *self.shape])

@@ -30,9 +30,11 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
     """The chunk detector on the backbone the config's ``NET`` names
     (``ScanNet_Backbone`` or ``SUNCG_Backbone``, ``backbones.BACKBONES``,
     which share the forward), with the mask FCN as ``mask_backbone`` when
-    ``cfg.USE_MASK`` (else None) and, with ``cfg.USE_IMAGES``, the color
-    stream: its 3D convs (``color``), the ENet (``enet``, None under
-    ``USE_IMAGES_GT``) and the ``color_projector`` that fuses the views.
+    ``cfg.USE_MASK`` (else None; its color and combine branches with
+    ``cfg.MASK_USE_IMAGES``) and, with ``cfg.USE_IMAGES``, the color
+    stream: its 3D convs (``color``; without ``geometry1`` under
+    ``ONLY_IMAGES``), the ENet (``enet``, None under ``USE_IMAGES_GT``) and
+    the ``color_projector`` that fuses the views.
 
     Parameters live in ``cfg.TPU_COMPUTE_DTYPE`` (float32 or bfloat16) on
     ``device``, the CUDA card unless the caller passes ``device="cpu"``;
@@ -61,13 +63,15 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
         self.pooling_size = cfg.CLASS_POOLING_SIZE
         self.use_class = cfg.USE_CLASS
         self.compute_dtype = _DTYPES[cfg.TPU_COMPUTE_DTYPE]
-        BACKBONES[cfg.NET].build_backbone(self, self.pooling_size, cfg.USE_IMAGES, cfg.NUM_IMAGE_CHANNELS)
+        BACKBONES[cfg.NET].build_backbone(self, self.pooling_size, cfg.USE_IMAGES, cfg.NUM_IMAGE_CHANNELS,
+                                          cfg.ONLY_IMAGES)
         self.num_anchors = {1: cfg.NUM_ANCHORS_LEVEL1, 2: cfg.NUM_ANCHORS_LEVEL2}
         self.build_rpn(self.num_anchors, cfg.RPN_CHANNELS)
         if self.use_class:
             self.classifier_cls_score_net = Linear(FC7_CHANNELS, self.num_classes)
             self.classifier_bbox_pred_net = Linear(FC7_CHANNELS, self.num_classes * 6)
-        self.mask_backbone = (MaskBackbone(self.num_classes, device=device, compute_dtype=self.compute_dtype)
+        self.mask_backbone = (MaskBackbone(self.num_classes, device=device, compute_dtype=self.compute_dtype,
+                                           use_images=cfg.MASK_USE_IMAGES, only_images=cfg.MASK_ONLY_IMAGES)
                               if cfg.USE_MASK else None)
         self.anchor_dir = anchor_dir
         self.anchor_files = {1: cfg.ANCHORS_TYPE_LEVEL1, 2: cfg.ANCHORS_TYPE_LEVEL2}
@@ -79,7 +83,7 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.geometry1[0].weight.device
+        return self.geometry2[0].weight.device
 
     def init_params(self, generator: torch.Generator) -> "Detector":
         """Random weights from `generator` (torch's default init)."""

@@ -258,9 +258,9 @@ for case, kw in torch.load(sys.argv[1]).items():
     kw = {k: v.cuda() if k in ("grad_out", "feats2d", "depths", "view_valid") else v for k, v in kw.items()}
     if hasattr(P, "fuse_views_batch"):
         if hasattr(P, "batch_operands"):
-            mats, valid, rank = P.batch_operands(kw["poses"], kw["world_to_grid"], kw["view_valid"],
-                                                 *kw["feats2d"].shape[:2], kw["feats2d"].device)
-            kw = dict(kw, mats=mats, view_valid=valid, rank=rank)
+            ops = P.batch_operands(kw["poses"], kw["world_to_grid"], kw["view_valid"],
+                                   *kw["feats2d"].shape[:2], kw["feats2d"].device)
+            kw = dict(kw, **dict(zip(("mats", "view_valid", "rank", "margins"), ops)))  # an older checkout makes no margins
         call = lambda: P.fuse_views_backward_cuda(**kw)
     else:
         samples = [{k: v[i] if k in PER_SAMPLE else v for k, v in kw.items()} for i in range(kw["feats2d"].shape[0])]
@@ -325,8 +325,8 @@ def k3b_scratch(feats2d, volume_dims):
             torch.empty(1 + (n + 31) // 32, dtype=torch.int32, device=feats2d.device))
 
 
-def call_k3b(lib, grad, feats2d, depths, mats, valid, rank, fx, fy, cx, cy, volume_dims, depth_min, depth_max,
-             voxel_size, work=None, scratch=None):
+def call_k3b(lib, grad, feats2d, depths, mats, margins, valid, rank, fx, fy, cx, cy, volume_dims, depth_min,
+             depth_max, voxel_size, work=None, scratch=None):
     """This checkout's K3b on a batch: one call, the gradient from
     ``torch.empty`` (the kernel zeroes it), the work list and its scratch
     from the arguments or ``k3b_scratch``."""
@@ -335,7 +335,7 @@ def call_k3b(lib, grad, feats2d, depths, mats, valid, rank, fx, fy, cx, cy, volu
     if work is None:
         work, scratch = k3b_scratch(feats2d, volume_dims)
     err = lib.tpu3dsis_fuse_views_bwd(b, grad.data_ptr(), feats2d.data_ptr(), depths.data_ptr(), mats.data_ptr(),
-                                      valid.data_ptr(), rank.data_ptr(), v, h, w, c, *volume_dims, fx, fy, cx, cy,
+                                      margins.data_ptr(), valid.data_ptr(), rank.data_ptr(), v, h, w, c, *volume_dims, fx, fy, cx, cy,
                                       depth_min, depth_max, voxel_size, work.data_ptr(), scratch.data_ptr(),
                                       out.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _build.check(err, "probe K3b")
@@ -377,10 +377,11 @@ def k3b_case_args(case):
     from tpu3dsis_torch.geometry.projection import _intrinsic_floats, batch_operands
 
     feats = case["feats2d"]
-    mats, valid, rank = batch_operands(case["poses"], case["world_to_grid"], case.get("view_valid"),
-                                       *feats.shape[:2], feats.device)
+    mats, valid, rank, margins = batch_operands(case["poses"], case["world_to_grid"], case.get("view_valid"),
+                                                *feats.shape[:2], feats.device)
     fx, fy, cx, cy = _intrinsic_floats(case["intrinsic"])
-    return dict(grad=case["grad_out"], feats2d=feats, depths=case["depths"], mats=mats, valid=valid, rank=rank,
+    return dict(grad=case["grad_out"], feats2d=feats, depths=case["depths"], mats=mats, margins=margins, valid=valid,
+                rank=rank,
                 fx=fx, fy=fy, cx=cx, cy=cy, volume_dims=tuple(case["volume_dims"]), depth_min=case["depth_min"],
                 depth_max=case["depth_max"], voxel_size=case["voxel_size"])
 

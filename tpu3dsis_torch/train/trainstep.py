@@ -15,13 +15,16 @@ view fusion run under autograd: the ENet's float32 features are fused in
 float32 (K3 forward, K3b backward on the card), and the fused volume is
 then cast to the compute dtype, as in the JAX package; a cast before the
 fusion would give the same forward values but ties in the backward that
-float32 does not have.
+float32 does not have. Under ``MASK_USE_IMAGES`` the mask FCN's windows
+also crop that volume, so its cotangent is the sum of the backbone's and
+the mask branch's, and one K3b launch still takes it to the ENet.
 
 The random subsampling of the targets takes uniform draws (``make_draws``):
 the step makes them with a ``torch.Generator`` on the parameters' device
 unless the caller passes them, as the tests do with the JAX package's own.
 Parameters are updated in place (``solver.SGD``); a step whose loss or any
-gradient is not finite changes nothing (the ``step_finite`` metric is 0).
+gradient is not finite changes nothing (the ``step_finite`` metric is 0),
+frozen parameters' gradients included, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -123,13 +126,15 @@ def _plan_queue(rois, roi_valid, scene_shape, canvas, capacity, extra_windows, a
                         allow_drop=allow_drop, single_window=single_window)
 
 
-def _mask_forward_scan(detector: Detector, scene, rois, roi_valid, scene_shape, canvas, chunk=4, extra_windows=4,
-                       capacity=None, allow_drop=False, single_window=False):
+def _mask_forward_scan(detector: Detector, scene, rois, roi_valid, scene_shape, canvas, imageft=None, chunk=4,
+                       extra_windows=4, capacity=None, allow_drop=False, single_window=False):
     """The mask FCN over every sample's roi crop windows
     (``tpu3dsis/train/trainstep.py:43``).
 
-    scene (B, X, Y, Z, 2); rois (B, M, 6); roi_valid (B, M). Each roi that
-    fits the canvas gets one window, with the roi's region re-masked after
+    scene (B, X, Y, Z, 2); rois (B, M, 6); roi_valid (B, M); imageft (B, X,
+    Y, Z, C), the color volume the mask FCN's color branch crops at each
+    window's start (``MASK_USE_IMAGES``), or None. Each roi that fits the
+    canvas gets one window, with the roi's region re-masked after
     every conv (the reference's exact-size crop); larger rois get halo
     windows, each exact on the segment it owns (``ops/mask_windows.py``).
     Only the valid windows of the queues run (an invalid window adds
@@ -153,9 +158,11 @@ def _mask_forward_scan(detector: Detector, scene, rois, roi_valid, scene_shape, 
     roi_idx = cat["roi_idx"][keep].long() + sample * m
 
     def one_block(starts, sample, locals6):
+        # the crops are made inside the block, so that its backward makes them again
         crops = _crop(scene, sample, starts, canvas)
         masks = _window_region_mask(locals6, canvas)[..., None].to(crops.dtype)
-        return detector.mask_backbone(crops * masks, region_mask=masks, training=True)
+        ift = None if imageft is None else _crop(imageft, sample, starts, canvas) * masks.to(imageft.dtype)
+        return detector.mask_backbone(crops * masks, region_mask=masks, training=True, imageft=ift)
 
     outs = [checkpoint(one_block, starts[i:i + chunk], sample[i:i + chunk], locals6[i:i + chunk],
                        use_reentrant=False) for i in range(0, keep.shape[0], chunk)]
@@ -215,8 +222,10 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
     fix_class = (bool(cfg.FIX_CLASS) and not cfg.NYUV2_FINETUNE) or not bool(cfg.USE_CLASS)
     # the ENet trains (FIX_ENET False): its features keep their gradient through the fusion
     train_enet = use_images and not bool(cfg.FIX_ENET) and detector.enet is not None
-    if bool(cfg.MASK_USE_IMAGES):
-        raise NotImplementedError("the port's mask FCN has no color branch yet (MASK_USE_IMAGES)")
+    # the mask FCN's color branch crops the color volume (JAX trainstep.py:310-314)
+    mask_use_images = use_mask and bool(cfg.MASK_USE_IMAGES)
+    if mask_use_images and not use_images:
+        raise ValueError("MASK_USE_IMAGES needs USE_IMAGES: the mask FCN's color branch reads the color volume")
 
     def to_dev(x, dtype=None):
         return torch.as_tensor(x).to(dev, dtype=dtype, non_blocking=True)
@@ -283,6 +292,7 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
 
             def queue(valid, canvas, capacity, allow_drop, single_window=False):
                 mw = _mask_forward_scan(detector, data, mtargets["rois"], valid, shape, canvas,
+                                        imageft=imageft if mask_use_images else None,
                                         extra_windows=mask_extra_windows, capacity=capacity,
                                         allow_drop=allow_drop, single_window=single_window)
                 win = mw["logits"].shape[1:4]
@@ -318,8 +328,10 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
 def apply_step_update(opt: SGD, grads: dict, metrics: dict) -> dict:
     """The SGD update with the non-finite guard (JAX ``trainstep.py:393``):
     a non-finite loss or gradient leaves the parameters, the momentum and
-    the update count as they were. Returns the metrics with
-    ``step_finite``. No host sync."""
+    the update count as they were. ``grads`` may also hold the gradients of
+    frozen parameters: the update leaves them out, the guard reads them, as
+    the JAX package's reads every leaf of its gradient. Returns the metrics
+    with ``step_finite``. No host sync."""
     finite = torch.isfinite(metrics["total_loss"])
     gs = [g for g in grads.values() if g is not None]
     if gs:
@@ -349,9 +361,13 @@ def build_train_step(detector: Detector, cfg, scene_shape, mesh=None):
     post_n, use_gt = int(cfg.TRAIN.RPN_POST_NMS_TOP_N), bool(cfg.USE_GT)
 
     def opt_init() -> SGD:
+        # frozen parameters keep requires_grad: their gradients are taken
+        # only to be read by the non-finite guard, and autograd takes them
+        # only where a loss reaches them (a frozen backbone under trained
+        # class losses), as the JAX package differentiates every leaf
         opt = SGD(detector.named_parameters(), cfg)
-        for name, (_, frozen) in opt.groups.items():
-            opt.params[name].requires_grad_(not frozen)
+        for p in opt.params.values():
+            p.requires_grad_(True)
         return opt
 
     def step(opt: SGD, batch: dict, draws: dict | None = None, generator: torch.Generator | None = None,
@@ -363,7 +379,7 @@ def build_train_step(detector: Detector, cfg, scene_shape, mesh=None):
             draws = make_draws(b, n_anchors, n_candidates, generator, detector.device)
         else:
             draws = {k: torch.as_tensor(v, dtype=torch.float32).to(detector.device) for k, v in draws.items()}
-        names = opt.trainable()
+        names = list(opt.params)  # trainable and frozen: the guard reads both
         params = [opt.params[k] for k in names]
         with t("forward"):
             total, metrics = loss_fn(batch, draws, t)
