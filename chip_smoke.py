@@ -59,8 +59,9 @@ result):
      counts start at 0 and are printed at its end: K1, K2 and K2
      class-aware must rise), then ``--mode benchmark`` twice (the second
      skips every scene); every artifact loaded in a process without torch;
-     the same scenes through ``run_scenes`` on the CPU (float32, TF32 off)
-     give the same detections within 1e-4 voxels and the same mAP; the
+     the first scene through ``run_scenes`` on the CPU (float32, TF32 off)
+     gives the same detections within 1e-4 voxels as the entry module, and
+     the same mAP as ``run_scenes`` on the card over it; the
      color stream through ``run_scenes`` on phase 7's rooms as in-memory
      samples with frames (every count set to 0 before, read after; K3's
      call of one room held against its plain version); driver scenes/min
@@ -121,7 +122,27 @@ result):
      color-only backbone (``ONLY_IMAGES``) serving two rooms and training 3
      steps with the ENet trained, counted; and the port's benchmark export
      (``export_scene``, ``evaluate``, ``remap_benchmark_labels``) of phase
-     8's test-mode artifacts.
+     8's test-mode artifacts;
+ 12. several devices, on the one card: data-parallel training, two ranks
+     spawned on cuda:0 over a gloo group of this script's own (NCCL takes
+     one rank a device), each on 4 of phase 9's 8 chunks with its own
+     draws, ``scannet_train_config()`` in float32 (TF32 off): 3 steps
+     against one process at batch 8 with the same draws (losses within 1e-4
+     relative, parameters within 1e-4 of their magnitude), the ranks'
+     parameters equal, K1, K1b and K2 counted on each rank; then 10 bf16
+     steps, finite with the loss falling, s/iter beside one process's; the
+     entry module's train mode under ``torchrun --nproc_per_node 1`` (an
+     NCCL group of one, its all-reduce on the card, rank 0's snapshot);
+     ``USE_RPN: False`` training (3 bf16 steps, no RPN parameter, K1 and
+     K1b counted); ``SceneInference`` with the device list [cuda:0, cuda:0]
+     on phase 6's scenes in both dtypes (tile batches of 32 and 8) and on
+     one of phase 7's rooms, ``torch.equal`` to one device's, every K1 and
+     K2 call of one scene against its plain version, K1, K2, class-aware K2
+     and K3 counted, scenes/min beside one device's; and
+     ``spatial_single_shot`` on 2 and 4 shards of cuda:0 against the port's
+     single-shot scene (float32, TF32 off: features within 1e-5 of their
+     largest value, detections IoU-matched at 0.5 with the same class),
+     K1 and K2 counted, each call of one run against its plain version.
 
 ``--phases 9`` (a comma-separated list) runs only those phases after 0 and
 1, for work on one phase, and prints no result line (``--phases 11`` runs
@@ -1151,7 +1172,7 @@ def scene_stages(si, scene, prep=None):
 
         stages = {"tiles": cuda_ms(lambda: si._tile_outputs(scene_dev, origins, prep), 5)}
         if prep is not None:
-            stages["color_crops_of_tiles"] = cuda_ms(lambda: si._tile_color(prep, origins), 5)
+            stages["color_crops_of_tiles"] = cuda_ms(lambda: si._tile_color(prep, origins, si.device), 5)
         stages.update({
             "stitch_nms": cuda_ms(lambda: si._stitch(tiles, origins, scene.shape[:3]), 10),
             "planning": cuda_ms(lambda: si._plan_queues(det, scene_dev.shape[:3]), 10),
@@ -1709,6 +1730,7 @@ def phase_color_timing(sis, scenes, frames, res, passes=3):
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DRIVER_SCENES = 4
+CPU_DRIVER_SCENES = 1  # of them run again on the CPU (each takes it 36-46 s)
 KIND_NYU40 = {"sofa": 6, "chair": 5, "table": 7}  # tools/tiling_parity_check.py:27
 PRED_FILES = ("pred_box.npy", "pred_class.npy", "pred_conf.npy", "pred_mask", "pred_mask_index", "scene.npy")
 GT_FILES = ("gt_box.npy", "gt_class.npy", "gt_mask")
@@ -1783,13 +1805,20 @@ def write_overlay(path, **changes):
     return path
 
 
-def run_entry(args, timeout=600, stdout=None):
+def run_entry(args, timeout=600, stdout=None, torchrun=False):
     """The entry module in a process of its own: (its launch counts, the mAP
     dict it printed or None, wall seconds); its output's lines are added to
-    the list ``stdout`` where one is given."""
+    the list ``stdout`` where one is given. With ``torchrun``, launched by
+    ``torchrun --standalone --nproc_per_node 1`` (one rank, its rendezvous
+    on a free local port)."""
     t0 = time.time()
-    res = subprocess.run([sys.executable, "-c", _ENTRY, json.dumps(args)], cwd=ROOT, capture_output=True, text=True,
-                         timeout=timeout)
+    with tempfile.NamedTemporaryFile("w", suffix=".py", dir=ROOT, prefix=".entry_") as script:
+        script.write(_ENTRY)
+        script.flush()
+        launcher = ([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1"]
+                    if torchrun else [sys.executable])
+        res = subprocess.run([*launcher, script.name, json.dumps(args)], cwd=ROOT, capture_output=True, text=True,
+                             timeout=timeout)
     wall = time.time() - t0
     if res.returncode != 0:
         log(res.stderr[-4000:])
@@ -1944,17 +1973,25 @@ def phase_drivers(dev, params, cparams, cscenes, cgts, cframes, scene_t, color_t
         cpu_det = Detector(DetectorConfig.from_cfg(cfg), device="cpu").init_params(torch.Generator().manual_seed(0))
         ckpt.load_jax_params(cpu_det, ckpt.partial_update(ckpt.module_params(cpu_det), params, cfg))
         t0 = time.time()
-        cpu_map = run_scenes(cfg, cpu_det, "test")
+        cpu_map = run_scenes(cfg, cpu_det, "test", max_scenes=CPU_DRIVER_SCENES)
         cpu_s = time.time() - t0
-        log(f"[8] mAP card {card_map}, CPU {cpu_map} (CPU {cpu_s:.1f} s for {DRIVER_SCENES} scenes)")
+        # the card's mAP over the same scenes, from run_scenes in this process
+        card_cfg = finalize_config(cfg_from_file(test_cfg + ".yml"))
+        card_cfg.TEST_SAVE_DIR = os.path.join(tmp, "card_first")
+        card_det = load_jax_params(Detector(DetectorConfig.from_cfg(card_cfg), device=dev), params)
+        card_first_map = run_scenes(card_cfg, card_det, "test", max_scenes=CPU_DRIVER_SCENES)
+        log(f"[8] mAP of the first {CPU_DRIVER_SCENES} scene(s): card {card_first_map}, CPU {cpu_map} (CPU {cpu_s:.1f} s); "
+            f"the entry module's over all {DRIVER_SCENES} {card_map}")
         res["tied_copies"] = 0
-        for scene in sorted(os.listdir(test_dir)):
+        for scene in sorted(os.listdir(cfg.TEST_SAVE_DIR)):
             res["tied_copies"] += compare_card_cpu(
                 load_scene_artifacts(os.path.join(test_dir, scene)),
                 load_scene_artifacts(os.path.join(cfg.TEST_SAVE_DIR, scene)),
-                f"{scene}'s artifacts, the entry module against run_scenes", cpu_s / DRIVER_SCENES, phase=8,
+                f"{scene}'s artifacts, the entry module against run_scenes", cpu_s / CPU_DRIVER_SCENES, phase=8,
                 box_tol=1e-4, tie_stride=FEAT_STRIDE[0])
-        check(cpu_map == card_map, "the card's and the CPU's mAP differ")
+        check(len(os.listdir(cfg.TEST_SAVE_DIR)) == CPU_DRIVER_SCENES, "the CPU did not run its scenes")
+        check(cpu_map == card_first_map, "the card's and the CPU's mAP differ")
+        del card_det
         res["map"] = card_map
         # the test mode's artifacts, kept for phase 11's benchmark export (which removes them)
         res["test_artifacts"] = shutil.copytree(test_dir, os.path.join(tempfile.mkdtemp(), "test"))
@@ -3159,12 +3196,391 @@ def export_artifacts(art_dir):
     return {k: avgs[k] for k in ("all_ap", "all_ap_50%", "all_ap_25%")} | {"instances": n_inst}
 
 
+# --- phase 12: several devices: data-parallel training, tile-parallel scenes, the sharded single-shot scene -----
+
+DP_STEPS = 3  # float32 steps held against the single process
+DP_BF16_STEPS = 10
+DP_TOL = 1e-4  # phase 9's contract: losses relative, parameters of their magnitude
+SPATIAL_TOL = 1e-5  # of the largest feature: cuDNN may take other algorithms on the shards' shapes
+
+
+def _counts():
+    return {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "roi_pool3d_backward_cuda": rp.roi_pool3d_backward_cuda.launches,
+            "nms3d_cuda": nms.nms3d_cuda.launches, "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches,
+            "fuse_views_cuda": projection.fuse_views_cuda.launches}
+
+
+def _dp_steps(step, opt, batch, steps, seed0):
+    """`steps` steps on one batch, the generator seeded seed0 + s before step
+    s; (metrics, CUDA-event ms of each step)."""
+    gen = torch.Generator(device=opt.step.device)
+    metrics, events = [], []
+    for s in range(steps):
+        gen.manual_seed(seed0 + s)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(step(opt, batch, generator=gen))
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [{k: float(v) for k, v in m.items()} for m in metrics], [s.elapsed_time(e) for s, e in events]
+
+
+def _dp_worker(rank, world, port, out_dir):
+    """One rank of the data-parallel run on cuda:0 over gloo (NCCL takes one
+    rank a device): DP_STEPS float32 steps on its share of the batch, its
+    parameters and launch counts written to out_dir; then DP_BF16_STEPS bf16
+    steps."""
+    import torch.distributed as dist
+
+    from tpu3dsis_torch.checkpoint import module_params
+    from tpu3dsis_torch.config import scannet_train_config
+    from tpu3dsis_torch.parallel import distributed as pdist
+    from tpu3dsis_torch.train.trainstep import build_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world, rank=rank)
+    out = {}
+    for dt, steps in (("float32", DP_STEPS), ("bfloat16", DP_BF16_STEPS)):
+        cfg = scannet_train_config()
+        cfg.TPU_COMPUTE_DTYPE = dt
+        det = train_detector(dev, cfg, seed=rank)  # rank 1's weights differ until replicate
+        opt_init, step = build_train_step(det, cfg, SHAPE, group=dist.group.WORLD)
+        opt = opt_init()
+        pdist.replicate(det, opt)
+        batch = pdist.shard_batch(train_batch(np.random.RandomState(7), TRAIN_BATCH["geometry"], cfg), rank, world)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        reset_launch_counts()
+        before = device_launches()
+        metrics, ms = _dp_steps(step, opt, batch, steps, 100)
+        out[dt] = {"metrics": metrics, "ms": ms, "launches": _counts(),
+                   "kernel_launches": {k: v - before[k] for k, v in device_launches().items()},
+                   "trained": sorted(opt.trainable())}
+        if dt == "float32":
+            out[dt]["params"] = module_params(det)
+        del det, opt, step
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def dp_train(dev):
+    """Two ranks on cuda:0 over gloo against one process at batch 8 with the
+    same draws; then the entry module under torchrun (NCCL)."""
+    import multiprocessing
+
+    from tpu3dsis_torch.checkpoint import module_params
+    from tpu3dsis_torch.config import scannet_train_config
+    from tpu3dsis_torch.train.trainstep import build_train_step
+
+    n = TRAIN_BATCH["geometry"]
+    ref = {}
+    for dt, steps in (("float32", DP_STEPS), ("bfloat16", DP_BF16_STEPS)):
+        cfg = scannet_train_config()
+        cfg.TPU_COMPUTE_DTYPE = dt
+        det = train_detector(dev, cfg, seed=0)
+        opt_init, step = build_train_step(det, cfg, SHAPE)
+        opt = opt_init()
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(np.random.RandomState(7), n, cfg).items()}
+        metrics, ms = _dp_steps(step, opt, batch, steps, 100)
+        ref[dt] = {"metrics": metrics, "ms": ms, "params": module_params(det) if dt == "float32" else None}
+        del det, opt, step
+    torch.cuda.empty_cache()
+
+    world = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        t0 = time.time()
+        procs = [ctx.Process(target=_dp_worker, args=(r, world, port, tmp)) for r in range(world)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        wall = time.time() - t0
+        check(all(p.exitcode == 0 for p in procs), f"a data-parallel rank failed: exit codes {[p.exitcode for p in procs]}")
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+
+    res = {"launches": ranks[0]["float32"]["launches"], "wall_s": wall}
+    want_m, want_p = ref["float32"]["metrics"], ref["float32"]["params"]
+    worst_loss, worst_param = 0.0, 0.0
+    for r, got in enumerate(ranks):
+        g32 = got["float32"]
+        for w, g in zip(want_m, g32["metrics"]):
+            check(set(g) == set(w) and g["step_finite"] == 1.0, f"rank {r}: metrics {sorted(g)}")
+            for k, v in w.items():
+                worst_loss = max(worst_loss, abs(g[k] - v) / max(abs(v), 1e-6))
+        for k, w in want_p.items():
+            worst_param = max(worst_param, float(np.abs(g32["params"][k] - w).max() / max(np.abs(w).max(), 1e-30)))
+        for dt in ("float32", "bfloat16"):
+            for k in ("roi_pool3d_cuda", "roi_pool3d_backward_cuda", "nms3d_cuda"):
+                check(got[dt]["launches"][k] > 0 and got[dt]["kernel_launches"][k] > 0,
+                      f"rank {r} {dt}: {k} was not launched")
+    same = all(np.array_equal(ranks[0]["float32"]["params"][k], ranks[1]["float32"]["params"][k]) for k in want_p)
+    log(f"[12] data parallel, 2 ranks on one card over gloo, scannet_train_config() float32 (TF32 off), 4 chunks a "
+        f"rank, {DP_STEPS} steps, against one process at batch {n} with the same draws: largest relative loss "
+        f"difference {worst_loss:.3g}, parameters {worst_param:.3g} of their magnitude (contract {DP_TOL}); the "
+        f"ranks' parameters equal: {same}; launches a rank (float32) {ranks[0]['float32']['launches']}, "
+        f"(bf16) {ranks[0]['bfloat16']['launches']}; {wall:.1f} s with the ranks' start-up [{CARD}]")
+    check(worst_loss <= DP_TOL, f"data-parallel losses differ from one process's by {worst_loss:.3g}")
+    check(worst_param <= DP_TOL, f"data-parallel parameters differ from one process's by {worst_param:.3g}")
+    check(same, "the two ranks' parameters differ")
+
+    losses = [m["total_loss"] for m in ranks[0]["bfloat16"]["metrics"]]
+    check(all(m["step_finite"] == 1.0 for rk in ranks for m in rk["bfloat16"]["metrics"]), "a bf16 DP step was not finite")
+    check(np.mean(losses[-3:]) < np.mean(losses[:3]), f"bf16 DP total_loss did not fall: {losses}")
+    s_dp = statistics.median(ranks[0]["bfloat16"]["ms"][2:]) / 1e3
+    s_one = statistics.median(ref["bfloat16"]["ms"][2:]) / 1e3
+    res.update(s_per_iter_gloo=s_dp, s_per_iter_one=s_one, loss_rel=worst_loss, param_rel=worst_param,
+               launches_bf16=ranks[0]["bfloat16"]["launches"])
+    log(f"[12] bf16, {DP_BF16_STEPS} steps: total_loss {losses[0]:.5f} -> {losses[-1]:.5f}, all finite; "
+        f"{s_dp:.4f} s/iter for 2 ranks x 4 chunks on one card over gloo (rank 0's CUDA-event median of steps "
+        f"3-{DP_BF16_STEPS}) beside {s_one:.4f} s/iter for one process at batch {n} (phase 9's step) [{CARD}]")
+    res["nccl"] = dp_entry_nccl()
+    return res
+
+
+def free_port() -> int:
+    """A free localhost port (its socket closed before the port is used)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_entry_nccl():
+    """``python -m tpu3dsis_torch.main --mode train`` under ``torchrun
+    --nproc_per_node 1`` with TPU_DATA_PARALLEL 1: the NCCL group is made,
+    the step all-reduces on the card, rank 0 writes the snapshot."""
+    with tempfile.TemporaryDirectory() as tmp:
+        filelist = write_train_chunks(tmp)
+        cfg = write_overlay(os.path.join(tmp, "dp_overlay"), USE_IMAGES=False, TRAIN_FILELIST=filelist,
+                            VAL_FILELIST="", TRAINVAL_FILELIST="", VAL_TIME=0.0, DISPLAY=1, SNAPSHOT_KEPT=0,
+                            TPU_COMPUTE_DTYPE="bfloat16", TPU_MASK_CANVAS=[64, 48, 64], TPU_DATA_PARALLEL=1)
+        out_root = os.path.join(tmp, "out")
+        lines = []
+        launches, _, wall = run_entry(["--cfg", cfg, "--output_dir", out_root, "--mode", "train", "--max_steps", "3"],
+                                      stdout=lines, torchrun=True)
+        ckpt_dir = os.path.join(out_root, cfg, "checkpoints")
+        steps = [l for l in lines if l.startswith("epoch ")]
+        joined = [l for l in lines if l.startswith("data parallel:")]
+        times = [float(l.split()[-1][:-len("s/iter")]) for l in steps]
+        log(f"[12] torchrun --nproc_per_node 1 -m tpu3dsis_torch.main --mode train --max_steps 3 "
+            f"(TPU_DATA_PARALLEL 1): {wall:.1f} s with start-up; {joined}; {steps}; launches {launches}; snapshots "
+            f"{sorted(os.listdir(ckpt_dir))} [{CARD}]")
+        check(joined and joined[0].endswith("backend nccl"), f"the entry module did not join an NCCL group: {joined}")
+        check(len(steps) == 3 and os.path.isfile(os.path.join(ckpt_dir, "step_3.npz")),
+              "the NCCL run did not take 3 steps and write step_3.npz")
+        for k in ("roi_pool3d_cuda", "roi_pool3d_backward_cuda", "nms3d_cuda"):
+            check(launches[k] > 0, f"the NCCL run did not launch {k}")
+    return {"launches": launches, "wall_s": wall, "s_per_iter_steps_2_3": times[1:]}
+
+
+def no_rpn_train(dev):
+    """``USE_RPN: False`` (bf16, batch 8, the gt boxes as proposals): 3
+    steps, finite; no RPN parameter; K1 and K1b launch (K2 does not: no
+    proposal is selected)."""
+    from tpu3dsis_torch.config import scannet_train_config
+    from tpu3dsis_torch.train.trainstep import build_train_step
+
+    cfg = scannet_train_config()
+    cfg.USE_RPN = False
+    det = train_detector(dev, cfg)
+    opt_init, step = build_train_step(det, cfg, SHAPE)
+    opt = opt_init()
+    check(not any("rpn" in k for k in opt.params), "a USE_RPN=False detector has RPN parameters")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(np.random.RandomState(7), 8, cfg).items()}
+    reset_launch_counts()
+    metrics, ms = _dp_steps(step, opt, batch, 3, 100)
+    launches = _counts()
+    log(f"[12] USE_RPN=False, bf16, batch 8, 3 steps: total_loss {[round(m['total_loss'], 5) for m in metrics]}, "
+        f"metrics {sorted(metrics[0])}; {len(opt.params)} parameters, none of the RPN; launches {launches}; ms a step "
+        f"{[round(t, 2) for t in ms]} [{CARD}]")
+    check(all(m["step_finite"] == 1.0 for m in metrics), "a USE_RPN=False step was not finite")
+    check(not any(k.startswith("rpn_") for k in metrics[0]), "a USE_RPN=False step took an RPN loss")
+    for k in ("roi_pool3d_cuda", "roi_pool3d_backward_cuda"):
+        check(launches[k] > 0, f"USE_RPN=False training did not launch {k}")
+    return {"launches": launches}
+
+
+def _scene_equal(a, b) -> bool:
+    """Two ``infer`` results (detections, masks) equal to the bit."""
+    (det_a, masks_a), (det_b, masks_b) = a, b
+    return (all(det_a[k].dtype == det_b[k].dtype and np.array_equal(det_a[k], det_b[k])
+                for k in ("pred_box", "pred_class", "pred_conf"))
+            and len(masks_a) == len(masks_b) and all(np.array_equal(x, y) for x, y in zip(masks_a, masks_b)))
+
+
+def _same_scene(a, b, label):
+    check(_scene_equal(a, b), f"{label}: the detections or masks differ")
+
+
+def _scenes_per_min(si, scenes, frames=None):
+    """Scenes/min over a prefetched stream of the scenes twice (distinct arrays)."""
+    stream = [s.copy() for _ in range(2) for s in scenes]
+    t0 = time.perf_counter()
+    si.prefetch_scene(stream[0])
+    for j, s in enumerate(stream):
+        if j + 1 < len(stream):
+            si.prefetch_scene(stream[j + 1])
+        si.infer(s, frames)
+    torch.cuda.synchronize()
+    return 60.0 * len(stream) / (time.perf_counter() - t0)
+
+
+def tile_parallel(dev, n_scenes=4):
+    """``SceneInference(mesh=[cuda:0, cuda:0])`` at phase 6's tile batch of
+    32 on its scenes in both dtypes: each batch of tiles and each mask
+    window queue split in two. torch.equal to one device at tile batches of
+    16 (the same tile calls); against one device at 32 (phase 6's outputs)
+    the equality is printed, and every detection matches one at IoU 0.5
+    with the same class (cuDNN picks its algorithms by the batch). Phase 7's first
+    room at 8 over the list against one device at 4 likewise. Launches
+    counted over the device-list runs; scenes/min beside one device's at
+    32."""
+    params = scene_params()
+    scenes = [make_scene(np.random.RandomState(7 + i))[0] for i in range(n_scenes)]
+    res = {"err": 0.0, "equal_to_tile_batch_32": {}}
+    launches = defaultdict(int)
+    rates = {}
+    for dt in ("float32", "bfloat16"):
+        cfg = scannet_scene_config().replace(TPU_COMPUTE_DTYPE=dt)
+        det = load_jax_params(Detector(cfg, device=dev), params)
+        one = SceneInference(det, cfg)
+        half = SceneInference(det, cfg, tile_batch=16)
+        two = SceneInference(det, cfg, mesh=[dev, dev])
+        want = [one.infer(s) for s in scenes]
+        want_half = [half.infer(s) for s in scenes]
+        if dt == "float32":
+            calls = recorded_kernel_calls(two, scenes[0])
+            errs = check_recorded_k1_k2(calls, "float32 device-list scene", phase=12)
+            res["err"] = max(res["err"], *errs.values())
+        reset_launch_counts()
+        got = [two.infer(s) for s in scenes]
+        torch.cuda.synchronize()
+        for k, v in _counts().items():
+            launches[k] += v
+        check(two.last_fused, "a device-list scene was not served by the fused path")
+        for i, (a, b) in enumerate(zip(got, want_half)):
+            _same_scene(a, b, f"{dt} scene {i} against one device at tile_batch 16")
+        same32 = [_scene_equal(a, b) for a, b in zip(got, want)]
+        pairs = [match_detections(b[0], a[0], 0.5) for a, b in zip(got, want)]
+        matched = [f"{len(p)}/{len(b[0]['pred_box'])}" for p, b in zip(pairs, want)]
+        for i, (p, (a, b)) in enumerate(zip(pairs, zip(got, want))):
+            check(len(p) == len(a[0]["pred_box"]) == len(b[0]["pred_box"])
+                  and all(b[0]["pred_class"][r] == a[0]["pred_class"][j] for r, j in p),
+                  f"{dt} scene {i}: the detections do not match one device's at tile_batch 32 (IoU 0.5, same class)")
+        res["equal_to_tile_batch_32"][dt] = same32
+        rates[dt] = {"one": _scenes_per_min(one, scenes), "two": _scenes_per_min(two, scenes)}
+        for si in (one, half, two):
+            si.close()
+        log(f"[12] {dt}: {n_scenes} scenes of {SCENE_EXTENT} through SceneInference(mesh=[{dev}, {dev}]) at "
+            f"tile_batch 32 (each batch and mask queue split in two) equal one device's at tile_batch 16 (boxes, "
+            f"classes, scores, masks); against one device at 32 (phase 6's batch) equal {same32}, detections "
+            f"matched at IoU 0.5 {matched}; masked scenes/min {rates[dt]['two']:.2f} against {rates[dt]['one']:.2f} "
+            f"on one device at 32, a prefetched stream of 8 [{CARD}]")
+    # one of phase 7's rooms, bf16, with the ENet, K3 and the resident color volume
+    cparams = color_params()
+    ccfg = scannet_color_scene_config()
+    cdet = load_jax_params(Detector(ccfg, device=dev), cparams)
+    room, _, frames = make_color_scene(np.random.RandomState(20), COLOR_VIEWS[0])
+    want = SceneInference(cdet, ccfg, tile_batch=4).infer(room, frames)
+    two = SceneInference(cdet, ccfg, tile_batch=8, mesh=[dev, dev])
+    reset_launch_counts()
+    got = two.infer(room, frames)
+    torch.cuda.synchronize()
+    for k, v in _counts().items():
+        launches[k] += v
+    check(two.last_fused, "the device-list room was not served by the fused path")
+    _same_scene(got, want, "color room")
+    log(f"[12] a {COLOR_VIEWS[0]}-view room of phase 7 (bf16, tile_batch 8 split over [{dev}, {dev}]) equals one "
+        f"device's at tile_batch 4; launches over the device-list runs {dict(launches)} [{CARD}]")
+    for k in ("roi_pool3d_cuda", "nms3d_cuda", "nms3d_cuda_class_aware", "fuse_views_cuda"):
+        check(launches[k] > 0, f"the device-list scenes did not launch {k}")
+    res.update(launches=dict(launches), rates=rates)
+    return res
+
+
+def spatial_scene(dev):
+    """One 240x48x240 scene through ``spatial_single_shot`` on 2 and 4
+    shards of cuda:0 against the port's single-shot on the whole scene,
+    float32 with TF32 off: features within SPATIAL_TOL of their largest
+    value, detections IoU-matched at 0.5 with the same class."""
+    from tpu3dsis_torch.infer.single_shot import SingleShotInference
+    from tpu3dsis_torch.parallel import spatial_features
+    from tpu3dsis_torch.parallel.scene import spatial_single_shot
+
+    cfg = scannet_scene_config()
+    det = load_jax_params(Detector(cfg, device=dev), scene_params())
+    scene = make_scene(np.random.RandomState(7))[0]
+    shot = SingleShotInference(det, cfg)
+    want = shot.detect(scene)
+    with torch.inference_mode():
+        whole = det.features(torch.from_numpy(scene)[None])
+    res = {"err": 0.0, "feature_rel": 0.0}
+    launches = defaultdict(int)
+    for n in (2, 4):
+        devs = [dev] * n
+        feats = spatial_features(det, torch.from_numpy(scene), devs)
+        rel = max(float((feats[l] - whole[l]).abs().max() / whole[l].abs().max()) for l in (1, 2))
+        res["feature_rel"] = max(res["feature_rel"], rel)
+        if n == 2:
+            with recording_kernel_calls() as calls:
+                spatial_single_shot(det, cfg, scene, devs)
+            errs = check_recorded_k1_k2(calls, "sharded single-shot scene", phase=12)
+            res["err"] = max(res["err"], *errs.values())
+        reset_launch_counts()
+        got = spatial_single_shot(det, cfg, scene, devs)
+        torch.cuda.synchronize()
+        for k, v in _counts().items():
+            launches[k] += v
+        res[f"ms_{n}_shards"] = host_ms(lambda: spatial_single_shot(det, cfg, scene, devs), iters=3, warmup=0)
+        pairs = match_detections(want, got, 0.5)
+        same_cls = all(want["pred_class"][i] == got["pred_class"][j] for i, j in pairs)
+        log(f"[12] spatial_single_shot on {n} shards of {dev}, {SCENE_EXTENT} float32 (TF32 off): features within "
+            f"{rel:.3g} of their largest value (bar {SPATIAL_TOL}); {len(got['pred_box'])} detections against "
+            f"{len(want['pred_box'])} of the single-shot scene, {len(pairs)} matched at IoU 0.5, same class: "
+            f"{same_cls} [{CARD}]")
+        check(rel <= SPATIAL_TOL, f"{n} shards: features differ by {rel:.3g} of their largest value")
+        check(len(pairs) == len(want["pred_box"]) == len(got["pred_box"]) > 0 and same_cls,
+              f"{n} shards: detections do not match the single-shot scene's")
+    res["ms_whole"] = host_ms(lambda: shot.detect(scene), iters=3)
+    log(f"[12] sharded single-shot launches (2 and 4 shards) {dict(launches)}; ms a scene (host clock, the "
+        f"detections on the host) {res['ms_2_shards']:.1f} on 2 shards, {res['ms_4_shards']:.1f} on 4, "
+        f"{res['ms_whole']:.1f} unsharded [{CARD}]")
+    for k in ("roi_pool3d_cuda", "nms3d_cuda"):
+        check(launches[k] > 0, f"the sharded single-shot scene did not launch {k}")
+    res["launches"] = dict(launches)
+    return res
+
+
+def phase_parallel(dev):
+    """Phase 12: data-parallel training, ``USE_RPN: False`` training, the
+    device-list scenes and the sharded single-shot scene, on the one card."""
+    t_phase = time.time()
+    res = {"dp": dp_train(dev), "no_rpn": no_rpn_train(dev), "tiles": tile_parallel(dev),
+           "spatial": spatial_scene(dev)}
+    log(f"[12] phase 12 in {time.time() - t_phase:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     global CARD, CLOCK_MHZ
     import argparse
 
     parser = argparse.ArgumentParser(description="the port's paths on one NVIDIA card")
-    parser.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11",
+    parser.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12",
                         help="comma-separated phases to run after 0 and 1 (all by default; a subset prints no "
                              "result line)")
     phases = {int(p) for p in parser.parse_args(argv).phases.split(",")}
@@ -3194,7 +3610,7 @@ def main(argv=None) -> int:
             log(f"[1]   {line.strip()}")
 
     rng = np.random.RandomState(0)
-    if phases != {2, 3, 4, 5, 6, 7, 8, 9, 10, 11}:
+    if phases != {2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12}:
         # a subset, for working on one phase: phase 9 takes phase 2's inputs and phase 6's weights,
         # phase 11 phase 7's rooms and test-mode artifacts of phase 8's scenes (driver_artifacts)
         if 9 in phases:
@@ -3206,6 +3622,8 @@ def main(argv=None) -> int:
             made = [make_color_scene(np.random.RandomState(20 + i), v) for i, v in enumerate(COLOR_VIEWS)]
             cscenes, cgts, cframes = (list(x) for x in zip(*made))
             phase_mask_color(dev, cparams, cscenes, cframes, {"test_artifacts": driver_artifacts(dev)})
+        if 12 in phases:
+            phase_parallel(dev)
         log(f"[done] phases {sorted(phases)} passed in {time.time() - t_start:.1f} s; no result line for a subset")
         return 0
     kernel_res, kernel_data = phase_kernels(dev, rng)
@@ -3238,6 +3656,9 @@ def main(argv=None) -> int:
     ent = enet["run"]["launches"]
     mc = phase_mask_color(dev, cparams, cscenes, cframes, drv)
     mcp, mct = mc["launches"], mc["train"]["launches"]
+    par = phase_parallel(dev)
+    dpl, tpl, spl, nrl = (par["dp"]["launches"], par["tiles"]["launches"], par["spatial"]["launches"],
+                          par["no_rpn"]["launches"])
 
     k1, k2 = kernel_res["roi_pool3d_cuda"], kernel_res["nms3d_cuda"]
     # K1 at the bench's compute dtype, bf16, and K2 at N = 400, thresh 0.1
@@ -3253,7 +3674,11 @@ def main(argv=None) -> int:
          "launches_train_color_path": col["launches"]["roi_pool3d_cuda"],
          "launches_train_enet_path": ent["roi_pool3d_cuda"],
          "launches_mask_color_path": mcp["roi_pool3d_cuda"], "launches_train_mask_color_path": mct["roi_pool3d_cuda"],
-         "max_abs_err": max(k1["err"], k2c["k1_err"], k3r["k1_err"], train["k1_err"], enet["k1_err"], mc["k1_err"]),
+         "launches_dp_train_path_per_rank": dpl["roi_pool3d_cuda"],
+         "launches_tile_parallel_path": tpl["roi_pool3d_cuda"], "launches_spatial_path": spl["roi_pool3d_cuda"],
+         "launches_no_rpn_train_path": nrl["roi_pool3d_cuda"],
+         "max_abs_err": max(k1["err"], k2c["k1_err"], k3r["k1_err"], train["k1_err"], enet["k1_err"], mc["k1_err"],
+                            par["tiles"]["err"], par["spatial"]["err"]),
          "ms": kernels["k1_bfloat16"], "plain_ms": k1["plain_ms_bfloat16"],
          "bound_ms": kernels["k1_bfloat16_bound"], "bound_by": "bytes", "library_ms": None},
         {"name": "roi_pool3d_backward_cuda", "route": "cuda", "source": "tpu3dsis_torch/csrc/roi_pool3d_bwd.cu",
@@ -3263,6 +3688,9 @@ def main(argv=None) -> int:
          "launches_train_enet_path": ent["roi_pool3d_backward_cuda"],
          "launches_train_mask_color_path": mct["roi_pool3d_backward_cuda"],
          "launches_entry_train": train["entry"]["launches"]["roi_pool3d_backward_cuda"],
+         "launches_dp_train_path_per_rank": dpl["roi_pool3d_backward_cuda"],
+         "launches_dp_entry_train_nccl": par["dp"]["nccl"]["launches"]["roi_pool3d_backward_cuda"],
+         "launches_no_rpn_train_path": nrl["roi_pool3d_backward_cuda"],
          "max_abs_err": train["k1b_err"], "ms": train["k1b_ms"], "plain_ms": train["k1b_plain_ms"],
          "bound_ms": train["k1b_bound_ms"], "bound_by": "bytes", "library_ms": None,
          "times": train["k1b_times"]},
@@ -3276,7 +3704,10 @@ def main(argv=None) -> int:
          "launches_train_color_path": col["launches"]["nms3d_cuda"],
          "launches_train_enet_path": ent["nms3d_cuda"],
          "launches_mask_color_path": mcp["nms3d_cuda"], "launches_train_mask_color_path": mct["nms3d_cuda"],
-         "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"], train["k2_err"], enet["k2_err"], mc["k2_err"]),
+         "launches_dp_train_path_per_rank": dpl["nms3d_cuda"], "launches_tile_parallel_path": tpl["nms3d_cuda"],
+         "launches_spatial_path": spl["nms3d_cuda"], "launches_no_rpn_train_path": nrl["nms3d_cuda"],
+         "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"], train["k2_err"], enet["k2_err"], mc["k2_err"],
+                            par["tiles"]["err"], par["spatial"]["err"]),
          "ms": kernels["k2_400_0.1"], "plain_ms": kernels["k2_plain_0.1"],
          "bound_ms": kernels["k2_400_bound"], "bound_by": kernels["k2_400_bound_by"], "library_ms": None},
         {"name": "nms3d_cuda (class-aware, scene stitch)", "route": "cuda", "source": "tpu3dsis_torch/csrc/nms3d.cu",
@@ -3285,7 +3716,8 @@ def main(argv=None) -> int:
          "launches_per_scene": per_scene["nms3d_cuda_class_aware"],
          "launches_driver_path": drv["launches"]["nms3d_cuda_class_aware"],
          "launches_driver_color_path": drv["color"]["launches"]["nms3d_cuda_class_aware"],
-         "launches_mask_color_path": mcp["nms3d_cuda_class_aware"], "max_abs_err": k2c["err"],
+         "launches_mask_color_path": mcp["nms3d_cuda_class_aware"],
+         "launches_tile_parallel_path": tpl["nms3d_cuda_class_aware"], "max_abs_err": k2c["err"],
          "ms": scene_t["k2_class_aware"]["ms"], "plain_ms": scene_t["k2_class_aware"]["plain_ms"],
          "bound_ms": scene_t["k2_class_aware"]["bound_ms"], "bound_by": scene_t["k2_class_aware"]["bound_by"],
          "library_ms": None},
@@ -3296,6 +3728,7 @@ def main(argv=None) -> int:
          "launches_train_color_path": col["launches"]["fuse_views_cuda"],
          "launches_train_enet_path": ent["fuse_views_cuda"],
          "launches_mask_color_path": mcp["fuse_views_cuda"], "launches_train_mask_color_path": mct["fuse_views_cuda"],
+         "launches_tile_parallel_path": tpl["fuse_views_cuda"],
          "max_abs_err": max(k3r["err"], drv["color"]["k3_err"], train.get("k3_err", 0.0), enet.get("k3_err", 0.0),
                             mc["k3_err"]),
          "ms": color_t["bfloat16"]["k3_ms"], "plain_ms": color_t["bfloat16"]["k3_plain_ms"],

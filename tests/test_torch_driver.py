@@ -285,10 +285,24 @@ def test_single_shot_detect_matches_jax(runs):
 
 
 def test_tile_parallel_and_bad_modes_raise(runs):
+    """``TPU_SCENE_TILE_PARALLEL: 2`` on the CPU splits each scene's tile
+    batches and mask window queues over the CPU named twice, and writes the
+    artifacts of one device bit for bit (tile batches of 16 a device
+    against 32: on the CPU they agree to the bit from 3 tiles a batch up);
+    an unknown mode raises."""
     cfg = runs["cfg"].copy()
     cfg.TPU_SCENE_TILE_PARALLEL = 2
-    with pytest.raises(NotImplementedError, match="one card"):
-        driver.run_scenes(cfg, runs["det"], "test")
+    cfg.TEST_SAVE_DIR = runs["cfg"].TEST_SAVE_DIR + "_tile_parallel"
+    assert driver.tile_parallel_devices(cfg, runs["det"]) == [torch.device("cpu")] * 2
+    assert driver.tile_parallel_devices(runs["cfg"], runs["det"]) is None
+    driver.run_scenes(cfg, runs["det"], "benchmark", max_scenes=1)
+    scene = os.path.basename(runs["paths"][0])[:12]
+    got = load_artifacts(os.path.join(cfg.TEST_SAVE_DIR, scene))
+    want = load_artifacts(os.path.join(runs["cfg"].TEST_SAVE_DIR, scene))
+    for name in ("pred_box.npy", "pred_class.npy", "pred_conf.npy", "scene.npy"):
+        assert np.array_equal(got[name], want[name]), name
+    assert len(got["pred_mask"]) == len(want["pred_mask"]) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(got["pred_mask"], want["pred_mask"]))
     with pytest.raises(ValueError):
         driver.run_scenes(runs["cfg"], runs["det"], "train")
 

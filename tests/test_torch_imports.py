@@ -1,6 +1,7 @@
 """The port's paths (chunk, scene, color scene with the mask FCN's color
 branch, the test and benchmark drivers, the benchmark export, training and
-their entry module) import no JAX, YAML, PIL or JAX
+their entry module, the device-list scene and the sharded single-shot scene)
+import no JAX, YAML, PIL or JAX
 package (nor ``ml_dtypes``, in training); the probe's cuts still fit the
 kernel sources; its kernels on the card."""
 
@@ -33,6 +34,14 @@ det = tt.Detector(cfg, device="cpu").init_params(torch.Generator().manual_seed(0
 si = tt.SceneInference(det, cfg)
 boxes, masks = si.infer(np.random.RandomState(1).randn(20, 16, 20, 2).astype(np.float32))
 assert si.last_fused and len(masks) == len(boxes["pred_box"]) > 0
+# several devices: tile batches and mask windows split over a device list, the sharded single-shot scene
+from tpu3dsis_torch.parallel import distributed
+from tpu3dsis_torch.parallel.scene import spatial_single_shot
+boxes, masks = tt.SceneInference(det, cfg, tile_batch=2, mesh=["cpu", "cpu"]).infer(
+    np.random.RandomState(1).randn(20, 16, 20, 2).astype(np.float32))
+assert len(masks) == len(boxes["pred_box"]) > 0
+assert spatial_single_shot(det, cfg, np.random.RandomState(1).randn(20, 16, 20, 2).astype(np.float32),
+                           ["cpu", "cpu"])["pred_box"].shape[1] == 6
 # the color scene path: uint8 images -> ENet -> view fusion -> the resident
 # volume the tiles and, with the mask FCN's color branch, the mask windows
 # crop (images 32x40, so 2D features and depths are 4x5)

@@ -183,14 +183,23 @@ def test_results_independent_of_tile_batch_and_prefetch(pair):
 
 
 def test_scene_inference_takes_no_mesh_or_frames(pair):
-    """A mesh raises; a geometry-only detector ignores frames, as the JAX
+    """A mesh is a device list that starts with the detector's device (the
+    CPU named twice at tile batches of 2 splits each batch over the two and
+    serves what one device does at tile batches of 1, bit for bit; another
+    first device raises); a geometry-only detector ignores frames, as the JAX
     package's does (its ``infer`` and ``detect`` read them only with a color
     stream)."""
     _, _, _, tcfg, tdet = pair
-    with pytest.raises(NotImplementedError):
-        SceneInference(tdet, tcfg, mesh=object())
+    with pytest.raises(ValueError, match="detector's"):
+        SceneInference(tdet, tcfg, mesh=["meta", "cpu"])
     si = SceneInference(tdet, tcfg)
     want = si.infer(_scene(0))
+    two = SceneInference(tdet, tcfg, tile_batch=2, mesh=["cpu", "cpu"])
+    one = SceneInference(tdet, tcfg, tile_batch=1)
+    got, masks = two.infer(_scene(0))
+    want2, masks2 = one.infer(_scene(0))
+    assert all(np.array_equal(got[k], want2[k]) for k in want2)
+    assert len(masks) == len(masks2) and all(np.array_equal(a, b) for a, b in zip(masks, masks2))
     _assert_same(*si.infer(_scene(0), frames={}), *want)
     cfg = tcfg.replace(TEST=ProposalConfig(8, 4, 0.1))
     assert SceneInference(Detector(cfg.replace(USE_MASK=False), device="cpu"), cfg).predict_masks(

@@ -51,12 +51,13 @@ STEPS = 3
 F = 6.0  # focal length in pixels of the 5x4 feature maps
 
 
-def tiny_cfg(base, color=False, enet=False, net="ScanNet_Backbone", mask_color=False):
+def tiny_cfg(base, color=False, enet=False, net="ScanNet_Backbone", mask_color=False, no_rpn=False):
     """``tiny_ci.yml``'s capacities on the ScanNet (or SUNCG) detector, 16^3
     mask canvas; with ``color`` the color stream on 5x4 feature images, and
     with ``enet`` on 2 views of 40x32 images through a trained ENet
     (``FIX_ENET: False``); with ``mask_color`` the mask FCN's color branch
-    (``MASK_USE_IMAGES``) too."""
+    (``MASK_USE_IMAGES``) too; with ``no_rpn`` no RPN (``USE_RPN: False``:
+    the gt boxes are the proposals)."""
     cfg = base
     anchors = {"ScanNet_Backbone": (3, 11, "scannet14_3.txt", "scannet14_11.txt"),
                "SUNCG_Backbone": (3, 6, "suncg9_3.txt", "suncg9_6.txt")}[net]
@@ -77,6 +78,8 @@ def tiny_cfg(base, color=False, enet=False, net="ScanNet_Backbone", mask_color=F
         cfg.update(USE_IMAGES_GT=False, FIX_ENET=False, NUM_IMAGES=2, IMAGE_SHAPE=[40, 32])
     if mask_color:
         cfg.MASK_USE_IMAGES = True
+    if no_rpn:
+        cfg.USE_RPN = False
     return cfg
 
 
@@ -128,19 +131,22 @@ def jax_step_draws(key, n_anchor, n_cand):
 
 # the three-step cases: geometry, the color stream (feature images, frozen
 # ENet path), a trained ENet through the view fusion (FIX_ENET False), the
-# SUNCG backbone with the color stream, and the trained ENet with the mask
-# FCN's color branch (MASK_USE_IMAGES). The last three are the fixture's
-# params in tests/test_torch_train_enet.py and
-# tests/test_torch_train_mask_color.py, which run this module's three-step
-# tests on them, so that test workers of their own take their JAX compiles.
+# SUNCG backbone with the color stream, the trained ENet with the mask
+# FCN's color branch (MASK_USE_IMAGES), and no RPN (USE_RPN False). The last
+# four are the fixture's params in tests/test_torch_train_enet.py,
+# tests/test_torch_train_mask_color.py and tests/test_torch_train_no_rpn.py,
+# which run this module's three-step tests on them, so that test workers of
+# their own take their JAX compiles.
 KINDS = {"geometry": {}, "color": {"color": True}, "enet": {"enet": True},
-         "suncg": {"color": True, "net": "SUNCG_Backbone"}, "mask_color": {"enet": True, "mask_color": True}}
+         "suncg": {"color": True, "net": "SUNCG_Backbone"}, "mask_color": {"enet": True, "mask_color": True},
+         "no_rpn": {"no_rpn": True}}
 # kinds whose ENet starts from the trained color fixture's, as a shipped
-# config's PRETRAINED_ENET_PATH has it, that take one step, not three, and
-# whose JAX step LLVM compiles without optimisation: their compile is the
-# test's cost (see test_torch_train_mask_color.py)
+# config's PRETRAINED_ENET_PATH has it, and kinds that take one step, not
+# three, and whose JAX step XLA compiles without its fusion pass and LLVM
+# without optimisation: their compile is the test's cost (see
+# test_torch_train_mask_color.py)
 PRETRAINED_ENET = {"mask_color"}
-ONE_STEP = {"mask_color"}
+ONE_STEP = {"mask_color", "no_rpn"}
 
 
 @pytest.fixture(scope="module", params=["geometry", "color"])
@@ -175,7 +181,7 @@ def _three_steps(name):
     for i in range(1 if name in ONE_STEP else STEPS):
         batch = make_batch(i, color, kind.get("enet", False))
         key = jax.random.PRNGKey(10 + i)
-        if i == 0 and kind.get("enet"):
+        if i == 0 and (kind.get("enet") or name in ONE_STEP):
             # the same step compiled without XLA's fusion pass, which on the
             # CPU takes minutes over the trained ENet's ~430 small parameters
             options = {"xla_disable_hlo_passes": "fusion"}
@@ -184,7 +190,9 @@ def _three_steps(name):
             jstep = jstep.lower(state, batch, key).compile(compiler_options=options)
         state, m = jstep(state, batch, key)
         jm.append({k: float(v) for k, v in m.items()})
-        tm.append({k: float(v) for k, v in step(opt, batch, draws=jax_step_draws(key, n_anchor, 8 + 4)).items()})
+        # the proposal targets' candidates: 8 proposals (without the RPN the 4 gt boxes), then the 4 gt boxes
+        n_cand = (4 if kind.get("no_rpn") else 8) + 4
+        tm.append({k: float(v) for k, v in step(opt, batch, draws=jax_step_draws(key, n_anchor, n_cand)).items()})
     return jm, tm, {k: np.asarray(v) for k, v in state.params.items()}, ckpt.module_params(det), int(opt.step), init
 
 
@@ -399,18 +407,47 @@ def test_trainer_trains_snapshots_resumes_and_validates(tmp_path, no_tensorboard
     assert set(res) == {"AP_ROI", "mAP_CLASSIFICATION", "mAP_MASK"} and all(0.0 <= v <= 1.0 for v in res.values())
 
 
-def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch, no_tensorboard):
+def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch, capsys, no_tensorboard):
+    """``TPU_DATA_PARALLEL: 2`` is the global batch: one process on the CPU
+    loads both chunks a step, and the batch is clamped to the cards present
+    (here one) with a note; the JAX package's launch variables join a
+    process group (here of one process, over gloo), whose step takes the
+    all-reduce; ``MASK_USE_IMAGES`` without the color stream raises; the
+    ENet trains (``FIX_ENET: False``) and its snapshots resume across
+    packages."""
+    import socket
+
+    import torch.distributed as dist
+
+    from tpu3dsis_torch.parallel import distributed as pdist
     from tpu3dsis_torch.train.loop import Trainer
 
     cfg = tiny_cfg(default_config())
-    cfg.TPU_DATA_PARALLEL = 2
-    with pytest.raises(NotImplementedError, match="one card"):
-        Trainer(cfg, str(tmp_path), device="cpu")
-    cfg.TPU_DATA_PARALLEL = 1
-    monkeypatch.setenv("TPU3DSIS_COORDINATOR", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        Trainer(cfg, str(tmp_path), device="cpu")
-    monkeypatch.delenv("TPU3DSIS_COORDINATOR")
+    cfg.update(TPU_DATA_PARALLEL=2, TPU_TILE_SIZE=list(SHAPE))
+    trainer = Trainer(cfg, str(tmp_path), device="cpu")
+    assert (trainer.n_dp, trainer.local_batch, trainer.process_count, trainer.group) == (2, 2, 1, None)
+    with monkeypatch.context() as m:
+        m.setattr(pdist, "card_count", lambda device: 1)
+        trainer = Trainer(cfg, str(tmp_path), device="cpu")
+    assert (trainer.n_dp, trainer.local_batch) == (1, 1)
+    assert "TPU_DATA_PARALLEL=2 clamped to the 1 card(s) present" in capsys.readouterr().out
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for k, v in (("TPU3DSIS_COORDINATOR", f"127.0.0.1:{port}"), ("TPU3DSIS_NUM_PROCESSES", "1"),
+                 ("TPU3DSIS_PROCESS_ID", "0")):
+        monkeypatch.setenv(k, v)
+    try:
+        trainer = Trainer(cfg, str(tmp_path), device="cpu")
+        assert trainer.group is dist.group.WORLD and dist.get_backend() == "gloo"
+        assert (trainer.n_dp, trainer.local_batch, trainer.process_id, trainer.process_count) == (2, 2, 0, 1)
+        opt = trainer.init_state(seed=0)
+        m = trainer.step_fn(opt, make_batch(0), generator=torch.Generator().manual_seed(0))
+        assert float(m["step_finite"]) == 1.0 and int(opt.step) == 1
+    finally:
+        dist.destroy_process_group()
+    for k in ("TPU3DSIS_COORDINATOR", "TPU3DSIS_NUM_PROCESSES", "TPU3DSIS_PROCESS_ID"):
+        monkeypatch.delenv(k)
     mask_color = tiny_cfg(default_config())  # the mask FCN's color branch without the color stream
     mask_color.MASK_USE_IMAGES = True
     with pytest.raises(ValueError, match="MASK_USE_IMAGES needs USE_IMAGES"):

@@ -7,8 +7,10 @@ chunk detection (``Detector``, ``build_inference_fn``), whole-scene
 inference with instance masks (``SceneInference``), geometry-only or with
 the color stream (ENet, view fusion), and the test and benchmark drivers
 over ``.scene`` files (``python -m tpu3dsis_torch.main``,
-``infer/driver.py::run_scenes``), on the CUDA card unless the caller asks
-for the CPU (``device="cpu"``).
+``infer/driver.py::run_scenes``), and training, on the CUDA card unless
+the caller asks for the CPU (``device="cpu"``); over several cards,
+data-parallel training, tile-parallel scenes and the X-sharded single-shot
+scene (``parallel/``).
 """
 
 from tpu3dsis_torch.checkpoint import load_jax_params

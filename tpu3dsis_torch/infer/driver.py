@@ -17,7 +17,9 @@ Scenes go through ``SceneInference`` (tiled, any size) or, with
 ``TPU_SCENE_MODE="single_shot"``, through ``SingleShotInference`` for the
 boxes and the tiled path for the masks. One loader thread reads scene i+1
 from disk and starts its upload (and, with frames, its color prep) while
-scene i computes.
+scene i computes. ``TPU_SCENE_TILE_PARALLEL`` > 1 splits each of a scene's
+tile batches and mask window calls over that many cards
+(``tile_parallel_devices``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch
 
 from tpu3dsis_torch.config import Config, DetectorConfig
 from tpu3dsis_torch.eval import DetectionMAP
@@ -60,6 +63,20 @@ def _write_artifacts(out_dir, sample, det_out, masks, with_masks, test_mode):
             pickle.dump(sample.gt_mask, f)
 
 
+def tile_parallel_devices(cfg: Config, det: Detector) -> list | None:
+    """``TPU_SCENE_TILE_PARALLEL`` > 1: the devices each tile batch and mask
+    window call of a scene is split over (``SceneInference``'s ``mesh``), the
+    detector's card and the next ones, clamped to the cards visible (the JAX
+    package clamps to ``jax.devices()``, ``driver.py:58-67``); on the CPU,
+    the CPU that many times. None for one device."""
+    n = int(dict.get(cfg, "TPU_SCENE_TILE_PARALLEL", 0))
+    if det.device.type == "cuda":
+        first, count = det.device.index, torch.cuda.device_count()
+        n = min(n, count)
+        return [torch.device("cuda", (first + i) % count) for i in range(n)] if n > 1 else None
+    return [det.device] * n if n > 1 else None
+
+
 def run_scenes(cfg: Config, det: Detector, mode: str, dataset: SceneDataset | None = None, max_scenes=None,
                with_masks=True, timings: dict | None = None) -> dict:
     """mode: 'test' (gt artifacts and mAP) or 'benchmark' (export only).
@@ -69,15 +86,12 @@ def run_scenes(cfg: Config, det: Detector, mode: str, dataset: SceneDataset | No
     "write", "map") and the count of scenes ("scenes")."""
     if mode not in ("test", "benchmark"):
         raise ValueError(f"mode must be 'test' or 'benchmark', not {mode!r}")
-    if int(dict.get(cfg, "TPU_SCENE_TILE_PARALLEL", 0)) > 1:
-        raise NotImplementedError("TPU_SCENE_TILE_PARALLEL > 1 spreads tiles over several cards; the port runs "
-                                  "scenes on one card (multi-GPU is a later slice)")
     save_dir = cfg.TEST_SAVE_DIR
     os.makedirs(save_dir, exist_ok=True)
     if dataset is None:
         dataset = SceneDataset(cfg.TEST_FILELIST, "benchmark" if mode == "benchmark" else "scene", cfg)
     dcfg = DetectorConfig.from_cfg(cfg)
-    si = SceneInference(det, dcfg)
+    si = SceneInference(det, dcfg, mesh=tile_parallel_devices(cfg, det))
     shot = SingleShotInference(det, dcfg) if str(dict.get(cfg, "TPU_SCENE_MODE", "tiled")) == "single_shot" else None
 
     map_cls = DetectionMAP(cfg.NUM_CLASSES, overlap_threshold=cfg.MAP_THRESH, ignore_class=[0])

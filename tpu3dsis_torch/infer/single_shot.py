@@ -44,13 +44,20 @@ class SingleShotInference:
         data = pad_volume(scene_data.astype(np.float32), bucket)
         fn = self._fn_for(tuple(data.shape[:3]))
         out = fn(torch.from_numpy(data)[None], frames=frames if self.det.color_projector is not None else None)
-        out = {k: _numpy(v) for k, v in out.items()}
-        keep = out["valid"] & ~out["degenerate"] & (out["pred_conf"] > self.cfg.CLASS_THRESH) & (out["cls_pred"] > 0)
-        sx, sy, sz = scene_data.shape[:3]
-        boxes = np.clip(out["pred_box"][keep], 0, np.array([sx, sy, sz, sx, sy, sz], np.float32))
-        order = np.argsort(-out["pred_conf"][keep])
-        return {
-            "pred_box": boxes[order],
-            "pred_class": out["cls_pred"][keep][order].astype(np.int32),
-            "pred_conf": out["pred_conf"][keep][order],
-        }
+        return detections_from(out, scene_data.shape[:3], self.cfg.CLASS_THRESH)
+
+
+def detections_from(out: dict, extent, class_thresh: float) -> dict:
+    """One padded scene's fixed-shape outputs (valid, degenerate, pred_conf,
+    cls_pred, pred_box; tensors) -> the kept detections, clipped to the
+    scene's extent, by descending confidence (numpy)."""
+    out = {k: _numpy(out[k]) for k in ("valid", "degenerate", "pred_conf", "cls_pred", "pred_box")}
+    keep = out["valid"] & ~out["degenerate"] & (out["pred_conf"] > class_thresh) & (out["cls_pred"] > 0)
+    sx, sy, sz = extent
+    boxes = np.clip(out["pred_box"][keep], 0, np.array([sx, sy, sz, sx, sy, sz], np.float32))
+    order = np.argsort(-out["pred_conf"][keep])
+    return {
+        "pred_box": boxes[order],
+        "pred_class": out["cls_pred"][keep][order].astype(np.int32),
+        "pred_conf": out["pred_conf"][keep][order],
+    }

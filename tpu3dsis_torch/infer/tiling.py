@@ -33,8 +33,26 @@ bit-packed occupancy upload (the scene goes up in the compute dtype from
 pinned memory on a side stream, and ``_device_scene`` waits on the copy's
 event), ``jnp.packbits`` of the masks (the ``uint8`` windows come down once
 per scene), the ``lax.map`` over window chunks (one batch per queue), and
-the padding of the view count to a multiple of 32 (a recompile guard). Not
-ported yet: ``mesh=`` (the multi-GPU slice), which raises.
+the padding of the view count to a multiple of 32 (a recompile guard).
+
+Tile parallelism (``mesh=``, ``tiling.py:78-93, 306-330``): a list of
+N devices, the counterpart of the JAX package's mesh. Each distinct device
+holds one replica of the detector's weights (``parallel.spatial.replicas``),
+and the scene and the resident color volume are copied to each device once
+per scene. Every call the path makes on one device (a batch of
+``tile_batch`` tiles, a fused window queue, a batch of host-planned
+windows) has its items split over the devices, as ``_shard_over_items``
+splits them: slices of ceil(batch / N) items, one a device (``_deal``).
+``tile_batch`` is rounded up to a multiple of N, as the JAX package rounds
+it, so the tiles of a mesh of N at ``tile_batch`` B are bit for bit those
+of one device at ``tile_batch`` ceil(B / N) (cuDNN picks its algorithm by
+the batch's shape, and on the CPU a batch of one or two takes another
+kernel than a larger one). The JAX package also pads the last batch and
+the window queues to a multiple of N, so that every shard has one shape;
+here each slice is a call of its own, and the last one is left short. The outputs are gathered onto the
+first device, where the stitch (class-aware K2), the window planning, the
+per-tile or per-window view fusions (K3 without a resident volume) and the
+color prep run.
 
 With the mask FCN's color branch (``MASK_USE_IMAGES``) every mask window
 also takes a color crop beside its TSDF crop, region-masked alike: from
@@ -61,6 +79,7 @@ from tpu3dsis_torch.models.color import frustum_bbox_grid, select_views_for_tile
 from tpu3dsis_torch.models.detector import Detector, build_inference_fn
 from tpu3dsis_torch.ops.mask_windows import plan_windows, plan_windows_np
 from tpu3dsis_torch.ops.nms import nms_mask
+from tpu3dsis_torch.parallel.spatial import device_list, replicas
 
 BUCKET = 48  # the device scene is padded to multiples of this (tiling.py:482-485)
 
@@ -144,14 +163,17 @@ class SceneInference:
     as much to enqueue as the card takes to run it (PERF.md, Findings), so
     the default is the chunk path's batch of 32.
 
+    ``mesh``: a list of devices to split every tile batch and mask window
+    call over (the module's docstring), the detector's device first; it
+    may name one device more than once. ``tile_batch`` is rounded up to a
+    multiple of its length.
+
     ``last_fused`` says whether the fused path served the last ``infer``;
     ``host_path_scenes`` counts the ``infer`` calls that an overflow sent to
     the host-planned path.
     """
 
     def __init__(self, detector: Detector, cfg: DetectorConfig, tile_batch: int = 32, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("the port's scene inference runs on one device; a mesh comes with multi-GPU")
         self.det = detector
         self.cfg = cfg
         self.tile = tuple(int(t) for t in cfg.TPU_TILE_SIZE)
@@ -162,10 +184,21 @@ class SceneInference:
         large = tuple(min(int(c), t) for c, t in zip(cfg.TPU_MASK_INFER_CANVAS, self.tile))
         small = tuple(min(int(c), t) for c, t in zip(cfg.TPU_MASK_INFER_CANVAS_SMALL, large))
         self._queue_canvas = {"mask_small": small, "mask_large": large}
-        self.tile_batch = int(tile_batch)
         self.device = detector.device
+        self.devices = [self.device] if mesh is None else device_list(mesh)
+        if self.devices[0] != self.device:
+            raise ValueError(f"the device list starts with {self.devices[0]}, not the detector's {self.device}")
+        n = len(self.devices)
+        self.tile_batch = n * -(-int(tile_batch) // n)  # each batch splits into n equal slices
         self._dtype = detector.compute_dtype
-        self._single = build_inference_fn(detector, cfg, self.tile, mode="TEST")
+        # the detector's replica for each entry of the list, and its chunk inference
+        self._replicas = replicas(detector, self.devices)
+        singles = {}
+        for r in self._replicas:
+            if id(r) not in singles:
+                singles[id(r)] = build_inference_fn(r, cfg, self.tile, mode="TEST")
+        self._singles = [singles[id(r)] for r in self._replicas]
+        self._copies = {}  # (name, device) -> (tensor, its copy there): the scene's and color volume's
         self._scene_cache = None  # (scene array, padded numpy, device scene)
         self._prefetch = {}  # id(scene array) -> (scene array, future of _upload_scene)
         self._upload_exec = None
@@ -378,26 +411,53 @@ class SceneInference:
         return scene_dev[idx[0][:, :, None, None], idx[1][:, None, :, None], idx[2][:, None, None, :]]
 
     # --- stages of the fused program (device tensors, no host sync) -----------
-    def _tile_color(self, prep: dict, origins: torch.Tensor) -> torch.Tensor:
-        """The color input of a batch of tiles, (B, *tile, C): crops of the
-        resident volume or, without one, each tile's own fusion of its views
+    def _tile_color(self, prep: dict, origins: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """The color input of a batch of tiles, (B, *tile, C), on ``device``:
+        crops of the resident volume (its copy there) or, without one, each
+        tile's own fusion of its views on the first device
         (``_window_color``, ``tiling.py:775-793``)."""
         if "color" in prep:
-            return self._crops(prep["color"], origins, self.tile)
-        return self._window_color(prep, origins.cpu().numpy(), self.tile)
+            return self._crops(self._on("color", prep["color"], device), origins, self.tile)
+        return self._window_color(prep, origins.cpu().numpy(), self.tile).to(device)
+
+    # --- several devices -------------------------------------------------------
+    def _deal(self, n_items: int, batch: int) -> list:
+        """The calls that run ``n_items`` items ``batch`` at a time, each
+        batch's items split over the devices: [(index in the device list,
+        start, stop)], slices of ceil(batch / devices), in item order, one
+        device a slice of each batch. One device takes the whole batches."""
+        per = -(-batch // len(self.devices))
+        calls = []
+        for i in range(0, n_items, max(batch, 1)):
+            for d, j in enumerate(range(i, min(i + batch, n_items), per)):
+                calls.append((d, j, min(j + per, i + batch, n_items)))
+        return calls
+
+    def _on(self, name: str, t: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """``t`` on ``device``: itself there, else its copy, made once per
+        tensor (the last one of each name is kept)."""
+        if t.device == device:
+            return t
+        hit = self._copies.get((name, device))
+        if hit is None or hit[0] is not t:
+            hit = (t, t.to(device, non_blocking=True))
+            self._copies[(name, device)] = hit
+        return hit[1]
 
     def _tile_outputs(self, scene_dev: torch.Tensor, origins: torch.Tensor, prep: dict | None = None) -> dict:
-        """Every tile through the chunk detector, ``tile_batch`` at a time ->
-        {stitch key: (T, R, ...)}; with a color prep each tile also takes its
-        color input."""
+        """Every tile through the chunk detector, ``tile_batch`` at a time,
+        each batch split over the devices -> {stitch key: (T, R, ...)} on
+        the first; with a color prep each tile also takes its color input."""
         outs = []
-        for i in range(0, origins.shape[0], self.tile_batch):
-            batch = self._crops(scene_dev, origins[i:i + self.tile_batch], self.tile)
-            imageft = None if prep is None else self._tile_color(prep, origins[i:i + self.tile_batch])
-            out = self._single(batch, imageft)
+        for d, i, j in self._deal(origins.shape[0], self.tile_batch):
+            dev = self.devices[d]
+            org = origins[i:j].to(dev)
+            batch = self._crops(self._on("scene", scene_dev, dev), org, self.tile)
+            imageft = None if prep is None else self._tile_color(prep, org, dev)
+            out = self._singles[d](batch, imageft)
             if batch.shape[0] == 1:  # build_inference_fn drops the batch dim of one chunk
                 out = {k: v[None] for k, v in out.items()}
-            outs.append({k: out[k] for k in _STITCH_KEYS})
+            outs.append({k: out[k].to(self.device, non_blocking=True) for k in _STITCH_KEYS})
         return {k: torch.cat([o[k] for o in outs]) for k in _STITCH_KEYS}
 
     def _candidates(self, tiles: dict, origins: torch.Tensor) -> dict:
@@ -459,22 +519,31 @@ class SceneInference:
         }
 
     def _window_masks(self, scene_dev: torch.Tensor, starts, locals6, labels, canvas,
-                      imageft: torch.Tensor | None = None) -> torch.Tensor:
-        """Crop + region mask + mask FCN + threshold of the label's channel:
-        (M, 3) starts, (M, 6) roi in window coords, (M,) labels and, for the
-        color branch, the windows' (M, *canvas, C) color crops -> (M,
-        *canvas) uint8. The sigmoid and the threshold are in the compute
-        dtype."""
+                      imageft: torch.Tensor | None = None, color: torch.Tensor | None = None,
+                      d: int = 0) -> torch.Tensor:
+        """Crop + region mask + mask FCN + threshold of the label's channel,
+        on device ``d`` of the list with its replica: (M, 3) starts, (M, 6)
+        roi in window coords, (M,) labels and, for the color branch, the
+        windows' (M, *canvas, C) color crops or the resident ``color``
+        volume to crop them from -> (M, *canvas) uint8 on that device. The
+        sigmoid and the threshold are in the compute dtype."""
+        dev = self.devices[d]
+        scene_dev = self._on("scene", scene_dev, dev)
+        starts, locals6, labels = starts.to(dev), locals6.to(dev), labels.to(dev)
+        if color is not None:
+            imageft = self._crops(self._on("color", color, dev), starts, canvas)
+        elif imageft is not None:
+            imageft = imageft.to(dev)
         crop = self._crops(scene_dev, starts, canvas)
         axes = []
-        for d, size in enumerate(canvas):
+        for ax, size in enumerate(canvas):
             a = torch.arange(size, device=crop.device)
-            axes.append((a >= locals6[:, d, None]) & (a < locals6[:, d + 3, None]))
+            axes.append((a >= locals6[:, ax, None]) & (a < locals6[:, ax + 3, None]))
         region = (axes[0][:, :, None, None] & axes[1][:, None, :, None] & axes[2][:, None, None, :])[..., None]
         if imageft is not None:
             imageft = imageft * region.to(imageft.dtype)
         region = region.to(crop.dtype)
-        probs = self.det.mask_backbone(crop * region, region, imageft=imageft)
+        probs = self._replicas[d].mask_backbone(crop * region, region, imageft=imageft)
         idx = labels.long()[:, None, None, None, None].expand(*probs.shape[:4], 1)
         return (torch.gather(probs, -1, idx)[..., 0] >= self.cfg.MASK_THRESH).to(torch.uint8)
 
@@ -500,12 +569,14 @@ class SceneInference:
         sync; a color prep holds the resident volume the tiles crop, and
         under ``MASK_USE_IMAGES`` the mask windows too."""
         out = self._stitch(self._tile_outputs(scene_dev, origins, prep), origins, extent)
+        color = prep["color"] if self._mask_color and prep is not None else None
         for name, plan in self._plan_queues(out, scene_dev.shape[:3]).items():
-            canvas = self._queue_canvas[name]
-            imageft = (self._crops(prep["color"], plan["starts"], canvas)
-                       if self._mask_color and prep is not None else None)
-            plan["masks"] = self._window_masks(scene_dev, plan["starts"], plan["locals6"],
-                                               out["pred_class"][plan["roi_idx"].long()], canvas, imageft)
+            labels = out["pred_class"][plan["roi_idx"].long()]
+            n = labels.shape[0]  # a queue is one batch, split over the devices
+            parts = [self._window_masks(scene_dev, plan["starts"][i:j], plan["locals6"][i:j], labels[i:j],
+                                        self._queue_canvas[name], color=color, d=d)
+                     for d, i, j in self._deal(n, n) or [(0, 0, 0)]]
+            plan["masks"] = torch.cat([m.to(self.device, non_blocking=True) for m in parts])
             del plan["locals6"]
             out[name] = plan
         return out
@@ -673,23 +744,28 @@ class SceneInference:
 
         masks = [np.zeros(fs, np.uint8) for fs in full_sizes]
         box_r0 = np.round(det_out["pred_box"][:, :3]).astype(int)
-        for canvas, items, qbatch in queues.values():
-            for i in range(0, len(items), qbatch):
-                part = items[i:i + qbatch]
+        calls = [(canvas, items[i:j], d) for canvas, items, qbatch in queues.values()
+                 for d, i, j in self._deal(len(items), qbatch)]
+        outs = []  # every call enqueued, split over the devices, before the first copy to the host
+        for canvas, part, d in calls:
 
-                def dev(k, dtype=np.int64):
-                    return torch.from_numpy(np.stack([np.asarray(it[k], dtype) for it in part])).to(self.device)
+            def dev(k, dtype=np.int64):
+                return torch.from_numpy(np.stack([np.asarray(it[k], dtype) for it in part])).to(self.device)
 
-                imageft = None
-                if prep is not None:
-                    imageft = (self._crops(prep["color"], dev(1), canvas) if resident
-                               else self._window_color(prep, [it[1] for it in part], canvas))
-                got = self._window_masks(scene_dev, dev(1), dev(2), dev(4), canvas, imageft).cpu().numpy()
-                for j, (b, st, _, own, _) in enumerate(part):
-                    crop = got[j][own[0] - st[0]:own[3] - st[0], own[1] - st[1]:own[4] - st[1],
-                                  own[2] - st[2]:own[5] - st[2]]
-                    o = own[:3] - box_r0[b]
-                    masks[b][o[0]:o[0] + crop.shape[0], o[1]:o[1] + crop.shape[1], o[2]:o[2] + crop.shape[2]] = crop
+            imageft = color = None
+            if prep is not None:
+                if resident:
+                    color = prep["color"]
+                else:
+                    imageft = self._window_color(prep, [it[1] for it in part], canvas)
+            outs.append(self._window_masks(scene_dev, dev(1), dev(2), dev(4), canvas, imageft, color, d=d))
+        for (canvas, part, _), got in zip(calls, outs):
+            got = got.cpu().numpy()
+            for j, (b, st, _, own, _) in enumerate(part):
+                crop = got[j][own[0] - st[0]:own[3] - st[0], own[1] - st[1]:own[4] - st[1],
+                              own[2] - st[2]:own[5] - st[2]]
+                o = own[:3] - box_r0[b]
+                masks[b][o[0]:o[0] + crop.shape[0], o[1]:o[1] + crop.shape[1], o[2]:o[2] + crop.shape[2]] = crop
         return masks
 
     # --- measurement -------------------------------------------------------------

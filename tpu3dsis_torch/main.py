@@ -18,6 +18,8 @@ a torch ``.pth`` or a native ``.npz`` snapshot through the name-partitioned
 master weights and the config's compute dtype, into
 ``<output_dir>/<cfg>/checkpoints`` and ``logs``; it resumes from the newest
 snapshot there, else starts from ``--step`` (through ``partial_update``).
+Under ``torchrun --nproc_per_node N`` (or the JAX package's ``TPU3DSIS_*``
+variables, one process a card) it trains data parallel over the N cards.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import os
 import pprint
 
 import torch
+import torch.distributed
 
 from tpu3dsis_torch import checkpoint as ckpt
 from tpu3dsis_torch.config import DetectorConfig, cfg_from_file, cfg_to_file, finalize_config
@@ -77,9 +80,13 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.mode == "train":
-        trainer = Trainer(cfg, out_dir, device=args.device)
-        pretrained = args.step if args.step not in ("0", "") else None
-        _, step = trainer.train(args.epochs, max_steps=args.max_steps, pretrained=pretrained)
+        try:
+            trainer = Trainer(cfg, out_dir, device=args.device)
+            pretrained = args.step if args.step not in ("0", "") else None
+            _, step = trainer.train(args.epochs, max_steps=args.max_steps, pretrained=pretrained)
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
         return {"step": step}
     det = Detector(DetectorConfig.from_cfg(cfg), device=args.device)
     det.init_params(torch.Generator().manual_seed(0))

@@ -55,8 +55,11 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
             raise RuntimeError("Detector runs on a CUDA device, and none is present; pass device='cpu' for the CPU")
         if cfg.NET not in BACKBONES:
             raise NotImplementedError(f"the port has the backbones {sorted(BACKBONES)}, not {cfg.NET}")
-        if not cfg.USE_RPN or cfg.NUM_ANCHORS_LEVEL3:
-            raise NotImplementedError("the port needs the RPN on levels 1 and 2 only")
+        if cfg.NUM_ANCHORS_LEVEL3:
+            raise NotImplementedError(
+                f"NUM_ANCHORS_LEVEL3={cfg.NUM_ANCHORS_LEVEL3}: the JAX package has no level-3 feature map (its "
+                "backbones return (lvl1, lvl2, None), tpu3dsis/models/backbones.py:94, and RPNHeads.apply indexes "
+                "level_feats[3], tpu3dsis/models/rpn.py:83), so the port has none either")
         if cfg.TPU_COMPUTE_DTYPE not in _DTYPES:
             raise ValueError(f"TPU_COMPUTE_DTYPE must be one of {list(_DTYPES)}")
         self.num_classes = cfg.NUM_CLASSES
@@ -66,7 +69,10 @@ class Detector(ScanNetBackbone, RPNHeads, nn.Module):
         BACKBONES[cfg.NET].build_backbone(self, self.pooling_size, cfg.USE_IMAGES, cfg.NUM_IMAGE_CHANNELS,
                                           cfg.ONLY_IMAGES)
         self.num_anchors = {1: cfg.NUM_ANCHORS_LEVEL1, 2: cfg.NUM_ANCHORS_LEVEL2}
-        self.build_rpn(self.num_anchors, cfg.RPN_CHANNELS)
+        # USE_RPN False: no RPN parameters (the JAX package's detector.py:89-90,
+        # 104-105); training takes the gt boxes as proposals
+        self.use_rpn = cfg.USE_RPN
+        self.build_rpn(self.num_anchors if self.use_rpn else {}, cfg.RPN_CHANNELS)
         if self.use_class:
             self.classifier_cls_score_net = Linear(FC7_CHANNELS, self.num_classes)
             self.classifier_bbox_pred_net = Linear(FC7_CHANNELS, self.num_classes * 6)
@@ -180,16 +186,16 @@ def device_anchors(detector: Detector, scene_shape) -> dict:
     }
 
 
-def build_inference_fn(detector: Detector, cfg: DetectorConfig, scene_shape, mode: str = "TEST"):
-    """Inference function for one static scene shape.
-
-    Returns f(scene, imageft=None, frames=None) for scene (N, X, Y, Z, 2)
-    channels-last, N >= 1, which returns the JAX ``infer``'s dict of
-    fixed-shape outputs; with N > 1 each output has a leading batch
-    dimension. A detector with the color stream takes either the chunks'
-    color crops, imageft (N, X, Y, Z, C2d), or one chunk's frames (see
-    ``Detector.project_frames``), whose views it fuses itself.
-    """
+def build_heads_fn(detector: Detector, cfg: DetectorConfig, scene_shape, mode: str = "TEST"):
+    """The heads over a scene's feature maps, for one static scene shape:
+    f(feats) -> the JAX ``infer``'s dict of fixed-shape outputs, batched
+    (RPN, proposal selection, and with the classifier the RoI pool, class
+    scores and decoded boxes). ``build_inference_fn`` runs it on the
+    detector's features, ``parallel/scene.py`` on the sharded backbone's."""
+    if not detector.use_rpn:
+        raise NotImplementedError("USE_RPN=False serves no proposals: the JAX package's build_inference_fn reads the "
+                                  "RPN's parameters (KeyError 'rpn_net_level1.weight'), and only its train step "
+                                  "takes the gt boxes in their place")
     mode_cfg = getattr(cfg, mode)
     pre_n = mode_cfg.RPN_PRE_NMS_TOP_N
     post_n = mode_cfg.RPN_POST_NMS_TOP_N
@@ -197,16 +203,7 @@ def build_inference_fn(detector: Detector, cfg: DetectorConfig, scene_shape, mod
     shape = tuple(int(s) for s in scene_shape)
     anchors = device_anchors(detector, shape)
 
-    @torch.inference_mode()
-    def infer(scene, imageft=None, frames=None):
-        scene = torch.as_tensor(scene, device=detector.device)
-        if tuple(scene.shape[1:4]) != shape:
-            raise ValueError(f"scene shape {tuple(scene.shape)} does not match {shape}")
-        if frames is not None:
-            if imageft is not None or scene.shape[0] != 1:
-                raise ValueError("frames describe one chunk and replace imageft")
-            imageft = detector.project_frames(frames, shape)[None]
-        feats = detector.features(scene, imageft)
+    def heads(feats: dict) -> dict:
         rpn_out = detector.rpn_forward(feats)
         out = select_proposals(rpn_out, anchors, shape, pre_n, post_n, thresh)
         if detector.use_class:
@@ -225,6 +222,34 @@ def build_inference_fn(detector: Detector, cfg: DetectorConfig, scene_shape, mod
                 pred_conf=conf,
                 degenerate=degenerate,
             )
+        return out
+
+    return heads
+
+
+def build_inference_fn(detector: Detector, cfg: DetectorConfig, scene_shape, mode: str = "TEST"):
+    """Inference function for one static scene shape.
+
+    Returns f(scene, imageft=None, frames=None) for scene (N, X, Y, Z, 2)
+    channels-last, N >= 1, which returns the JAX ``infer``'s dict of
+    fixed-shape outputs; with N > 1 each output has a leading batch
+    dimension. A detector with the color stream takes either the chunks'
+    color crops, imageft (N, X, Y, Z, C2d), or one chunk's frames (see
+    ``Detector.project_frames``), whose views it fuses itself.
+    """
+    heads = build_heads_fn(detector, cfg, scene_shape, mode)
+    shape = tuple(int(s) for s in scene_shape)
+
+    @torch.inference_mode()
+    def infer(scene, imageft=None, frames=None):
+        scene = torch.as_tensor(scene, device=detector.device)
+        if tuple(scene.shape[1:4]) != shape:
+            raise ValueError(f"scene shape {tuple(scene.shape)} does not match {shape}")
+        if frames is not None:
+            if imageft is not None or scene.shape[0] != 1:
+                raise ValueError("frames describe one chunk and replace imageft")
+            imageft = detector.project_frames(frames, shape)[None]
+        out = heads(detector.features(scene, imageft))
         if scene.shape[0] == 1:
             out = {k: v[0] for k, v in out.items()}
         return out

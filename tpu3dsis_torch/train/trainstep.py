@@ -25,6 +25,16 @@ unless the caller passes them, as the tests do with the JAX package's own.
 Parameters are updated in place (``solver.SGD``); a step whose loss or any
 gradient is not finite changes nothing (the ``step_finite`` metric is 0),
 frozen parameters' gradients included, as in the JAX package.
+
+Data parallelism (the JAX step under ``shard_map``, ``trainstep.py:414``):
+one process a card, each with its own share of the batch, joined in a
+``torch.distributed`` process group. Each rank's gradients and metrics go
+into one flat buffer, averaged over the group by one all-reduce (the JAX
+``pmean``), before the guard and the update, so every rank takes the same
+decision on the same numbers and its parameters stay equal to the others'.
+
+``USE_RPN: False`` (the JAX step's ablation, ``trainstep.py:261-275``):
+no RPN, and the ground-truth boxes are the proposals.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from tpu3dsis_torch.models.detector import Detector, device_anchors
@@ -193,6 +204,15 @@ def make_draws(batch_size: int, num_anchors: int, num_candidates: int, generator
     }
 
 
+def gt_proposals(gt_box: torch.Tensor, gt_valid: torch.Tensor) -> dict:
+    """``USE_RPN: False``: the ground-truth boxes are the proposals
+    (network.py:149-152), scored 1 where valid and -1e9 elsewhere, on level
+    1 where every dimension is at most 20 voxels, else level 2."""
+    dims = gt_box[..., 3:6] - gt_box[..., :3]
+    return {"rois": gt_box[..., :6], "scores": torch.where(gt_valid, 1.0, -1e9),
+            "level_inds": torch.where((dims <= 20.0).all(dim=-1), 1.0, 2.0), "valid": gt_valid}
+
+
 def build_loss_fn(detector: Detector, cfg, scene_shape):
     """The batch loss: f(batch, draws, timer) -> (total (0-d), {metric:
     0-d}), the batch means of the per-sample losses of the JAX
@@ -218,7 +238,8 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
     max_large_rois = int(cfg.get("TPU_MAX_LARGE_MASK_ROIS", max_mask_rois))
     use_mask = bool(cfg.USE_MASK) and detector.mask_backbone is not None
     use_images = bool(cfg.USE_IMAGES)
-    fix_rpn = bool(cfg.FIX_RPN) or not bool(cfg.USE_RPN)
+    use_rpn = bool(cfg.USE_RPN)
+    fix_rpn = bool(cfg.FIX_RPN) or not use_rpn
     fix_class = (bool(cfg.FIX_CLASS) and not cfg.NYUV2_FINETUNE) or not bool(cfg.USE_CLASS)
     # the ENet trains (FIX_ENET False): its features keep their gradient through the fusion
     train_enet = use_images and not bool(cfg.FIX_ENET) and detector.enet is not None
@@ -256,7 +277,7 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
                                              view_valid=view_valid).to(detector.compute_dtype)
         feats = detector.features(data, imageft)
         per_sample = {}
-        rpn_out = detector.rpn_forward(feats)
+        rpn_out = detector.rpn_forward(feats) if use_rpn else None
         if not fix_rpn:
             with timer("targets"):
                 atargets = T.anchor_targets(draws["anchor"], anchor_arrays, inside_masks, gt_box, gt_valid,
@@ -269,9 +290,12 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
                 per_sample[f"rpn_loss_box_level{lvl}"] = box
 
         # proposals: no gradient through the selection (network.py:666-674)
-        with torch.no_grad():
-            prop = select_proposals({lvl: tuple(t.detach() for t in out) for lvl, out in rpn_out.items()},
-                                    anchors, shape, pre_n, post_n, nms_thresh)
+        if use_rpn:
+            with torch.no_grad():
+                prop = select_proposals({lvl: tuple(t.detach() for t in out) for lvl, out in rpn_out.items()},
+                                        anchors, shape, pre_n, post_n, nms_thresh)
+        else:
+            prop = gt_proposals(gt_box, gt_valid)
 
         if not fix_class:
             with timer("targets"):
@@ -343,22 +367,53 @@ def apply_step_update(opt: SGD, grads: dict, metrics: dict) -> dict:
     return metrics
 
 
-def build_train_step(detector: Detector, cfg, scene_shape, mesh=None):
+def all_reduce_mean(grads: list, params: list, metrics: dict, group) -> tuple[list, dict]:
+    """The gradients (None for a parameter no loss reached: zeros) and the
+    metrics averaged over ``group``'s ranks, with one all-reduce of one flat
+    float32 buffer (the JAX step's ``pmean``). Every rank gets the same
+    numbers back, the gradients as contiguous tensors of their parameters'
+    shapes."""
+    keys = sorted(metrics)
+    parts = [g.reshape(-1).float() if g is not None else p.new_zeros(p.numel(), dtype=torch.float32)
+             for g, p in zip(grads, params)]
+    parts.append(torch.stack([metrics[k].float() for k in keys]))
+    flat = torch.cat(parts)
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat /= dist.get_world_size(group)
+    chunks = flat.split([p.numel() for p in params] + [len(keys)])
+    grads = [c.view(p.shape) for c, p in zip(chunks, params)]
+    return grads, dict(zip(keys, chunks[-1].unbind()))
+
+
+def build_train_step(detector: Detector, cfg, scene_shape, group=None):
     """Returns (opt_init, step): ``opt_init()`` freezes the parameters the
     config fixes and returns the ``SGD`` state over the detector's float32
     parameters; ``step(opt, batch, draws=None, generator=None, timer=None)``
     runs one step on a batch (a dict of stacked per-sample arrays:
     ``pad_sample``'s, with the frames under ``USE_IMAGES``), updates the
     parameters in place and returns its metrics, 0-d tensors on the card.
+
+    With a ``torch.distributed`` process group (``group=``, in the JAX
+    package's ``mesh=`` place; ``torch.distributed.group.WORLD`` for the
+    default group) the step is data parallel: ``batch`` is this rank's
+    share, the gradients and metrics are averaged over the group before the
+    update (``all_reduce_mean``), and without ``draws`` the generator makes
+    the draws of the whole batch (every rank's share, in rank order) and
+    the rank takes its own, so that the ranks draw differently (the JAX
+    step's ``fold_in(key, axis_index)``) and together draw what one process
+    would for the whole batch. A group of one rank runs the same code,
+    collective included.
     """
-    if mesh is not None:
-        raise NotImplementedError("the port trains on one card: data parallelism over several is not ported")
+    rank, world = (dist.get_rank(group), dist.get_world_size(group)) if group is not None else (0, 1)
     if any(p.dtype != torch.float32 for p in detector.parameters()):
         raise ValueError("training needs float32 master weights: build the detector with param_dtype=torch.float32")
     shape = tuple(int(s) for s in scene_shape)
     loss_fn = build_loss_fn(detector, cfg, shape)
     n_anchors = anchor_count(detector, shape)
-    post_n, use_gt = int(cfg.TRAIN.RPN_POST_NMS_TOP_N), bool(cfg.USE_GT)
+    use_gt = bool(cfg.USE_GT)
+    # the proposal targets' candidates: the proposals (the gt boxes themselves
+    # under USE_RPN False), then the gt boxes with USE_GT
+    post_n = int(cfg.TRAIN.RPN_POST_NMS_TOP_N) if bool(cfg.USE_RPN) else None
 
     def opt_init() -> SGD:
         # frozen parameters keep requires_grad: their gradients are taken
@@ -375,8 +430,9 @@ def build_train_step(detector: Detector, cfg, scene_shape, mesh=None):
         t = timer or _no_timer
         b, n_gt = (int(d) for d in np.shape(batch["gt_box"])[:2])
         if draws is None:
-            n_candidates = post_n + (n_gt if use_gt else 0)
-            draws = make_draws(b, n_anchors, n_candidates, generator, detector.device)
+            n_candidates = (n_gt if post_n is None else post_n) + (n_gt if use_gt else 0)
+            draws = make_draws(b * world, n_anchors, n_candidates, generator, detector.device)
+            draws = {k: v[rank * b:(rank + 1) * b] for k, v in draws.items()}
         else:
             draws = {k: torch.as_tensor(v, dtype=torch.float32).to(detector.device) for k, v in draws.items()}
         names = list(opt.params)  # trainable and frozen: the guard reads both
@@ -385,6 +441,9 @@ def build_train_step(detector: Detector, cfg, scene_shape, mesh=None):
             total, metrics = loss_fn(batch, draws, t)
         with t("backward"):
             grads = torch.autograd.grad(total, params, allow_unused=True) if total.requires_grad else [None] * len(names)
+        if group is not None:
+            with t("all_reduce"):
+                grads, metrics = all_reduce_mean(grads, params, metrics, group)
         with t("update"):
             return apply_step_update(opt, dict(zip(names, grads)), metrics)
 
