@@ -1,9 +1,11 @@
 """The port's paths (chunk, scene, color scene with the mask FCN's color
 branch, the test and benchmark drivers, the benchmark export, training and
-their entry module, the device-list scene and the sharded single-shot scene)
-import no JAX, YAML, PIL or JAX
-package (nor ``ml_dtypes``, in training); the probe's cuts still fit the
-kernel sources; its kernels on the card."""
+their entry module, the device-list scene and the sharded single-shot scene;
+the datagen, the demo, the color loop, the PLY views, the native decoder
+and the two small models) import no JAX, YAML, PIL or JAX
+package (nor ``ml_dtypes``, in training; PIL only where frames are written
+or read); the probe's cuts still fit the kernel sources; its kernels on the
+card."""
 
 import os
 import subprocess
@@ -124,6 +126,60 @@ def test_drivers_import_no_jax_yaml_or_pil():
     assert res.returncode == 0, res.stderr
     line = [l for l in res.stdout.splitlines() if l.startswith("MODULES")]
     assert line == ["MODULES "], f"imported: {line}"
+
+
+_TINY_DATAGEN = """
+import os, sys, tempfile
+import numpy as np
+from tpu3dsis_torch.datagen import (marching_tets, mesh_render, prepare_2d, scene_sampler, synthetic_color,
+                                    tsdf_fusion, virtual_scan)
+from tpu3dsis_torch.models import autoencoder2d, coord_conv3d
+from tpu3dsis_torch.runtime import native
+from tpu3dsis_torch.tools import color_loop, demo, visualization, visualize, visualize_benchmark
+from tpu3dsis_torch.utils import profiling, provenance, timer
+from tpu3dsis_torch.io import SceneDataset
+from tpu3dsis_torch.io.pipeline import PrefetchLoader
+
+def modules():
+    return " ".join(m for m in sys.modules if m in ("jax", "jaxlib", "yaml", "PIL") or m.startswith(("tpu3dsis.", "PIL."))
+                    or m == "tpu3dsis")
+
+tmp = tempfile.mkdtemp()
+# the demo's fusion, .scene export and mesh; marching tets; a chunk through the native decoder and the loader
+scene = demo.fuse_demo_scene(tmp)
+cfg = demo.demo_config(tmp, scene)
+visualization.visualize_chunk(scene, os.path.join(tmp, "vis"), cfg)
+verts, faces, sem, inst, cols, objects = synthetic_color.room_mesh(np.random.RandomState(0), (3.0, 2.2, 3.0), 3)
+grid, w2g, traj = virtual_scan.virtual_scan(verts, faces, sem, inst, voxel_size=0.2, width=16, height=12, max_views=6)
+marching_tets.grid_to_mesh(grid)
+chunks = scene_sampler.process_scene_chunks(os.path.join(tmp, "demo.scsdf"), os.path.join(tmp, "demo.aabbs"),
+                                            os.path.join(tmp, "c_"), chunk_dim=(32, 32, 32), sample_factor=32,
+                                            rotate90=False, require_images=False)
+with open(os.path.join(tmp, "list.txt"), "w") as f:
+    f.write("".join(c + "\\n" for c in chunks))
+cfg.update(KEEP_THRESH=0.0, TPU_MAX_GT=4, LABEL_MAP="experiments/labelmaps/nyu40labels_scannet.csv")
+assert len(list(PrefetchLoader(SceneDataset(os.path.join(tmp, "list.txt"), "chunk", cfg), cfg, 1))) == len(chunks) > 0
+color_loop.build_cfg(os.path.join(tmp, "frames_square"))
+print("GEOMETRY", modules())
+# frames on disk: PIL, and only PIL
+synthetic_color.generate_scene(np.random.RandomState(0), tmp, "s0", extent_m=(3.0, 2.2, 3.0), n_objects=2,
+                               voxel_size=0.2, image_wh=(16, 12), max_views=4, traj_wh=(16, 12), chunks=False)
+print("FRAMES", modules())
+"""
+
+
+def test_datagen_demo_and_color_loop_import_no_jax_or_yaml():
+    """The datagen, the demo's and the color loop's modules, the PLY views,
+    the native decoder and the two small models import no JAX, YAML or JAX
+    package; PIL only once frames are written."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", _TINY_DATAGEN], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    lines = [l for l in res.stdout.splitlines() if l.startswith(("GEOMETRY", "FRAMES"))]
+    assert lines[0] == "GEOMETRY ", f"imported: {lines}"
+    assert lines[1].split()[0] == "FRAMES" and "PIL" in lines[1].split()
+    assert not any(m in ("jax", "jaxlib", "yaml", "tpu3dsis") or m.startswith("tpu3dsis.") for m in lines[1].split())
 
 
 _TINY_TRAIN = """

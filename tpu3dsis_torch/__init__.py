@@ -10,7 +10,10 @@ over ``.scene`` files (``python -m tpu3dsis_torch.main``,
 ``infer/driver.py::run_scenes``), and training, on the CUDA card unless
 the caller asks for the CPU (``device="cpu"``); over several cards,
 data-parallel training, tile-parallel scenes and the X-sharded single-shot
-scene (``parallel/``).
+scene (``parallel/``). Its own datagen (``datagen/``, numpy on the host)
+writes generated scenes, frames and chunks to disk, which the demo and the
+closed color loop (``python -m tpu3dsis_torch.tools.demo | color_loop``)
+train and test on.
 """
 
 from tpu3dsis_torch.checkpoint import load_jax_params

@@ -1,11 +1,14 @@
-"""Build the hand-written CUDA kernels at first use and bind them with ctypes.
+"""Build the hand-written CUDA kernels (and the host's chunk decoder) at
+first use and bind them with ctypes.
 
 The sources under ``csrc/`` have a plain C interface (no PyTorch headers), so
 ``nvcc`` builds each in seconds into a shared library of its own, all sources
 at once in parallel. The libraries go to ``tpu3dsis_torch/_build/``, each
 named by a hash of its source and the flags, so an edit to a source rebuilds
 that library and an unchanged tree reuses it. A missing ``nvcc`` or a failed
-build raises: there is no fallback.
+build raises: there is no fallback. The host C++ chunk decoder
+(``csrc/chunk_decoder.cpp``, no CUDA) is built the same way with ``g++``
+(``build_host``).
 """
 
 from __future__ import annotations
@@ -14,8 +17,10 @@ import ctypes
 import functools
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -34,6 +39,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# the host library: no -march=native, since a build directory copied to
+# another machine must still run there
+HOST_CXX_FLAGS = ("-O3", "-std=c++17", "-Wall", "-fPIC", "-shared")
+_host_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,11 +90,11 @@ def nvcc_command(nvcc: str, src: Path, out: Path) -> list:
     return [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(out), str(src)]
 
 
-def _library_path(src: Path) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _library_path(src: Path, flags=NVCC_FLAGS, headers=HEADERS) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
     h.update(src.name.encode())
     h.update(src.read_bytes())
-    for header in HEADERS:
+    for header in headers:
         h.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
 
@@ -125,6 +135,33 @@ def build() -> tuple[list[Path], str]:
             if os.path.exists(tmp):
                 os.remove(tmp)
     return paths, "".join(logs)
+
+
+def build_host(src: Path) -> Path:
+    """Compile a host C++ source (no CUDA) with ``g++`` (or ``$CXX``) into
+    its hashed library under ``_build/``, unless it is there; returns its
+    path. Written to a temporary name and renamed, so processes that build
+    at once are safe; a missing compiler or a failed build raises."""
+    path = _library_path(src, HOST_CXX_FLAGS, ())
+    with _host_lock:
+        if path.exists():
+            return path
+        cxx = os.environ.get("CXX") or shutil.which("g++")
+        if not cxx:
+            raise RuntimeError(f"no C++ compiler (g++ or $CXX): cannot build {src.name}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            cmd = [cxx, *HOST_CXX_FLAGS, "-o", tmp, str(src)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"host build failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return path
 
 
 @functools.cache

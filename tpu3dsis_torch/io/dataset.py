@@ -8,8 +8,8 @@ encodings, floor/ceil box rounding, the label remap, the KEEP_THRESH
 filter, the nearest-image frames, the ``world2grid`` padding and the height
 crop (480 voxels in benchmark mode, else 48). Volumes are channels-last
 (X, Y, Z, C) numpy arrays. The training helpers ``paint_mask_canvas`` and
-``pad_sample`` are copies too; the JAX package's native-decoder fast path
-(``load_fast_padded``) is not ported.
+``pad_sample`` are copies too, and so is the native decoder's fast path,
+``load_fast_padded`` (``runtime/native.py``).
 """
 
 from __future__ import annotations
@@ -209,6 +209,65 @@ class SceneDataset:
             depths=depths,
             poses=poses,
         )
+
+
+def fast_path_applies(dataset: SceneDataset, cfg: Config) -> bool:
+    """Whether ``load_fast_padded`` may serve this dataset: chunk-mode
+    geometry training (no frames; the canvas in place of per-instance
+    masks)."""
+    return not cfg.USE_IMAGES and dataset.mode == "chunk"
+
+
+def load_fast_padded(dataset: SceneDataset, path: str, cfg: Config):
+    """Native-decoder fast path -> the padded training dict ``pad_sample``
+    makes, or None where the numpy path must decide.
+
+    None without ``fast_path_applies``, and where a gt box would be filtered
+    (KEEP_THRESH / zero weight / height crop), there are none or more than
+    ``TPU_MAX_GT``, or a mask's dims differ from its box's extent: the
+    native painter paints ALL file boxes, so its canvas would disagree with
+    the reference's painting of only the kept ones. Raises where the library
+    does not build (``runtime/native.py``) and for a malformed file.
+    """
+    if not fast_path_applies(dataset, cfg):
+        return None
+    from tpu3dsis_torch.runtime.native import decode_chunk_native
+
+    mode = 1 if cfg.FLIP_TSDF else (2 if cfg.LOG_TSDF else 0)
+    try:
+        out = decode_chunk_native(path, float(cfg.TRUNCATED), mode)
+    except ValueError:
+        return None
+    n = out["boxes"].shape[0]
+    if n == 0 or n > int(cfg.TPU_MAX_GT):
+        return None
+    gt_box = np.zeros((n, 7), np.float32)
+    gt_box[:, :3] = np.floor(out["boxes"][:, :3])
+    gt_box[:, 3:6] = np.ceil(out["boxes"][:, 3:6])
+    for i in range(n):
+        label = int(out["labels"][i])
+        if dataset.mapping is not None:
+            label = dataset.mapping[label]
+        gt_box[i, 6] = label
+        if cfg.KEEP_THRESH or cfg.USE_IMAGES:
+            frac = _box_fraction_in_chunk(gt_box[i])
+            if frac < cfg.KEEP_THRESH or (dataset.weights is not None and dataset.weights[label] == 0):
+                return None  # a drop changes the canvas: numpy path
+        if gt_box[i, 1] > 48 or gt_box[i, 4] > 48:
+            return None
+    max_gt = int(cfg.TPU_MAX_GT)
+    boxes = np.zeros((max_gt, 7), np.float32)
+    boxes[:, :3] = -1e4
+    boxes[:, 3:6] = -1e4 + 1.0
+    boxes[:n] = gt_box
+    valid = np.zeros((max_gt,), bool)
+    valid[:n] = True
+    return {
+        "data": out["data"][:, :48],
+        "gt_box": boxes,
+        "gt_valid": valid,
+        "mask_canvas": out["mask_canvas"][:, :48],
+    }
 
 
 def paint_mask_canvas(sample: Sample, shape=None) -> np.ndarray:

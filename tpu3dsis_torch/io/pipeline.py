@@ -5,8 +5,11 @@ A thread pool decodes `.chunk` files and pads them to fixed shapes
 (``pad_sample``) while the card runs the previous step, through a bounded
 queue. Samples without gt boxes are skipped, as in the reference train loop
 (``lib/model/trainval.py:330-331``), and so are files that fail to decode.
-Only the numpy path of the JAX package's loader is ported (its native
-decoder, ``load_fast_padded``, is not).
+Where the JAX loader takes the native decoder (chunk-mode geometry
+training, ``io/dataset.py::load_fast_padded``), so does this one, and the
+numpy path serves what it declines; ``native=False`` keeps to numpy. The
+decoder is built before the first file is read, so that a failed build
+raises to the caller rather than dropping every sample.
 
 Batches are dicts of stacked arrays; the volumes and boxes become torch
 tensors, in pinned memory with ``pin_memory`` so the train step's upload
@@ -25,7 +28,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from tpu3dsis_torch.io.dataset import SceneDataset, pad_sample
+from tpu3dsis_torch.io.dataset import SceneDataset, fast_path_applies, load_fast_padded, pad_sample
+from tpu3dsis_torch.runtime import native as native_decoder
 
 _HOST_KEYS = ("poses", "world_to_grid")  # read on the host by the view fusion
 
@@ -34,7 +38,7 @@ class PrefetchLoader:
     """Iterable over stacked fixed-shape batches."""
 
     def __init__(self, dataset: SceneDataset, cfg, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 num_workers: int = 4, prefetch: int = 2, pin_memory: bool = False):
+                 num_workers: int = 4, prefetch: int = 2, pin_memory: bool = False, native: bool = True):
         self.dataset = dataset
         self.cfg = cfg
         self.batch_size = batch_size
@@ -43,18 +47,21 @@ class PrefetchLoader:
         self.num_workers = num_workers
         self.prefetch = prefetch
         self.pin_memory = pin_memory
+        self.native = native and fast_path_applies(dataset, cfg)
 
     def __len__(self):
         return max(1, len(self.dataset) // self.batch_size)
 
     def _load_one(self, idx):
         try:
-            sample = self.dataset[idx]
+            padded = load_fast_padded(self.dataset, self.dataset.scenes[idx], self.cfg) if self.native else None
+            if padded is None:
+                sample = self.dataset[idx]
+                if sample.gt_box.shape[0] == 0:
+                    return None
+                padded = pad_sample(sample, self.cfg)
         except Exception:  # corrupt file: skip (the reference crashes)
             return None
-        if sample.gt_box.shape[0] == 0:
-            return None
-        padded = pad_sample(sample, self.cfg)
         if bool(self.cfg.get("TPU_COMPACT_TRANSFERS", False)):
             padded["mask_canvas"] = padded["mask_canvas"].astype(np.uint8)
         return padded
@@ -71,6 +78,8 @@ class PrefetchLoader:
         return out
 
     def __iter__(self):
+        if self.native:
+            native_decoder.load_library()
         order = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(order)

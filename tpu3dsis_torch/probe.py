@@ -53,6 +53,7 @@ earlier one once a sample.
 from __future__ import annotations
 
 import ctypes
+import inspect
 import json
 import statistics
 import subprocess
@@ -63,6 +64,7 @@ import numpy as np
 import torch
 
 from tpu3dsis_torch import _build
+from tpu3dsis_torch.utils import profiling
 
 COUNTING = "counting"  # the copy of K1b that counts what its kernels compute; built, not timed
 
@@ -189,35 +191,12 @@ def k1b_counts(lib, kw):
 
 
 # Run in another checkout's root by against(): the device time in ms of a
-# wrapper of that checkout on the saved inputs (calls queued behind a device
-# sleep, as chip_smoke.device_ms measures it), and the host's ms of a call
-_TIMING = r"""
-import json, statistics, sys, time
-import torch
-
-def device_ms(fn, iters=20):
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-def host_ms(fn, iters=20):
-    times = []
-    for _ in range(iters):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    return statistics.median(times)
-"""
+# wrapper of that checkout on the saved inputs and the host's ms of a call,
+# by this checkout's timers (``utils/profiling.py``, their source inlined, so
+# that the other checkout's package is the one the wrapper comes from)
+_TIMING = "\n".join(["import json, statistics, sys, time", "import torch", "",
+                      *(inspect.getsource(f) for f in (profiling._require_cuda, profiling.device_ms,
+                                                        profiling.host_ms))])
 
 # K1b's whole wrapper, each case's device ms
 _K1B_TIMER = _TIMING + r"""
@@ -448,7 +427,7 @@ def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("probe: no CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke as cs  # the inputs and timing of the card's smoke run
+    import chip_smoke as cs  # the inputs of the card's smoke run
 
     card = cs.nvidia_smi("name,power.limit")
     dev = torch.device("cuda:0")
@@ -477,7 +456,7 @@ def probe_k1(cs, dev, libs, card):
         cases[f"K1 {name}, the main path's rois"] = cs.main_path_kernel_inputs(cfg, det, x)
     for case, (levels, kw) in cases.items():
         fns = {k: (lambda lib=lib: call_k1(lib, levels, **kw)) for k, lib in libs["roi_pool3d"].items()}
-        print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "card": card}), flush=True)
+        print(json.dumps({"case": case, "ms": in_turns(fns, 20, profiling.device_ms), "card": card}), flush=True)
 
 
 def k1b_inputs(dev, dtype=torch.bfloat16):
@@ -535,7 +514,7 @@ def probe_k1b(cs, dev, libs, card, others=()):
     for case, kw in cases.items():
         fns = {k: (lambda lib=lib: call_k1b(lib, **kw)) for k, lib in copies.items()}
         fns["float32 zero and cast alone"] = lambda: zero_and_cast(kw["feats"])
-        print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms), "counts": k1b_counts(counting, kw),
+        print(json.dumps({"case": case, "ms": in_turns(fns, 20, profiling.device_ms), "counts": k1b_counts(counting, kw),
                           "card": card}), flush=True)
     if others:
         saved = {case: {k: [t.cpu() for t in v] if k == "feats" else v.cpu() if torch.is_tensor(v) else v
@@ -549,7 +528,7 @@ def probe_k2(cs, dev, libs, card):
     for n, bx in k2_cases.items():
         fns = {k: (lambda lib=lib: call_k2(lib, bx["boxes"], bx["valid"], 0.1))
                for k, lib in libs["nms3d"].items()}
-        print(json.dumps({"case": f"K2 32x{n} boxes, thresh 0.1", "ms": in_turns(fns, 50, cs.device_ms),
+        print(json.dumps({"case": f"K2 32x{n} boxes, thresh 0.1", "ms": in_turns(fns, 50, profiling.device_ms),
                           "card": card}), flush=True)
 
 
@@ -564,7 +543,7 @@ def probe_k3(cs, dev, libs, card):
         f = feats.to(dt)
         fns = {k: (lambda lib=lib: call_k3(lib, f, **args)) for k, lib in libs["fuse_views"].items()}
         print(json.dumps({"case": f"K3 {str(dt).split('.')[-1]}, 96 views into {cs.SCENE_EXTENT} x 128",
-                          "ms": in_turns(fns, 10, cs.device_ms), "cull_kept_share": float(keep.float().mean()),
+                          "ms": in_turns(fns, 10, profiling.device_ms), "cull_kept_share": float(keep.float().mean()),
                           "card": card}), flush=True)
 
 
@@ -581,7 +560,7 @@ def probe_k3b(cs, dev, libs, card, others=()):
         call_k3b(copies["full"], **kw, work=work, scratch=scratch)
         fns = {k: (lambda lib=lib: call_k3b(lib, **kw)) for k, lib in copies.items()}
         fns["pass 2 only"] = lambda: call_k3b(copies["pass 2 only"], **kw, work=work, scratch=scratch)
-        print(json.dumps({"case": case, "ms": in_turns(fns, 20, cs.device_ms),
+        print(json.dumps({"case": case, "ms": in_turns(fns, 20, profiling.device_ms),
                           "counts": k3b_counts(copies["full"], kw), "card": card}), flush=True)
     if others:
         saved = {case: {k: torch.as_tensor(v).cpu() if k in ("poses", "world_to_grid") or torch.is_tensor(v)
