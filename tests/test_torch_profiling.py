@@ -1,11 +1,12 @@
 """The port's profiling, timer and provenance helpers (``utils/``) on the
-CPU: ``trace`` writes a Chrome trace, every device timer refuses a host or
-device without CUDA (no wall-clock fallback), ``Timer`` counts, and the
-provenance sidecar round-trips with the JAX package's fingerprint, blind to
-the volatile keys."""
+CPU: ``trace`` writes a Chrome trace with the spans of every thread, every
+device timer refuses a host or device without CUDA (no wall-clock
+fallback), ``Timer`` counts, and the provenance sidecar round-trips with
+the JAX package's fingerprint, blind to the volatile keys."""
 
 import json
 import os
+import threading
 
 import pytest
 import torch
@@ -14,7 +15,7 @@ from tpu3dsis.config import cfg_from_file as jax_cfg_from_file
 from tpu3dsis.config import finalize_config as jax_finalize_config
 from tpu3dsis.utils import provenance as jax_provenance
 from tpu3dsis_torch.config import cfg_from_file, finalize_config
-from tpu3dsis_torch.utils import profiling, provenance
+from tpu3dsis_torch.utils import profiling, provenance, tracing
 from tpu3dsis_torch.utils.timer import Timer
 
 
@@ -26,6 +27,34 @@ def test_trace_writes_a_chrome_trace(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any("matmul" in str(e.get("name", "")) or "mm" in str(e.get("name", "")) for e in events)
     assert any(e.key in ("aten::matmul", "aten::mm") for e in prof.key_averages())
+
+
+def test_trace_carries_the_spans_of_every_thread(tmp_path):
+    """The recorder's spans, the upload-like worker thread's too (the
+    profiler records only its own thread), beside the profiler's events, on
+    its timeline."""
+    def work():
+        with tracing.span("worker.job", request=3):
+            torch.ones(16).sum()
+
+    with profiling.trace(str(tmp_path / "prof")):
+        with tracing.span("main.job"):
+            x = torch.randn(32, 32)
+            (x @ x).sum()
+        t = threading.Thread(target=work, name="job-worker")
+        t.start()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    with open(tmp_path / "prof" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "span"}
+    assert set(spans) >= {"main.job", "worker.job"}
+    assert spans["worker.job"]["tid"] == t.native_id != spans["main.job"]["tid"]
+    assert spans["worker.job"]["args"]["request"] == 3
+    names = {e["tid"]: e["args"]["name"] for e in events if e.get("ph") == "M" and e.get("name") == "thread_name"}
+    assert names[t.native_id] == "job-worker"
+    op = next(e for e in events if e.get("name") == "main.job" and e.get("cat") != "span")  # its record_function
+    assert abs(op["ts"] - spans["main.job"]["ts"]) < 50 and abs(op["dur"] - spans["main.job"]["dur"]) < 100
 
 
 @pytest.mark.parametrize("timer", ["device_time", "device_ms", "cuda_ms", "host_ms"])

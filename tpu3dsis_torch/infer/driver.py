@@ -24,6 +24,7 @@ tile batches and mask window calls over that many cards
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import time
@@ -38,6 +39,9 @@ from tpu3dsis_torch.infer.single_shot import SingleShotInference
 from tpu3dsis_torch.infer.tiling import SceneInference
 from tpu3dsis_torch.io.dataset import SceneDataset
 from tpu3dsis_torch.models.detector import Detector
+from tpu3dsis_torch.utils import tracing
+
+STAGES = ("read", "infer", "write", "map")  # each scene's spans driver.<stage>
 
 
 def _scene_dir(save_dir: str, scene_path: str) -> str:
@@ -83,7 +87,8 @@ def run_scenes(cfg: Config, det: Detector, mode: str, dataset: SceneDataset | No
     ``det`` holds the weights, on its device. Returns the mAP dict in test
     mode, else {}. ``timings``, if given, gets the seconds each stage took
     summed over the scenes run ("read" in the loader thread, "infer",
-    "write", "map") and the count of scenes ("scenes")."""
+    "write", "map": the recorder's ``driver.<stage>`` spans, recorded for
+    the run) and the count of scenes ("scenes")."""
     if mode not in ("test", "benchmark"):
         raise ValueError(f"mode must be 'test' or 'benchmark', not {mode!r}")
     save_dir = cfg.TEST_SAVE_DIR
@@ -96,7 +101,7 @@ def run_scenes(cfg: Config, det: Detector, mode: str, dataset: SceneDataset | No
 
     map_cls = DetectionMAP(cfg.NUM_CLASSES, overlap_threshold=cfg.MAP_THRESH, ignore_class=[0])
     map_mask = DetectionMAP(cfg.NUM_CLASSES, overlap_threshold=cfg.MAP_THRESH, ignore_class=[0])
-    spent = {"read": 0.0, "infer": 0.0, "write": 0.0, "map": 0.0, "scenes": 0}
+    scenes = 0
 
     n = len(dataset) if max_scenes is None else min(max_scenes, len(dataset))
     todo = [i for i in range(n)
@@ -104,9 +109,8 @@ def run_scenes(cfg: Config, det: Detector, mode: str, dataset: SceneDataset | No
                     and os.path.isfile(os.path.join(_scene_dir(save_dir, dataset.scenes[i]), "pred_box.npy")))]
 
     def fetch(i):
-        t0 = time.perf_counter()
-        s = dataset[i]
-        spent["read"] += time.perf_counter() - t0
+        with tracing.span("driver.read"):
+            s = dataset[i]
         si.prefetch_scene(s.data)
         frames = None
         if cfg.USE_IMAGES and s.images is not None:
@@ -114,38 +118,42 @@ def run_scenes(cfg: Config, det: Detector, mode: str, dataset: SceneDataset | No
             si.prefetch_frames(frames, s.data.shape[:3])
         return s, frames
 
+    since = time.time_ns()
     loader = ThreadPoolExecutor(max_workers=1, thread_name_prefix="scene-load")
-    try:
-        pending = loader.submit(fetch, todo[0]) if todo else None
-        for pos, idx in enumerate(todo):
-            sample, frames = pending.result()
-            pending = loader.submit(fetch, todo[pos + 1]) if pos + 1 < len(todo) else None
-            t0 = time.perf_counter()
-            if shot is None:
-                det_out, masks = si.infer(sample.data, frames) if with_masks else (si.detect(sample.data, frames), [])
-            else:
-                det_out = shot.detect(sample.data, frames)
-                masks = si.predict_masks(sample.data, det_out, frames=frames) if with_masks else []
-            t1 = time.perf_counter()
-            _write_artifacts(_scene_dir(save_dir, dataset.scenes[idx]), sample, det_out, masks, with_masks,
-                             mode == "test")
-            t2 = time.perf_counter()
-            if mode == "test" and sample.gt_box.shape[0]:
-                gt_box, gt_cls = sample.gt_box[:, :6], sample.gt_box[:, 6]
-                map_cls.evaluate(det_out["pred_box"], det_out["pred_class"], det_out["pred_conf"], gt_box, gt_cls)
-                if with_masks:
-                    map_mask.evaluate_mask(det_out["pred_box"], det_out["pred_class"], det_out["pred_conf"], masks,
-                                           gt_box, gt_cls, sample.gt_mask, sample.data.shape[:3])
-            t3 = time.perf_counter()
-            spent["infer"] += t1 - t0
-            spent["write"] += t2 - t1
-            spent["map"] += t3 - t2
-            spent["scenes"] += 1
-    finally:
-        loader.shutdown(wait=True)
-        si.close()
+    with tracing.recording() if timings is not None else contextlib.nullcontext():
+        try:
+            pending = loader.submit(fetch, todo[0]) if todo else None
+            for pos, idx in enumerate(todo):
+                sample, frames = pending.result()
+                pending = loader.submit(fetch, todo[pos + 1]) if pos + 1 < len(todo) else None
+                with tracing.span("driver.infer"):
+                    if shot is None:
+                        det_out, masks = (si.infer(sample.data, frames) if with_masks
+                                          else (si.detect(sample.data, frames), []))
+                    else:
+                        det_out = shot.detect(sample.data, frames)
+                        masks = si.predict_masks(sample.data, det_out, frames=frames) if with_masks else []
+                with tracing.span("driver.write"):
+                    _write_artifacts(_scene_dir(save_dir, dataset.scenes[idx]), sample, det_out, masks, with_masks,
+                                     mode == "test")
+                with tracing.span("driver.map"):
+                    if mode == "test" and sample.gt_box.shape[0]:
+                        gt_box, gt_cls = sample.gt_box[:, :6], sample.gt_box[:, 6]
+                        map_cls.evaluate(det_out["pred_box"], det_out["pred_class"], det_out["pred_conf"], gt_box,
+                                         gt_cls)
+                        if with_masks:
+                            map_mask.evaluate_mask(det_out["pred_box"], det_out["pred_class"], det_out["pred_conf"],
+                                                   masks, gt_box, gt_cls, sample.gt_mask, sample.data.shape[:3])
+                scenes += 1
+        finally:
+            loader.shutdown(wait=True)
+            si.close()
     if timings is not None:
-        timings.update(spent)
+        timings.update({k: 0.0 for k in STAGES}, scenes=scenes)
+        for s in tracing.spans(since):
+            stage = s.name[len("driver."):]
+            if s.name.startswith("driver.") and stage in STAGES:
+                timings[stage] += s.duration_ns / 1e9
     if mode == "test":
         map_cls.finalize()
         results = {"mAP_CLASSIFICATION": map_cls.mAP()}

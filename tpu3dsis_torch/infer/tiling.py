@@ -80,6 +80,7 @@ from tpu3dsis_torch.models.detector import Detector, build_inference_fn
 from tpu3dsis_torch.ops.mask_windows import plan_windows, plan_windows_np
 from tpu3dsis_torch.ops.nms import nms_mask
 from tpu3dsis_torch.parallel.spatial import device_list, replicas
+from tpu3dsis_torch.utils import tracing
 
 BUCKET = 48  # the device scene is padded to multiples of this (tiling.py:482-485)
 
@@ -133,8 +134,9 @@ def _to_host(tree):
                 flat[prefix + (k,)] = v.to("cpu", non_blocking=True)
 
     walk(tree, ())
-    if any(v.is_pinned() for v in flat.values()):
-        torch.cuda.current_stream().synchronize()
+    with tracing.span("si.wait.card"):
+        if any(v.is_pinned() for v in flat.values()):
+            torch.cuda.current_stream().synchronize()
     out = {}
     for path, v in flat.items():
         node = out
@@ -171,6 +173,18 @@ class SceneInference:
     ``last_fused`` says whether the fused path served the last ``infer``;
     ``host_path_scenes`` counts the ``infer`` calls that an overflow sent to
     the host-planned path.
+
+    Spans (``utils/tracing.py``, recorded under the profiler): ``si.infer``
+    is a room's root, with the attributes views, tiles, detections and
+    windows; under it ``si.device_color`` and ``si.device_scene`` (each
+    joining its prefetch in ``si.wait.prefetch``), ``si.fused`` (``si.tiles``,
+    ``si.stitch``, ``si.plan``, ``si.masks``), ``si.to_host``, ``si.paste``,
+    ``si.host_path`` (an overflow's ``detect`` + ``predict_masks``) and
+    ``si.mask_redo``; every host sync is a ``si.wait.card``. The caller's
+    ``prefetch_*`` calls are ``si.prefetch``, the upload thread's jobs
+    ``si.upload_scene`` and ``si.prepare_color``. A room's spans share its
+    request id, which its ``prefetch_scene`` draws and hands to the upload
+    job (and to the frames prefetched next on the same thread).
     """
 
     def __init__(self, detector: Detector, cfg: DetectorConfig, tile_batch: int = 32, mesh=None):
@@ -200,11 +214,12 @@ class SceneInference:
         self._singles = [singles[id(r)] for r in self._replicas]
         self._copies = {}  # (name, device) -> (tensor, its copy there): the scene's and color volume's
         self._scene_cache = None  # (scene array, padded numpy, device scene)
-        self._prefetch = {}  # id(scene array) -> (scene array, future of _upload_scene)
+        self._prefetch = {}  # id(scene array) -> (scene array, future of _upload_scene, room id)
         self._upload_exec = None
         self._upload_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self._color_cache = None  # (frames dict, prep) of the last scene's frames
         self._color_prefetch = {}  # id(frames) -> (frames, future of _prepare_color)
+        self._last_room = {}  # thread id -> room id of the scene it prefetched last, for its frames
         # guards both prefetch dicts and the upload thread's start: a driver
         # may prefetch from its loader thread while this one infers
         self._prefetch_lock = threading.Lock()
@@ -228,21 +243,22 @@ class SceneInference:
         padded = [max(int(d), t) for d, t in zip(scene_shape, self.tile)]
         return tuple(-(-d // BUCKET) * BUCKET for d in padded)
 
-    def _upload_scene(self, scene_data: np.ndarray):
+    def _upload_scene(self, scene_data: np.ndarray, room=None):
         """Pad to the bucket and start the copy to the device in the compute
         dtype. Returns (padded numpy, device scene, the copy's CUDA event or
         None on the CPU); the scene must not be read before the event."""
-        data = pad_volume(scene_data.astype(np.float32), self.tile)
-        data = pad_volume(data, self._bucket_shape(data.shape[:3]))
-        host = torch.from_numpy(data).to(self._dtype)
-        if self._upload_stream is None:
-            return data, host, None
-        host = host.pin_memory()
-        with torch.cuda.device(self.device), torch.cuda.stream(self._upload_stream):
-            scene_dev = host.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        return data, scene_dev, ready
+        with tracing.span("si.upload_scene", request=room):
+            data = pad_volume(scene_data.astype(np.float32), self.tile)
+            data = pad_volume(data, self._bucket_shape(data.shape[:3]))
+            host = torch.from_numpy(data).to(self._dtype)
+            if self._upload_stream is None:
+                return data, host, None
+            host = host.pin_memory()
+            with torch.cuda.device(self.device), torch.cuda.stream(self._upload_stream):
+                scene_dev = host.to(self.device, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+            return data, scene_dev, ready
 
     def prefetch_scene(self, scene_data: np.ndarray) -> None:
         """Start the scene's padding and upload in the background, so that a
@@ -251,12 +267,21 @@ class SceneInference:
         thread than the one that infers."""
         if self._scene_cache is not None and self._scene_cache[0] is scene_data:
             return
-        with self._prefetch_lock:
+        room = tracing.new_request()
+        with tracing.span("si.prefetch", request=room), self._prefetch_lock:
             if id(scene_data) in self._prefetch:
                 return
+            self._last_room[threading.get_ident()] = room
             if len(self._prefetch) >= 4:  # bound the device memory of unread prefetches
-                self._prefetch.pop(next(iter(self._prefetch)))[1].result()
-            self._prefetch[id(scene_data)] = (scene_data, self._uploader().submit(self._upload_scene, scene_data))
+                with tracing.span("si.wait.prefetch"):
+                    self._prefetch.pop(next(iter(self._prefetch)))[1].result()
+            fut = self._uploader().submit(self._upload_scene, scene_data, room)
+            self._prefetch[id(scene_data)] = (scene_data, fut, room)
+
+    def _room_of(self, scene_data: np.ndarray) -> int:
+        """The request id of a scene: its prefetch's, else a fresh one."""
+        entry = self._prefetch.get(id(scene_data))
+        return entry[2] if entry is not None and entry[0] is scene_data else tracing.new_request()
 
     def _uploader(self) -> concurrent.futures.ThreadPoolExecutor:
         """The one upload thread, started at first use (under the prefetch lock)."""
@@ -269,21 +294,23 @@ class SceneInference:
         """(padded numpy, device scene), uploaded once per scene array: a
         pending prefetch of the same array is joined, and the current stream
         waits for its copy."""
-        cached = self._scene_cache
-        if cached is not None and cached[0] is scene_data:
-            return cached[1], cached[2]
-        with self._prefetch_lock:
-            entry = self._prefetch.pop(id(scene_data), None)
-        if entry is not None and entry[0] is scene_data:
-            data, scene_dev, ready = entry[1].result()
-        else:
-            data, scene_dev, ready = self._upload_scene(scene_data)
-        if ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(ready)
-            scene_dev.record_stream(stream)
-        self._scene_cache = (scene_data, data, scene_dev)
-        return data, scene_dev
+        with tracing.span("si.device_scene"):
+            cached = self._scene_cache
+            if cached is not None and cached[0] is scene_data:
+                return cached[1], cached[2]
+            with self._prefetch_lock:
+                entry = self._prefetch.pop(id(scene_data), None)
+            if entry is not None and entry[0] is scene_data:
+                with tracing.span("si.wait.prefetch"):
+                    data, scene_dev, ready = entry[1].result()
+            else:
+                data, scene_dev, ready = self._upload_scene(scene_data)
+            if ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                scene_dev.record_stream(stream)
+            self._scene_cache = (scene_data, data, scene_dev)
+            return data, scene_dev
 
     # --- the color prep: features, frusta, the resident volume ------------------
     def _color_resident_ok(self, scene_shape) -> bool:
@@ -303,7 +330,7 @@ class SceneInference:
         return True
 
     @torch.inference_mode()
-    def _prepare_color(self, frames: dict, scene_shape):
+    def _prepare_color(self, frames: dict, scene_shape, room=None):
         """One scene's color prep (``tiling.py:638``): the images go up, are
         normalised and run through ENet, and the features are cast to the
         compute dtype; the depths go up; the views' frusta are computed on the
@@ -316,28 +343,29 @@ class SceneInference:
         """
         proj = self.det.color_projector
         poses = np.asarray(frames["poses"], np.float32)
-        w2g = np.asarray(frames["world_to_grid"], np.float32)
-        frusta = [frustum_bbox_grid(p, w2g, proj.intrinsic, proj.depth_shape, proj.depth_min, proj.depth_max)
-                  for p in poses]
-        images = torch.as_tensor(np.asarray(frames["images"]))
-        depths = torch.as_tensor(np.asarray(frames["depths"], np.float32))
-        ctx = contextlib.ExitStack()
-        if self._upload_stream is not None:
-            images, depths = images.pin_memory(), depths.pin_memory()
-            ctx.enter_context(torch.cuda.device(self.device))
-            ctx.enter_context(torch.cuda.stream(self._upload_stream))
-        ready = None
-        with ctx:
-            depths = depths.to(self.device, non_blocking=True)
-            feats = proj.image_features(images.to(self.device, non_blocking=True)).to(self._dtype)
-            prep = {"feats2d": feats, "depths": depths, "poses": poses, "world_to_grid": w2g, "frusta": frusta}
-            if self._color_resident_ok(scene_shape):
-                prep["color"] = build_color_volume(proj, feats, depths, poses, w2g, self._bucket_shape(scene_shape),
-                                                   self._dtype)
+        with tracing.span("si.prepare_color", request=room, views=len(poses)):
+            w2g = np.asarray(frames["world_to_grid"], np.float32)
+            frusta = [frustum_bbox_grid(p, w2g, proj.intrinsic, proj.depth_shape, proj.depth_min, proj.depth_max)
+                      for p in poses]
+            images = torch.as_tensor(np.asarray(frames["images"]))
+            depths = torch.as_tensor(np.asarray(frames["depths"], np.float32))
+            ctx = contextlib.ExitStack()
             if self._upload_stream is not None:
-                ready = torch.cuda.Event()
-                ready.record()
-        return prep, ready
+                images, depths = images.pin_memory(), depths.pin_memory()
+                ctx.enter_context(torch.cuda.device(self.device))
+                ctx.enter_context(torch.cuda.stream(self._upload_stream))
+            ready = None
+            with ctx:
+                depths = depths.to(self.device, non_blocking=True)
+                feats = proj.image_features(images.to(self.device, non_blocking=True)).to(self._dtype)
+                prep = {"feats2d": feats, "depths": depths, "poses": poses, "world_to_grid": w2g, "frusta": frusta}
+                if self._color_resident_ok(scene_shape):
+                    prep["color"] = build_color_volume(proj, feats, depths, poses, w2g,
+                                                       self._bucket_shape(scene_shape), self._dtype)
+                if self._upload_stream is not None:
+                    ready = torch.cuda.Event()
+                    ready.record()
+            return prep, ready
 
     def prefetch_frames(self, frames: dict, scene_shape) -> None:
         """Start a scene's color prep (upload, ENet, the resident volume) in
@@ -350,12 +378,14 @@ class SceneInference:
             return
         if self._color_cache is not None and self._color_cache[0] is frames:
             return
-        with self._prefetch_lock:
+        room = self._last_room.pop(threading.get_ident(), None) or tracing.new_request()
+        with tracing.span("si.prefetch", request=room), self._prefetch_lock:
             if id(frames) in self._color_prefetch:
                 return
             if len(self._color_prefetch) >= 4:  # bound the device memory of unread preps
-                self._color_prefetch.pop(next(iter(self._color_prefetch)))[1].result()
-            fut = self._uploader().submit(self._prepare_color, frames, tuple(int(d) for d in scene_shape[:3]))
+                with tracing.span("si.wait.prefetch"):
+                    self._color_prefetch.pop(next(iter(self._color_prefetch)))[1].result()
+            fut = self._uploader().submit(self._prepare_color, frames, tuple(int(d) for d in scene_shape[:3]), room)
             self._color_prefetch[id(frames)] = (frames, fut)
 
     def _device_color(self, frames: dict, scene_shape) -> dict:
@@ -363,28 +393,30 @@ class SceneInference:
         prefetch of the same dict is joined, and the current stream waits for
         its event. The resident volume is built here when the prep lacks it
         at this scene's bucket."""
-        cached = self._color_cache
-        if cached is not None and cached[0] is frames:
-            prep = cached[1]
-        else:
-            with self._prefetch_lock:
-                entry = self._color_prefetch.pop(id(frames), None)
-            if entry is not None and entry[0] is frames:
-                prep, ready = entry[1].result()
+        with tracing.span("si.device_color"):
+            cached = self._color_cache
+            if cached is not None and cached[0] is frames:
+                prep = cached[1]
             else:
-                prep, ready = self._prepare_color(frames, scene_shape)
-            if ready is not None:
-                stream = torch.cuda.current_stream(self.device)
-                stream.wait_event(ready)
-                for key in ("feats2d", "depths", "color"):
-                    if key in prep:
-                        prep[key].record_stream(stream)
-            self._color_cache = (frames, prep)
-        bucket = self._bucket_shape(scene_shape)
-        if self._color_resident_ok(scene_shape) and ("color" not in prep or prep["color"].shape[:3] != bucket):
-            prep["color"] = build_color_volume(self.det.color_projector, prep["feats2d"], prep["depths"],
-                                               prep["poses"], prep["world_to_grid"], bucket, self._dtype)
-        return prep
+                with self._prefetch_lock:
+                    entry = self._color_prefetch.pop(id(frames), None)
+                if entry is not None and entry[0] is frames:
+                    with tracing.span("si.wait.prefetch"):
+                        prep, ready = entry[1].result()
+                else:
+                    prep, ready = self._prepare_color(frames, scene_shape)
+                if ready is not None:
+                    stream = torch.cuda.current_stream(self.device)
+                    stream.wait_event(ready)
+                    for key in ("feats2d", "depths", "color"):
+                        if key in prep:
+                            prep[key].record_stream(stream)
+                self._color_cache = (frames, prep)
+            bucket = self._bucket_shape(scene_shape)
+            if self._color_resident_ok(scene_shape) and ("color" not in prep or prep["color"].shape[:3] != bucket):
+                prep["color"] = build_color_volume(self.det.color_projector, prep["feats2d"], prep["depths"],
+                                                   prep["poses"], prep["world_to_grid"], bucket, self._dtype)
+            return prep
 
     def _frames_for(self, frames):
         """The frames a scene call uses: required by a color detector,
@@ -418,7 +450,9 @@ class SceneInference:
         (``_window_color``, ``tiling.py:775-793``)."""
         if "color" in prep:
             return self._crops(self._on("color", prep["color"], device), origins, self.tile)
-        return self._window_color(prep, origins.cpu().numpy(), self.tile).to(device)
+        with tracing.span("si.wait.card"):
+            starts = origins.cpu().numpy()
+        return self._window_color(prep, starts, self.tile).to(device)
 
     # --- several devices -------------------------------------------------------
     def _deal(self, n_items: int, batch: int) -> list:
@@ -559,7 +593,8 @@ class SceneInference:
         for s in starts:
             idx, ok, floor = select_views_for_tile(prep["frusta"], s, canvas, self.cfg.TPU_MAX_TILE_VIEWS)
             idx = idx[ok]
-            sel = torch.from_numpy(idx.astype(np.int64)).to(self.device)
+            with tracing.span("si.wait.card"):  # a blocking copy waits for the stream
+                sel = torch.from_numpy(idx.astype(np.int64)).to(self.device)
             vols.append(proj.project(prep["feats2d"][sel], prep["depths"][sel], prep["poses"][idx],
                                      shift_world_to_grid(prep["world_to_grid"], s), canvas, zero_floor=floor))
         return torch.stack(vols)
@@ -568,17 +603,23 @@ class SceneInference:
         """The whole fused program on the device, enqueued without a host
         sync; a color prep holds the resident volume the tiles crop, and
         under ``MASK_USE_IMAGES`` the mask windows too."""
-        out = self._stitch(self._tile_outputs(scene_dev, origins, prep), origins, extent)
+        with tracing.span("si.tiles", tiles=int(origins.shape[0])):
+            tiles = self._tile_outputs(scene_dev, origins, prep)
+        with tracing.span("si.stitch"):
+            out = self._stitch(tiles, origins, extent)
         color = prep["color"] if self._mask_color and prep is not None else None
-        for name, plan in self._plan_queues(out, scene_dev.shape[:3]).items():
-            labels = out["pred_class"][plan["roi_idx"].long()]
-            n = labels.shape[0]  # a queue is one batch, split over the devices
-            parts = [self._window_masks(scene_dev, plan["starts"][i:j], plan["locals6"][i:j], labels[i:j],
-                                        self._queue_canvas[name], color=color, d=d)
-                     for d, i, j in self._deal(n, n) or [(0, 0, 0)]]
-            plan["masks"] = torch.cat([m.to(self.device, non_blocking=True) for m in parts])
-            del plan["locals6"]
-            out[name] = plan
+        with tracing.span("si.plan"):
+            plans = self._plan_queues(out, scene_dev.shape[:3])
+        with tracing.span("si.masks"):
+            for name, plan in plans.items():
+                labels = out["pred_class"][plan["roi_idx"].long()]
+                n = labels.shape[0]  # a queue is one batch, split over the devices
+                parts = [self._window_masks(scene_dev, plan["starts"][i:j], plan["locals6"][i:j], labels[i:j],
+                                            self._queue_canvas[name], color=color, d=d)
+                         for d, i, j in self._deal(n, n) or [(0, 0, 0)]]
+                plan["masks"] = torch.cat([m.to(self.device, non_blocking=True) for m in parts])
+                del plan["locals6"]
+                out[name] = plan
         return out
 
     # --- the served path -------------------------------------------------------
@@ -591,20 +632,31 @@ class SceneInference:
         scene is fused when its resident color volume fits, else it takes the
         host-planned path with per-tile view fusion."""
         frames = self._frames_for(frames)
+        with tracing.span("si.infer", request=self._room_of(scene_data)) as sp:
+            sp.set(views=0 if frames is None else len(frames["poses"]))
+            det_out, masks = self._infer(scene_data, frames, sp)
+            sp.set(detections=len(det_out["pred_box"]))
+            return det_out, masks
+
+    def _infer(self, scene_data: np.ndarray, frames, sp):
+        """``infer``'s body; ``sp`` is its root span."""
         self.last_fused = False
         if (self.det.mask_backbone is None or not self.det.use_class
                 or (frames is not None and not self._color_resident_ok(scene_data.shape[:3]))):
-            out = self.detect(scene_data, frames)
-            return out, self.predict_masks(scene_data, out, frames=frames)
+            return self._host_path(scene_data, frames)
         prep = None if frames is None else self._device_color(frames, scene_data.shape[:3])
         data, scene_dev = self._device_scene(scene_data)
-        out = _to_host(self._fused(scene_dev, self._origins(data.shape[:3]), scene_data.shape[:3], prep))
+        with tracing.span("si.fused"):
+            origins = self._origins(data.shape[:3])
+            sp.set(tiles=int(origins.shape[0]))
+            fused = self._fused(scene_dev, origins, scene_data.shape[:3], prep)
+        with tracing.span("si.to_host"):
+            out = _to_host(fused)
         if int(out["pre_overflow"]) > 0 or int(out["det_overflow"]) > 0:
             # more confident detections than the device queues hold: the
             # host-planned path is unbounded
             self.host_path_scenes += 1
-            det_out = self.detect(scene_data, frames)
-            return det_out, self.predict_masks(scene_data, det_out, frames=frames)
+            return self._host_path(scene_data, frames)
         self.last_fused = True
         kv = out["det_valid"].astype(bool)
         det_out = {
@@ -612,25 +664,34 @@ class SceneInference:
             "pred_class": out["pred_class"][kv].astype(np.int32),
             "pred_conf": out["pred_conf"][kv].astype(np.float32),
         }
-        masks, delivered = self._paste(out, kv)
+        with tracing.span("si.paste"):
+            masks, delivered = self._paste(out, kv)
+        sp.set(windows=int(delivered.sum()))
         if int(out["mask_large"]["dropped"]) > 0:
             # rois whose halo windows did not all fit the large queue: redo
             # them through the host-planned path (only large-routed rois can
             # be short; the small queue holds one window per roi)
-            small, large = np.asarray(self._queue_canvas["mask_small"]), self._queue_canvas["mask_large"]
-            slots = np.nonzero(kv)[0]
-            short = []
-            for b, slot in enumerate(slots):
-                r = np.round(det_out["pred_box"][b]).astype(int)
-                if np.all(r[3:] - r[:3] <= small):
-                    continue
-                if delivered[slot] < len(plan_windows_np(det_out["pred_box"][b], data.shape[:3], large)):
-                    short.append(b)
-            if short:
-                redo = self.predict_masks(scene_data, {k: v[short] for k, v in det_out.items()}, frames=frames)
-                for b, mk in zip(short, redo):
-                    masks[b] = mk
+            with tracing.span("si.mask_redo"):
+                small, large = np.asarray(self._queue_canvas["mask_small"]), self._queue_canvas["mask_large"]
+                slots = np.nonzero(kv)[0]
+                short = []
+                for b, slot in enumerate(slots):
+                    r = np.round(det_out["pred_box"][b]).astype(int)
+                    if np.all(r[3:] - r[:3] <= small):
+                        continue
+                    if delivered[slot] < len(plan_windows_np(det_out["pred_box"][b], data.shape[:3], large)):
+                        short.append(b)
+                if short:
+                    redo = self.predict_masks(scene_data, {k: v[short] for k, v in det_out.items()}, frames=frames)
+                    for b, mk in zip(short, redo):
+                        masks[b] = mk
         return det_out, masks
+
+    def _host_path(self, scene_data: np.ndarray, frames):
+        """A room through ``detect`` + ``predict_masks``."""
+        with tracing.span("si.host_path"):
+            det_out = self.detect(scene_data, frames)
+            return det_out, self.predict_masks(scene_data, det_out, frames=frames)
 
     def _paste(self, out: dict, kv: np.ndarray):
         """Host: each valid window's owned segment into its box's mask.
@@ -665,7 +726,9 @@ class SceneInference:
         prep = None if frames is None else self._device_color(frames, scene_data.shape[:3])
         data, scene_dev = self._device_scene(scene_data)
         origins = self._origins_np(data.shape[:3])
-        out = _to_host(self._tile_outputs(scene_dev, torch.from_numpy(origins).to(self.device), prep))
+        with tracing.span("si.wait.card"):  # a blocking copy from pageable memory waits for the stream
+            origins_dev = torch.from_numpy(origins).to(self.device)
+        out = _to_host(self._tile_outputs(scene_dev, origins_dev, prep))
         boxes, classes, confs = [], [], []
         for j in range(len(origins)):
             keep = (out["valid"][j] & ~out["degenerate"][j] & (out["pred_conf"][j] > self.cfg.CLASS_THRESH)
@@ -750,7 +813,9 @@ class SceneInference:
         for canvas, part, d in calls:
 
             def dev(k, dtype=np.int64):
-                return torch.from_numpy(np.stack([np.asarray(it[k], dtype) for it in part])).to(self.device)
+                host = torch.from_numpy(np.stack([np.asarray(it[k], dtype) for it in part]))
+                with tracing.span("si.wait.card"):  # a blocking copy waits for the stream
+                    return host.to(self.device)
 
             imageft = color = None
             if prep is not None:
@@ -760,7 +825,8 @@ class SceneInference:
                     imageft = self._window_color(prep, [it[1] for it in part], canvas)
             outs.append(self._window_masks(scene_dev, dev(1), dev(2), dev(4), canvas, imageft, color, d=d))
         for (canvas, part, _), got in zip(calls, outs):
-            got = got.cpu().numpy()
+            with tracing.span("si.wait.card"):
+                got = got.cpu().numpy()
             for j, (b, st, _, own, _) in enumerate(part):
                 crop = got[j][own[0] - st[0]:own[3] - st[0], own[1] - st[1]:own[4] - st[1],
                               own[2] - st[2]:own[5] - st[2]]

@@ -53,42 +53,49 @@ from tpu3dsis_torch.ops.mask_windows import plan_windows
 from tpu3dsis_torch.train import losses as L
 from tpu3dsis_torch.train import targets as T
 from tpu3dsis_torch.train.solver import SGD
+from tpu3dsis_torch.utils import tracing
 
 
 class StageTimer:
     """Milliseconds by stage of a step: CUDA events on the card (read after
-    a sync), the host clock on the CPU. ``with timer("targets"):`` adds one
-    span to its stage."""
+    a sync), the host clock on the CPU. ``with timer("targets"):`` adds the
+    block's time to its stage and, as every stage does without a timer,
+    opens the recorder's span ``train.targets`` (``utils/tracing.py``)."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
-        self.spans = []  # (stage, start, end)
+        self._events = []  # (stage, start, end) CUDA events not yet read
+        self._ms = {}
+
+    def _add(self, stage: str, ms: float) -> None:
+        self._ms[stage] = self._ms.get(stage, 0.0) + ms
 
     @contextlib.contextmanager
     def __call__(self, stage: str):
-        if self.cuda:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-        else:
-            start = time.perf_counter()
-            yield
-            end = time.perf_counter()
-        self.spans.append((stage, start, end))
+        with _no_timer(stage):
+            if self.cuda:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                yield
+                end.record()
+                self._events.append((stage, start, end))
+            else:
+                t0 = time.perf_counter()
+                yield
+                self._add(stage, 1e3 * (time.perf_counter() - t0))
 
     def ms(self) -> dict:
-        if self.cuda:
+        if self._events:
             torch.cuda.synchronize()
-        out = {}
-        for stage, start, end in self.spans:
-            dt = start.elapsed_time(end) if self.cuda else 1e3 * (end - start)
-            out[stage] = out.get(stage, 0.0) + dt
-        return out
+        for stage, start, end in self._events:
+            self._add(stage, start.elapsed_time(end))
+        self._events.clear()
+        return dict(self._ms)
 
 
 def _no_timer(stage: str):
-    return contextlib.nullcontext()
+    """A stage without a timer: its recorder span alone."""
+    return tracing.span("train." + stage)
 
 
 def _window_region_mask(local6: torch.Tensor, canvas) -> torch.Tensor:
@@ -163,7 +170,8 @@ def _mask_forward_scan(detector: Detector, scene, rois, roi_valid, scene_shape, 
     dev = rois.device
     sample = torch.arange(b, device=dev).repeat_interleave(cap)
     cat = {k: torch.cat([p[k] for p in plans]) for k in ("starts", "locals6", "own6", "roi_idx", "valid")}
-    keep = torch.nonzero(cat["valid"])[:, 0]  # the queue's one host sync
+    with tracing.span("train.wait.card"):
+        keep = torch.nonzero(cat["valid"])[:, 0]  # the queue's one host sync
     starts, locals6, own6 = cat["starts"][keep], cat["locals6"][keep], cat["own6"][keep]
     sample = sample[keep]
     roi_idx = cat["roi_idx"][keep].long() + sample * m
@@ -428,23 +436,25 @@ def build_train_step(detector: Detector, cfg, scene_shape, group=None):
     def step(opt: SGD, batch: dict, draws: dict | None = None, generator: torch.Generator | None = None,
              timer: StageTimer | None = None) -> dict:
         t = timer or _no_timer
-        b, n_gt = (int(d) for d in np.shape(batch["gt_box"])[:2])
-        if draws is None:
-            n_candidates = (n_gt if post_n is None else post_n) + (n_gt if use_gt else 0)
-            draws = make_draws(b * world, n_anchors, n_candidates, generator, detector.device)
-            draws = {k: v[rank * b:(rank + 1) * b] for k, v in draws.items()}
-        else:
-            draws = {k: torch.as_tensor(v, dtype=torch.float32).to(detector.device) for k, v in draws.items()}
-        names = list(opt.params)  # trainable and frozen: the guard reads both
-        params = [opt.params[k] for k in names]
-        with t("forward"):
-            total, metrics = loss_fn(batch, draws, t)
-        with t("backward"):
-            grads = torch.autograd.grad(total, params, allow_unused=True) if total.requires_grad else [None] * len(names)
-        if group is not None:
-            with t("all_reduce"):
-                grads, metrics = all_reduce_mean(grads, params, metrics, group)
-        with t("update"):
-            return apply_step_update(opt, dict(zip(names, grads)), metrics)
+        with tracing.span("train.step", request=tracing.new_request()):
+            b, n_gt = (int(d) for d in np.shape(batch["gt_box"])[:2])
+            if draws is None:
+                n_candidates = (n_gt if post_n is None else post_n) + (n_gt if use_gt else 0)
+                draws = make_draws(b * world, n_anchors, n_candidates, generator, detector.device)
+                draws = {k: v[rank * b:(rank + 1) * b] for k, v in draws.items()}
+            else:
+                draws = {k: torch.as_tensor(v, dtype=torch.float32).to(detector.device) for k, v in draws.items()}
+            names = list(opt.params)  # trainable and frozen: the guard reads both
+            params = [opt.params[k] for k in names]
+            with t("forward"):
+                total, metrics = loss_fn(batch, draws, t)
+            with t("backward"):
+                grads = (torch.autograd.grad(total, params, allow_unused=True) if total.requires_grad
+                         else [None] * len(names))
+            if group is not None:
+                with t("all_reduce"):
+                    grads, metrics = all_reduce_mean(grads, params, metrics, group)
+            with t("update"):
+                return apply_step_update(opt, dict(zip(names, grads)), metrics)
 
     return opt_init, step

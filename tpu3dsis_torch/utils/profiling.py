@@ -6,7 +6,8 @@ PyTorch returns before the card finishes, so a host clock around a call
 measures its enqueue. Every timer here reads CUDA events and refuses a host
 without a card: there is no wall-clock fallback.
 
-  - :func:`trace` wraps ``torch.profiler`` and writes a Chrome trace;
+  - :func:`trace` wraps ``torch.profiler`` and writes a Chrome trace, with
+    the recorder's spans of every thread (``utils/tracing.py``);
   - :func:`cuda_ms`: the median of CUDA events around each call (a call's
     time with any gap while the host enqueues it);
   - :func:`device_ms` / :func:`device_time`: calls queued behind a device
@@ -18,11 +19,14 @@ without a card: there is no wall-clock fallback.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import statistics
 import time
 
 import torch
+
+from tpu3dsis_torch.utils import tracing
 
 
 def _require_cuda(device=None) -> None:
@@ -35,17 +39,26 @@ def _require_cuda(device=None) -> None:
 @contextlib.contextmanager
 def trace(log_dir: str, name: str = "trace.json"):
     """Profile the region (the CPU, and the card where there is one) and
-    write its Chrome trace to ``log_dir/name``; yields the profiler, whose
-    ``key_averages()`` sums the time by kernel."""
+    write its Chrome trace to ``log_dir/name``, with the spans that every
+    thread recorded in the region (the profiler itself sees only its own
+    thread); yields the profiler, whose ``key_averages()`` sums the time by
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    since = time.time_ns()
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, name))
+    path = os.path.join(log_dir, name)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        chrome = json.load(f)
+    chrome["traceEvents"] += tracing.chrome_events(tracing.spans(since), chrome.get("baseTimeNanoseconds", 0))
+    with open(path, "w") as f:
+        json.dump(chrome, f)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
