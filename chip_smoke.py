@@ -32,7 +32,8 @@ result):
      every K1 and K2 call of one scene, recorded with its arguments in each
      dtype, against its plain version, and K2's class-aware mode on
      synthetic boxes; 4 scenes in float32 and bfloat16, each served by the
-     fused path, with the kernels' launches counted; the card against the
+     fused path, with the kernels' launches counted (K2's from a device
+     trace: the chain after the tiles replays as a CUDA graph); the card against the
      CPU on a 144x48x144 scene; bfloat16
      against float32; masked scenes/min over a prefetched stream of 8,
      ``device_seconds``, per-stage ms, K2 class-aware against its plain
@@ -46,7 +47,7 @@ result):
      volume, K1, K2), the share of (brick, view) pairs K3's cull keeps on
      the resident call, K3 on the per-tile path's calls and on its edge cases;
      the path in both dtypes, each scene served by the fused path, launches
-     counted; the card against the CPU on a 144x48x144 room with 16 views;
+     counted (K2's from a device trace, as in 6); the card against the CPU on a 144x48x144 room with 16 views;
      bfloat16 against float32; color masked scenes/min over a prefetched
      stream of 8, ``device_seconds``, prep ms by view count (upload, ENet,
      K3), per-stage ms, K3 against its plain version and its bound, and a
@@ -171,7 +172,7 @@ result):
 
 ``--phases 9`` (a comma-separated list) runs only those phases after 0 and
 1, for work on one phase, and prints no result line (``--phases 11`` runs
-phase 8 first). The last three lines
+phase 8 first; 6, 7, 9, 10, 11, 12 and 13 can run so). The last three lines
 of a whole run are the kernels' JSON, the card's name and power limit as
 ``nvidia-smi`` reports them, and ``{"ok": true, "device": {...}}``.
 """
@@ -206,6 +207,7 @@ from tpu3dsis_torch.models.detector import device_anchors
 from tpu3dsis_torch.models.rpn import select_proposals
 from tpu3dsis_torch.ops import nms
 from tpu3dsis_torch.ops import roi_pool3d as rp
+from tpu3dsis_torch.utils import tracing
 from tpu3dsis_torch.utils.profiling import cuda_ms, device_ms, host_ms
 
 SHAPE = (96, 48, 96)
@@ -533,6 +535,19 @@ def device_launches():
             "fuse_views_backward_cuda": lib.tpu3dsis_fuse_views_bwd_launches()}
 
 
+def traced_k2_launches(prof):
+    """K2's kernels in a ``torch.profiler`` trace of the card: {nms3d_cuda:
+    every K2 kernel, nms3d_cuda_class_aware: those with classes}. On a path
+    whose chain after the tiles replays as a CUDA graph (``SceneInference``
+    on one card without ``MASK_USE_IMAGES``) the stitch's class-aware K2
+    launches on every replay without a wrapper call, and its capture calls
+    the wrapper without a launch: there the wrapper's counts are calls, and
+    the launches are read here."""
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"nms3d_cuda": sum("nms3d_kernel<" in n for n in names),
+            "nms3d_cuda_class_aware": sum("nms3d_kernel<true>" in n for n in names)}
+
+
 def reset_launch_counts():
     """Every wrapper's launch count to 0 (just before a path is driven)."""
     rp.roi_pool3d_cuda.launches = 0
@@ -824,7 +839,9 @@ def recording_kernel_calls():
     """Within the block, every call to K1's, K1b's, K2's, K3's and K3b's wrappers, from any
     thread, with copies of its arguments, in call order: [(kind, {argument:
     value})], kind the wrapper's name or "class-aware" for K2 with classes.
-    The wrappers are wrapped for the block only."""
+    The wrappers are wrapped for the block only. A call made while the
+    stream captures a CUDA graph (``SceneInference``'s chain after the
+    tiles) is not recorded: its arguments hold no values yet."""
     calls = []
     wrapped = ((rp, "roi_pool3d_cuda"), (rp, "roi_pool3d_backward_cuda"), (nms, "nms3d_cuda"),
                (projection, "fuse_views_cuda"), (projection, "fuse_views_backward_cuda"))
@@ -834,6 +851,8 @@ def recording_kernel_calls():
         sig = inspect.signature(fn)
 
         def call(*args, **kwargs):
+            if torch.cuda.is_current_stream_capturing():
+                return fn(*args, **kwargs)
             bound = sig.bind(*args, **kwargs)
             bound.apply_defaults()
             kind = "class-aware" if bound.arguments.get("classes") is not None else fn.__name__
@@ -950,6 +969,8 @@ def bf16_vs_fp32(outs, n_scenes, phase, iou_thresh=0.5, max_drift=0.1, slack_div
 
 
 def phase_scene(dev, params, n_scenes=4):
+    from torch.profiler import ProfilerActivity, profile
+
     sis = {dt: scene_inference(dev, dt, params) for dt in ("float32", "bfloat16")}
     scenes, gts = zip(*[make_scene(np.random.RandomState(7 + i)) for i in range(n_scenes)])
     res = {"err": 0.0, "k1_err": 0.0, "k2_err": 0.0}
@@ -980,30 +1001,48 @@ def phase_scene(dev, params, n_scenes=4):
             if b == 1:
                 res["synthetic_1x1024"] = case
 
-    # the path: every count set to 0 just before, read just after
+    # the path: every count set to 0 just before, read just after. The
+    # stitch's class-aware K2 runs in the chain after the tiles, which a
+    # bucket's rooms after its second replay as a CUDA graph: its wrapper is
+    # called once for each eager chain and once for each capture, and the
+    # device trace holds one class-aware K2 kernel a scene
     reset_launch_counts()
     before = device_launches()
     outs = {}
-    for dt, si in sis.items():
-        outs[dt] = []
-        for s in scenes:
-            det, masks = si.infer(s)
-            check(si.last_fused, f"{dt}: a scene fell back to the host-planned path")
-            outs[dt].append((det, masks))
-    torch.cuda.synchronize()
-    launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
-                "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches}
-    kernel_launches = {k: v - before[k] for k, v in device_launches().items() if k in launches}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, tracing.recording():
+        tracing.clear()
+        for dt, si in sis.items():
+            outs[dt] = []
+            for s in scenes:
+                det, masks = si.infer(s)
+                check(si.last_fused, f"{dt}: a scene fell back to the host-planned path")
+                outs[dt].append((det, masks))
+        torch.cuda.synchronize()
+    names = [sp.name for sp in tracing.spans()]
+    tracing.clear()
+    calls = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
+             "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches}
+    library_calls = {k: v - before[k] for k, v in device_launches().items() if k in calls}
+    launches = {"roi_pool3d_cuda": calls["roi_pool3d_cuda"], **traced_k2_launches(prof)}  # the tiles stay eager
     runs = len(sis) * n_scenes
     per_scene = {k: v / runs for k, v in launches.items()}
     host_path = {dt: si.host_path_scenes for dt, si in sis.items()}
+    replays, captures = names.count("si.replay"), names.count("si.capture")
     log(f"[6] scene path: {runs} scenes ({n_scenes} x float32, bfloat16) of {SCENE_EXTENT}, 25 tiles each, all "
-        f"served by the fused path (host-path scenes so far {host_path}); wrapper calls {launches}, kernel launches "
-        f"{kernel_launches}, per scene {per_scene}")
+        f"served by the fused path (host-path scenes so far {host_path}); wrapper calls {calls}, the library's own "
+        f"count of them {library_calls}; chains replayed {replays}, captured {captures}; kernel launches (K2 from the "
+        f"device trace) {launches}, per scene {per_scene}")
     for k in ("roi_pool3d_cuda", "nms3d_cuda"):
-        check(launches[k] > 0, f"{k} was not launched on the scene path")
-        check(kernel_launches[k] == launches[k], f"{k}: {kernel_launches[k]} kernel launches for {launches[k]} calls")
-    check(launches["nms3d_cuda_class_aware"] == runs, "the class-aware K2 did not launch once per scene")
+        check(calls[k] > 0, f"{k} was not launched on the scene path")
+        check(library_calls[k] == calls[k], f"{k}: the library counted {library_calls[k]} calls of {calls[k]}")
+    check(calls["nms3d_cuda_class_aware"] == runs - replays + captures,
+          f"{calls['nms3d_cuda_class_aware']} class-aware K2 calls for {runs - replays} eager chains and "
+          f"{captures} captures")
+    check(launches["nms3d_cuda_class_aware"] == runs,
+          f"{launches['nms3d_cuda_class_aware']} class-aware K2 kernels in the device trace for {runs} scenes")
+    check(launches["nms3d_cuda"] - launches["nms3d_cuda_class_aware"]
+          == calls["nms3d_cuda"] - calls["nms3d_cuda_class_aware"], "the plain K2's kernels are not its calls")
+    res["wrapper_calls"] = calls
 
     for dt, per in outs.items():
         n_det, n_vox, recalls = [], [], []
@@ -1149,9 +1188,10 @@ def scene_stages(si, scene, prep=None):
 
     with torch.inference_mode():
         data, scene_dev = si._device_scene(scene)
-        origins = si._origins(data.shape[:3])
+        origins = si._bucket(data.shape[:3])["origins"]
+        extent = torch.tensor(scene.shape[:3], dtype=torch.float32, device=si.device)
         tiles = si._tile_outputs(scene_dev, origins, prep)
-        det = si._stitch(tiles, origins, scene.shape[:3])
+        det = si._stitch(tiles, origins, extent)
         plans = si._plan_queues(det, scene_dev.shape[:3])
 
         def crops(name):  # the mask windows' color crops (MASK_USE_IMAGES)
@@ -1166,7 +1206,7 @@ def scene_stages(si, scene, prep=None):
         if prep is not None:
             stages["color_crops_of_tiles"] = cuda_ms(lambda: si._tile_color(prep, origins, si.device), 5)
         stages.update({
-            "stitch_nms": cuda_ms(lambda: si._stitch(tiles, origins, scene.shape[:3]), 10),
+            "stitch_nms": cuda_ms(lambda: si._stitch(tiles, origins, extent), 10),
             "planning": cuda_ms(lambda: si._plan_queues(det, scene_dev.shape[:3]), 10),
             "mask_fcn_small": cuda_ms(lambda: fcn("mask_small"), 5),
             "mask_fcn_large": cuda_ms(lambda: fcn("mask_large"), 5),
@@ -1568,33 +1608,40 @@ def phase_color(dev, params):
             check(max(views) <= never.cfg.TPU_MAX_TILE_VIEWS, "a tile took more views than the cap")
             del never
 
-    # the path: every count set to 0 just before, read just after
+    # the path: every count set to 0 just before, read just after; K2's
+    # launches from the device trace (the chain after the tiles replays)
+    from torch.profiler import ProfilerActivity, profile
+
     reset_launch_counts()
     before = device_launches()
     outs, filled = {}, {}
-    for dt, si in sis.items():
-        outs[dt], filled[dt] = [], []
-        for s, f in zip(scenes, frames):
-            det, masks = si.infer(s, f)
-            check(si.last_fused, f"{dt}: a color scene was not served by the fused path")
-            outs[dt].append((det, masks))
-            filled[dt].append(float((si._color_cache[1]["color"] != 0).any(-1).float().mean()))
-    torch.cuda.synchronize()
-    launches = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
-                "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches,
-                "fuse_views_cuda": projection.fuse_views_cuda.launches}
-    kernel_launches = {k: v - before[k] for k, v in device_launches().items() if k in launches}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for dt, si in sis.items():
+            outs[dt], filled[dt] = [], []
+            for s, f in zip(scenes, frames):
+                det, masks = si.infer(s, f)
+                check(si.last_fused, f"{dt}: a color scene was not served by the fused path")
+                outs[dt].append((det, masks))
+                filled[dt].append(float((si._color_cache[1]["color"] != 0).any(-1).float().mean()))
+        torch.cuda.synchronize()
+    calls = {"roi_pool3d_cuda": rp.roi_pool3d_cuda.launches, "nms3d_cuda": nms.nms3d_cuda.launches,
+             "nms3d_cuda_class_aware": nms.nms3d_cuda.class_aware_launches,
+             "fuse_views_cuda": projection.fuse_views_cuda.launches}
+    library_calls = {k: v - before[k] for k, v in device_launches().items() if k in calls}
+    launches = {**calls, **traced_k2_launches(prof)}
     runs = len(sis) * len(scenes)
     per_scene = {k: v / runs for k, v in launches.items()}
     host_path = {dt: si.host_path_scenes for dt, si in sis.items()}
     log(f"[7] color scene path: {runs} scenes ({len(scenes)} x float32, bfloat16), views {list(COLOR_VIEWS)}, all "
-        f"served by the fused path (host-path scenes {host_path}); wrapper calls {launches}, kernel launches "
-        f"{kernel_launches}, per scene {per_scene}")
+        f"served by the fused path (host-path scenes {host_path}); wrapper calls {calls}, the library's own count "
+        f"of them {library_calls}; kernel launches (K2 from the device trace) {launches}, per scene {per_scene}")
     log(f"[7] share of the volume's voxels K3 fills, per scene: {json.dumps(filled)}")
     for k in ("roi_pool3d_cuda", "nms3d_cuda", "fuse_views_cuda"):
-        check(launches[k] > 0, f"{k} was not launched on the color scene path")
-        check(kernel_launches[k] == launches[k], f"{k}: {kernel_launches[k]} kernel launches for {launches[k]} calls")
+        check(calls[k] > 0, f"{k} was not launched on the color scene path")
+        check(library_calls[k] == calls[k], f"{k}: the library counted {library_calls[k]} calls of {calls[k]}")
     check(launches["fuse_views_cuda"] == runs, "K3 did not launch once per color scene")
+    check(launches["nms3d_cuda_class_aware"] == runs, "the class-aware K2 did not launch once per color scene")
+    res["wrapper_calls"] = calls
     check(min(min(v) for v in filled.values()) > 0, "a color scene whose volume K3 left empty")
     check(all(n == 0 for n in host_path.values()), f"color scenes on the host path: {host_path}")
 
@@ -3959,6 +4006,14 @@ def main(argv=None) -> int:
     if phases != {2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13}:
         # a subset, for working on one phase: phase 9 takes phase 2's inputs and phase 6's weights,
         # phase 11 phase 7's rooms and test-mode artifacts of phase 8's scenes (driver_artifacts)
+        if 6 in phases:
+            params = scene_params()
+            sis, scene_list, _, _, k2c = phase_scene(dev, params)
+            phase_scene_card_vs_cpu(sis, params)
+            phase_scene_timing(sis, scene_list, k2c)
+            del sis, scene_list
+        if 7 in phases:
+            phase_color(dev, color_params())
         if 9 in phases:
             phase_train(dev, kernel_inputs(dev, rng), scene_params())
         if 10 in phases:
@@ -4050,15 +4105,19 @@ def main(argv=None) -> int:
          "replaces": "tpu3dsis/ops/nms.py:86", "launches": launches["nms3d_cuda"],
          "launches_per_batch": per_batch["nms3d_cuda"], "launches_scene_path": scene_launches["nms3d_cuda"],
          "launches_per_scene": per_scene["nms3d_cuda"], "launches_color_path": color_launches["nms3d_cuda"],
-         "launches_driver_path": drv["launches"]["nms3d_cuda"],
-         "launches_driver_color_path": drv["color"]["launches"]["nms3d_cuda"],
+         "wrapper_calls_scene_path": k2c["wrapper_calls"]["nms3d_cuda"],
+         "wrapper_calls_color_path": k3r["wrapper_calls"]["nms3d_cuda"],
+         # the driver paths replay the scene chain: their wrapper counts are
+         # calls (eager chains and captures), not kernels
+         "wrapper_calls_driver_path": drv["launches"]["nms3d_cuda"],
+         "wrapper_calls_driver_color_path": drv["color"]["launches"]["nms3d_cuda"],
          "launches_train_path": geo["launches"]["nms3d_cuda"],
          "launches_train_color_path": col["launches"]["nms3d_cuda"],
          "launches_train_enet_path": ent["nms3d_cuda"],
          "launches_mask_color_path": mcp["nms3d_cuda"], "launches_train_mask_color_path": mct["nms3d_cuda"],
          "launches_dp_train_path_per_rank": dpl["nms3d_cuda"], "launches_tile_parallel_path": tpl["nms3d_cuda"],
          "launches_spatial_path": spl["nms3d_cuda"], "launches_no_rpn_train_path": nrl["nms3d_cuda"],
-         "launches_color_loop_train_path": ltr["nms3d_cuda"], "launches_color_loop_test_path": lte["nms3d_cuda"],
+         "launches_color_loop_train_path": ltr["nms3d_cuda"], "wrapper_calls_color_loop_test_path": lte["nms3d_cuda"],
          "max_abs_err": max(k2["err"], k2c["k2_err"], k3r["k2_err"], train["k2_err"], enet["k2_err"], mc["k2_err"],
                             par["tiles"]["err"], par["spatial"]["err"], loop["k2_err"]),
          "ms": kernels["k2_400_0.1"], "plain_ms": kernels["k2_plain_0.1"],
@@ -4067,11 +4126,14 @@ def main(argv=None) -> int:
          "replaces": "tpu3dsis/ops/nms.py:86 (classes=, tpu3dsis/infer/tiling.py:1306)",
          "launches": scene_launches["nms3d_cuda_class_aware"],
          "launches_per_scene": per_scene["nms3d_cuda_class_aware"],
-         "launches_driver_path": drv["launches"]["nms3d_cuda_class_aware"],
-         "launches_driver_color_path": drv["color"]["launches"]["nms3d_cuda_class_aware"],
+         "launches_color_path": color_launches["nms3d_cuda_class_aware"],
+         "wrapper_calls_scene_path": k2c["wrapper_calls"]["nms3d_cuda_class_aware"],
+         "wrapper_calls_color_path": k3r["wrapper_calls"]["nms3d_cuda_class_aware"],
+         "wrapper_calls_driver_path": drv["launches"]["nms3d_cuda_class_aware"],
+         "wrapper_calls_driver_color_path": drv["color"]["launches"]["nms3d_cuda_class_aware"],
          "launches_mask_color_path": mcp["nms3d_cuda_class_aware"],
          "launches_tile_parallel_path": tpl["nms3d_cuda_class_aware"],
-         "launches_color_loop_test_path": lte["nms3d_cuda_class_aware"],
+         "wrapper_calls_color_loop_test_path": lte["nms3d_cuda_class_aware"],
          "max_abs_err": max(k2c["err"], loop["class_aware_err"]),
          "ms": scene_t["k2_class_aware"]["ms"], "plain_ms": scene_t["k2_class_aware"]["plain_ms"],
          "bound_ms": scene_t["k2_class_aware"]["bound_ms"], "bound_by": scene_t["k2_class_aware"]["bound_by"],

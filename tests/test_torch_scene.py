@@ -8,21 +8,34 @@
 independent of the tile batch and of prefetching; (d) the same for color
 scenes with frames, on 128-channel feature images (``USE_IMAGES_GT``, the
 setup of ``tests/test_color_pipeline.py``): the fused path with the resident
-color volume, the per-tile path, and prefetched frames.
+color volume, the per-tile path, and prefetched frames; (e) the chain
+after the tiles as one function of device inputs, against the stages
+composed with the host's values, never captured on the CPU, and, with the
+capture stood in for, captured on a bucket's second room; on a CUDA
+card (``-m gpu``, which needs no JAX: ``python -m pytest --noconftest -m
+gpu tests/test_torch_scene.py``), its replays against eager rooms, bit for
+bit.
 """
 
 import importlib.util
+import threading
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from tpu3dsis.infer import tiling as jax_tiling
-from tpu3dsis.models import Detector as JaxDetector
+try:  # the CPU tests' reference; the card's host, which runs only the gpu test here, may lack it
+    import jax
+    from tpu3dsis.infer import tiling as jax_tiling
+    from tpu3dsis.models import Detector as JaxDetector
+except ImportError:
+    jax = jax_tiling = JaxDetector = None
 from tpu3dsis_torch import (Detector, DetectorConfig, ProposalConfig, SceneInference, load_jax_params,
                             scannet_scene_config)
+from tpu3dsis_torch.geometry.boxes import clip_boxes
 from tpu3dsis_torch.infer import tiling
+from tpu3dsis_torch.ops.mask_windows import plan_windows
+from tpu3dsis_torch.utils import tracing
 
 # mask flips allowed at the sigmoid threshold: the JAX test's own bar
 # (test_tiling.py:312), for two frameworks that sum each conv in another order
@@ -345,3 +358,240 @@ def test_color_results_independent_of_prefetch_frames(color_pair):
     assert streamed.device_seconds(scenes[2][0], scenes[2][1], iters=1) > 0
     with pytest.raises(ValueError, match="frames"):
         streamed.infer(scenes[0][0])
+
+
+# --- the chain after the tiles --------------------------------------------------------
+
+def _chain_composed(si, tiles, origins, scene_dev, extent):
+    """The chain after the tiles as the fused program composed its stages
+    before it became one function: the clip by the host's extent tuple
+    (``clip_boxes``), the small canvas's test against a float tensor made
+    here on every call."""
+    cfg = si.cfg
+    out = si._stitch(tiles, origins, torch.full((3,), 1e9))  # no clip here
+    out["pred_box"] = clip_boxes(out["pred_box"], extent)
+    box, valid = out["pred_box"], out["det_valid"]
+    small, large = si._queue_canvas["mask_small"], si._queue_canvas["mask_large"]
+    dims = torch.round(box[:, 3:6]) - torch.round(box[:, :3])
+    fits = (dims <= torch.tensor(small, dtype=torch.float32)).all(dim=1)
+    pad = scene_dev.shape[:3]
+    plans = {"mask_small": plan_windows(box, valid & fits, pad, small, cfg.TPU_FUSED_MAX_DETECTIONS, single_window=True),
+             "mask_large": plan_windows(box, valid & ~fits, pad, large, cfg.TPU_FUSED_LARGE_WINDOWS, allow_drop=True)}
+    for name, plan in plans.items():
+        labels = out["pred_class"][plan["roi_idx"].long()]
+        plan["masks"] = si._window_masks(scene_dev, plan["starts"], plan["locals6"], labels, si._queue_canvas[name])
+        del plan["locals6"]
+        out[name] = plan
+    return out
+
+
+def _flat(tree, prefix=()):
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, prefix + (k,)) if isinstance(v, dict) else {prefix + (k,): v})
+    return out
+
+
+CHAIN_CASES = {
+    "served": {},
+    "overflow": {"TPU_FUSED_PRE_NMS": 8},  # more candidates than the stitch takes
+    "dropped": {"TPU_MASK_INFER_CANVAS_SMALL": (12, 12, 12), "TPU_MASK_INFER_CANVAS": (20, 20, 20),
+                "TPU_FUSED_LARGE_WINDOWS": 1},  # halo windows beyond the large queue
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_chain_equals_the_stages_composed(pair, case):
+    """``_chain`` with the extent as a device tensor and the planners'
+    constants made once == the stitch, the planners and the mask FCN
+    composed with the host's values, bit for bit in every output; in a room
+    that overflows the stitch and in one whose large queue drops windows."""
+    _, _, _, tcfg, tdet = pair
+    scene = _scene(6)
+    si = SceneInference(tdet, tcfg.replace(**CHAIN_CASES[case]), tile_batch=3)
+    data, scene_dev = si._device_scene(scene)
+    origins = si._bucket(data.shape[:3])["origins"]
+    tiles = si._tile_outputs(scene_dev, origins)
+    extent = torch.tensor(scene.shape[:3], dtype=torch.float32)
+    got = _flat(si._chain(tiles, origins, scene_dev, extent))
+    want = _flat(_chain_composed(si, tiles, origins, scene_dev, scene.shape[:3]))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    if case == "overflow":
+        assert int(got[("pre_overflow",)]) > 0
+    if case == "dropped":
+        assert int(got[("mask_large", "dropped")]) > 0
+
+
+def test_rooms_of_one_bucket_clip_to_their_own_extent(pair):
+    """Two rooms of one bucket (96x48x96) with other true extents, served
+    one after the other by one instance on the bucket's constants: each
+    equals its own host-planned path, and the smaller one's boxes reach its
+    own border, not the larger one's."""
+    _, _, _, tcfg, tdet = pair
+    si = SceneInference(tdet, tcfg, tile_batch=3)
+    rooms = [_scene(6), _scene(23, (50, 40, 55))]
+    assert si._bucket_shape(rooms[0].shape[:3]) == si._bucket_shape(rooms[1].shape[:3])
+    for scene in rooms:
+        got = si.infer(scene)
+        assert si.last_fused
+        want = si.detect(scene)
+        _assert_same(*got, want, si.predict_masks(scene, want))
+    assert len(si._buckets) == 1
+    box, extent = got[0]["pred_box"], np.asarray(rooms[1].shape[:3], np.float32)
+    assert (box[:, 3:] <= extent).all() and (box[:, 3:] == extent).any()
+
+
+def test_infer_never_captures_on_the_cpu(pair):
+    """On the CPU the chain runs eagerly in every room: no ``si.replay`` or
+    ``si.capture`` span, no graph in the bucket cache, the results those of
+    the host-planned path; the cache keeps the last ``GRAPH_BUCKETS``
+    buckets used."""
+    _, _, _, tcfg, tdet = pair
+    si = SceneInference(tdet, tcfg, tile_batch=3)
+    scene = _scene(6)
+    tracing.clear()
+    with tracing.recording():
+        got = [si.infer(scene) for _ in range(2)]
+    names = {sp.name for sp in tracing.spans()}
+    tracing.clear()
+    assert not si._graphs and "si.fused" in names and "si.stitch" in names
+    assert not names & {"si.replay", "si.capture"}
+    assert all("graph" not in b for b in si._buckets.values())
+    want = si.detect(scene)
+    want_masks = si.predict_masks(scene, want)
+    for det, masks in got:
+        _assert_same(det, masks, want, want_masks)
+    shapes = [(96 + 48 * i, 48, 96) for i in range(tiling.GRAPH_BUCKETS + 1)]
+    for shape in shapes:
+        si._bucket(shape)
+    assert list(si._buckets) == shapes[1:]
+    si._bucket(shapes[1])
+    assert list(si._buckets)[-1] == shapes[1] and len(si._buckets) == tiling.GRAPH_BUCKETS
+
+
+def test_a_bucket_captures_on_its_second_room(pair, monkeypatch):
+    """Where the instance takes graphs, a bucket's first room runs the
+    chain eagerly and captures nothing, its second runs it eagerly and then
+    captures, and its later rooms replay; a bucket seen once pays no
+    capture. On the CPU, with the capture stood in for by one that keeps
+    the chain's outputs as the graph's (its replay returns them)."""
+    _, _, _, tcfg, tdet = pair
+    si = SceneInference(tdet, tcfg, tile_batch=3)
+    captured = []
+
+    def capture(entry, tiles, scene_dev, extent):
+        captured.append(tuple(scene_dev.shape[:3]))
+        ins = {"tiles": {k: v.clone() for k, v in tiles.items()}, "origins": entry["origins"],
+               "scene": scene_dev.clone(), "extent": extent.clone()}
+        outs = si._chain(ins["tiles"], ins["origins"], ins["scene"], ins["extent"])
+        return {"graph": type("Graph", (), {"replay": lambda self: None})(), "inputs": ins, "outputs": outs}
+
+    monkeypatch.setattr(si, "_graphs", True)
+    monkeypatch.setattr(si, "_capture", capture)
+    rooms = [_scene(6), _scene(6), _scene(6), _scene(7, (100, 48, 60))]
+    tracing.clear()
+    with tracing.recording():
+        got = [si.infer(scene) for scene in rooms]
+    spans = tracing.spans()
+    tracing.clear()
+    fused = sorted((sp for sp in spans if sp.name == "si.fused"), key=lambda sp: sp.start_ns)
+    stages = [[c.name for c in sorted((c for c in spans if c.parent is f), key=lambda c: c.start_ns)] for f in fused]
+    eager = ["si.tiles", "si.stitch", "si.plan", "si.masks"]
+    assert stages == [eager, eager + ["si.capture"], ["si.tiles", "si.replay"], eager]
+    assert captured == [(96, 48, 96)]
+    for det, masks in got[1:3]:
+        _assert_same(det, masks, *got[0])
+
+
+@pytest.mark.gpu
+def test_replayed_rooms_equal_eager_rooms_on_the_card():
+    """On the card, the cell ``scannet.rooms``'s configuration, weights and
+    rooms (``portbench``): rooms whose chain a bucket's graph replays ==
+    the same rooms with the chain eager, bit for bit in every served key.
+    All three of the cell's buckets; two extents in one bucket; rooms that
+    overflow to the host-planned path and rooms whose masks are redone; a
+    prefetched stream whose captures overlap the upload thread's color
+    prep; weights reloaded in place after the captures."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from portbench import harness, traffic, weights
+    from portbench.kinds.serve_rooms import ServeRooms
+
+    cell = ServeRooms(harness.config("scannet.rpn_class_mask_5"), dict(traffic.load("rooms"), pool=9), 3810000217)
+    pool = [(t, f) for t, _, f in traffic.rooms(cell.mix, cell.seed, cell.cfg["serve"]["INTRINSIC"], cell.device)]
+    t0, f0 = pool[0]
+    cut = tuple(d - 7 for d in t0.shape[:3])  # another extent in the first room's bucket
+    pool.append((np.ascontiguousarray(t0[:cut[0], :cut[1], :cut[2]]), f0))
+    cell.pool = [(t, None, f) for t, f in pool]
+    serve = dict(cell.cfg["serve"])
+    serve["TEST"] = ProposalConfig(**serve["TEST"])
+    for k, v in serve.items():
+        if isinstance(v, list):
+            serve[k] = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+    dcfg = DetectorConfig(**serve)
+    params = weights.make(cell.cfg["model"], cell.cfg["serve_weights"], cell.seed, cell.device)
+    det = Detector(dcfg, device=cell.device)
+    det.load_state_dict(params, strict=True)
+
+    def serve_all(si, order, prefetch=False):
+        rooms, out = [cell.fresh(i) for i in order], []
+        if prefetch:
+            si.prefetch_scene(rooms[0][0])
+            si.prefetch_frames(rooms[0][1], rooms[0][0].shape)
+        for j, (tsdf, frames) in enumerate(rooms):
+            if prefetch and j + 1 < len(rooms):
+                si.prefetch_scene(rooms[j + 1][0])
+                si.prefetch_frames(rooms[j + 1][1], rooms[j + 1][0].shape)
+            out.append(si.infer(tsdf, frames))
+        si.close()
+        return out
+
+    def same(got, want, label):
+        assert len(got) == len(want)
+        for j, ((gd, gm), (wd, wm)) in enumerate(zip(got, want)):
+            for k in wd:
+                assert np.array_equal(gd[k], wd[k]), f"{label}, room {j}: {k}"
+            assert len(gm) == len(wm) and all(np.array_equal(a, b) for a, b in zip(gm, wm)), f"{label}, room {j}"
+
+    def instances(cfg):
+        eager = SceneInference(det, cfg)
+        eager._graphs = False
+        return SceneInference(det, cfg), eager
+
+    order = list(range(len(pool))) * 2  # each bucket's second room captures, its later rooms replay
+    graphed, eager = instances(dcfg)
+    assert graphed._graphs and len({graphed._bucket_shape(t.shape[:3]) for t, _ in pool}) == 3
+    tracing.clear()
+    with tracing.recording():
+        want = serve_all(eager, order)
+        same(serve_all(graphed, order), want, "served")
+        over_g, over_e = instances(dcfg.replace(TPU_FUSED_MAX_DETECTIONS=4))  # most rooms overflow
+        same(serve_all(over_g, order), serve_all(over_e, order), "overflow")
+        assert over_g.host_path_scenes > 0 and over_g.host_path_scenes == over_e.host_path_scenes
+
+        # a prefetched stream on a fresh instance, each capture joined by a color prep on the upload thread
+        streamed = SceneInference(det, dcfg)
+        real = streamed._capture
+
+        def capture(*args):
+            streamed.prefetch_frames(cell.fresh(1)[1], pool[1][0].shape)
+            return real(*args)
+
+        streamed._capture = capture
+        same(serve_all(streamed, order, prefetch=True), want, "prefetched")
+    spans = tracing.spans()
+    tracing.clear()
+    names = [sp.name for sp in spans]
+    assert names.count("si.capture") == 3 * 3 and names.count("si.replay") == 3 * (len(order) - 2 * 3)
+    assert "si.mask_redo" in names and "si.host_path" in names
+    preps = [sp for sp in spans if sp.name == "si.prepare_color" and sp.thread.startswith("scene-upload")]
+    caps = [sp for sp in spans if sp.name == "si.capture" and sp.thread == threading.current_thread().name]
+    assert any(p.start_ns < c.end_ns and c.start_ns < p.end_ns for p in preps for c in caps)
+
+    # weights reloaded in place: the graphs read them where the capture found them
+    det.load_state_dict({k: v * 1.25 if k.startswith("mask_backbone") else v for k, v in params.items()}, strict=True)
+    reloaded = serve_all(graphed, order[:len(pool)])
+    same(reloaded, serve_all(eager, order[:len(pool)]), "reloaded")
+    assert any(not all(np.array_equal(a, b) for a, b in zip(r[1], w[1])) for r, w in zip(reloaded, want))

@@ -26,7 +26,8 @@ SERVE_MAIN = [
         ("si.mask_redo", 400, 480, [("si.wait.card", 420, 440, [])]),
     ]),
     ("si.prefetch", 520, 540, []),
-    ("si.infer", 540, 900, [("si.to_host", 600, 800, [("si.wait.card", 610, 790, [])]), ("si.paste", 800, 850, [])]),
+    ("si.infer", 540, 900, [("si.fused", 545, 595, [("si.tiles", 545, 580, []), ("si.replay", 580, 595, [])]),
+                            ("si.to_host", 600, 800, [("si.wait.card", 610, 790, [])]), ("si.paste", 800, 850, [])]),
 ]
 SERVE_UPLOAD = [("si.upload_scene", 25, 100, []), ("si.prepare_color", 100, 180, [])]
 SERVE_KERNELS = [(100, 300), (600, 800)]  # idle: [0, 100], [300, 600], [800, 1000]
@@ -53,6 +54,8 @@ EXPECTED = {
     # of 600 us idle the serving thread is out of the port in [500, 520] and [900, 1000]
     "idle_outside_port.serve": 100.0 * 120 / 600,
     "mask_redo_share.serve": 50.0,
+    # room 2's si.fused holds a si.replay, room 1's ran its chain eagerly
+    "graph_share.serve": 50.0,
     "enqueue_ms.train": (390 + 450 - 40 - 60) / 1e3 / 2,
     "card_wait_ms.train": (40 + 60) / 1e3 / 2,
     # of 350 us idle the training thread is out of the port in [400, 450] and [900, 1000]
@@ -129,3 +132,23 @@ def test_the_clipped_window(monkeypatch):
     assert read(ctx) == pytest.approx(0.05)
     ctx["trace"]["window"] = (BASE_US + 375, BASE_US + 1000)  # half of room 1's paste
     assert read(ctx) == pytest.approx((25 + 50) / 1e3 / 2)
+
+
+def test_graph_share_finds_nothing_without_a_replay(monkeypatch):
+    """A program that replays no chain (its rooms' ``si.fused`` spans hold
+    the eager stages alone) reads None, not 0."""
+    eager = [item if item[0] != "si.infer" or item[1] != 540 else
+             ("si.infer", 540, 900, [("si.fused", 545, 595, [("si.tiles", 545, 580, []), ("si.masks", 580, 595, [])])])
+             for item in SERVE_MAIN]
+    ctx = _ctx(eager, SERVE_UPLOAD, SERVE_KERNELS, {"rooms": 2, "host_path_scenes": 0}, monkeypatch)
+    assert harness.reader("graph_share.serve")(ctx) is None
+
+
+def test_graph_share_counts_the_rooms_whole_in_the_window(monkeypatch):
+    """A third room whose ``si.fused`` the window's end cuts, before its
+    ``si.replay``, is left out: of the two whole ``si.fused`` spans, room
+    2's replays (50%), not one of three (33%)."""
+    cut = SERVE_MAIN + [("si.infer", 950, 1100, [("si.fused", 960, 1050, [("si.tiles", 960, 1020, []),
+                                                                          ("si.replay", 1020, 1050, [])])])]
+    ctx = _ctx(cut, SERVE_UPLOAD, SERVE_KERNELS, {"rooms": 3, "host_path_scenes": 0}, monkeypatch)
+    assert harness.reader("graph_share.serve")(ctx) == pytest.approx(50.0, rel=1e-9)

@@ -60,6 +60,19 @@ the resident volume where the scene has one (the fused program and the
 host-planned path), else from the window's own fusion of the first
 ``TPU_MAX_TILE_VIEWS`` views whose frusta meet it (one K3 launch a window,
 floored at 0 where a scene view was left out; ``tiling.py:374, 436``).
+
+The fused program's chain after the tiles (the stitch, the window plans
+and the mask FCN, ``_chain``) runs, on one CUDA device, as a CUDA graph:
+captured on a bucket's second fused room, after that room ran it eagerly,
+and replayed for every later room of the bucket (``_replay``); a bucket
+seen once costs its eager chain alone. Each of its
+shapes follows from the bucket, and nothing in it syncs with the host, so
+one replay stands for a few hundred small launches that the host would
+otherwise enqueue one by one while the card waits. The tiles stay eager
+(their K1 calls are what the benchmark's K1 byte count reads), and so does
+the chain on the CPU, over a mesh of several devices (its queues are dealt
+over them) and under ``MASK_USE_IMAGES`` (its windows crop each room's own
+color volume).
 """
 
 from __future__ import annotations
@@ -73,16 +86,17 @@ import numpy as np
 import torch
 
 from tpu3dsis_torch.config import DetectorConfig
-from tpu3dsis_torch.geometry.boxes import clip_boxes, nms_overlap
+from tpu3dsis_torch.geometry.boxes import nms_overlap
 from tpu3dsis_torch.infer.color_volume import build_color_volume
 from tpu3dsis_torch.models.color import frustum_bbox_grid, select_views_for_tile, shift_world_to_grid
 from tpu3dsis_torch.models.detector import Detector, build_inference_fn
-from tpu3dsis_torch.ops.mask_windows import plan_windows, plan_windows_np
+from tpu3dsis_torch.ops.mask_windows import device_ints, plan_windows, plan_windows_np
 from tpu3dsis_torch.ops.nms import nms_mask
 from tpu3dsis_torch.parallel.spatial import device_list, replicas
 from tpu3dsis_torch.utils import tracing
 
 BUCKET = 48  # the device scene is padded to multiples of this (tiling.py:482-485)
+GRAPH_BUCKETS = 8  # buckets whose tile origins and captured chain are kept, least recently used out
 
 
 def tile_origins(extent: int, tile: int, stride: int):
@@ -170,6 +184,12 @@ class SceneInference:
     may name one device more than once. ``tile_batch`` is rounded up to a
     multiple of its length.
 
+    On one CUDA device without ``MASK_USE_IMAGES`` the chain after the
+    tiles replays as a CUDA graph per bucket (the module's docstring;
+    ``_replay``). A replay reads the detector's weights where the capture
+    found them: reload them in place (``load_state_dict``), not by new
+    tensors.
+
     ``last_fused`` says whether the fused path served the last ``infer``;
     ``host_path_scenes`` counts the ``infer`` calls that an overflow sent to
     the host-planned path.
@@ -178,7 +198,9 @@ class SceneInference:
     is a room's root, with the attributes views, tiles, detections and
     windows; under it ``si.device_color`` and ``si.device_scene`` (each
     joining its prefetch in ``si.wait.prefetch``), ``si.fused`` (``si.tiles``,
-    ``si.stitch``, ``si.plan``, ``si.masks``), ``si.to_host``, ``si.paste``,
+    then ``si.stitch``, ``si.plan``, ``si.masks``, or for a replayed chain
+    ``si.replay``; a bucket's capture, after its second room's eager chain,
+    is ``si.capture``), ``si.to_host``, ``si.paste``,
     ``si.host_path`` (an overflow's ``detect`` + ``predict_masks``) and
     ``si.mask_redo``; every host sync is a ``si.wait.card``. The caller's
     ``prefetch_*`` calls are ``si.prefetch``, the upload thread's jobs
@@ -225,6 +247,12 @@ class SceneInference:
         self._prefetch_lock = threading.Lock()
         # the mask FCN's color branch (MASK_USE_IMAGES): every mask window takes a color crop
         self._mask_color = detector.mask_backbone is not None and detector.mask_backbone.color is not None
+        # the chain after the tiles replays as a CUDA graph per bucket: on one
+        # card, and not where its mask windows crop each room's color volume
+        self._graphs = self.device.type == "cuda" and len(self.devices) == 1 and not self._mask_color
+        self._buckets = {}  # bucket shape -> its origins and captured chain (_bucket), least recent first
+        self._graph_pool = None  # the one memory pool of every bucket's graph
+        self._graph_stream = None  # the side stream the captures run on
         self.last_fused = False  # did the fused path serve the last infer()?
         self.host_path_scenes = 0  # infer() calls an overflow sent to detect + predict_masks
 
@@ -513,10 +541,11 @@ class SceneInference:
         return {"boxes": boxes[top_idx], "classes": cls[top_idx], "conf": top_conf, "valid": valid,
                 "overflow": dvalid.sum() - valid.sum()}
 
-    def _stitch(self, tiles: dict, origins: torch.Tensor, extent) -> dict:
+    def _stitch(self, tiles: dict, origins: torch.Tensor, extent: torch.Tensor) -> dict:
         """Class-aware K2 at ``TPU_STITCH_NMS_THRESH`` over the candidates,
         compaction to ``TPU_FUSED_MAX_DETECTIONS`` and a clip to the true
-        extent; both overflows are counted (tiling.py:1306-1330)."""
+        (3,) float32 ``extent`` on the device; both overflows are counted
+        (tiling.py:1306-1330)."""
         cand = self._candidates(tiles, origins)
         boxes_p, cls_p, top_conf, valid_p = cand["boxes"], cand["classes"], cand["conf"], cand["valid"]
         p = boxes_p.shape[0]
@@ -529,7 +558,7 @@ class SceneInference:
             0, slot, torch.arange(p, device=keep.device))[:k]
         num_kept = keep.sum()
         return {
-            "pred_box": clip_boxes(boxes_p[keep_idx], extent),
+            "pred_box": torch.minimum(boxes_p[keep_idx].clamp(min=0), torch.cat([extent, extent])),
             "pred_class": cls_p[keep_idx],
             "pred_conf": top_conf[keep_idx],
             "det_valid": torch.arange(k, device=keep.device) < num_kept,
@@ -544,7 +573,7 @@ class SceneInference:
         canvas_s = self._queue_canvas["mask_small"]
         box, valid = det["pred_box"], det["det_valid"]
         dims = torch.round(box[:, 3:6]) - torch.round(box[:, :3])
-        fits = (dims <= torch.tensor(canvas_s, dtype=torch.float32).to(box.device, non_blocking=True)).all(dim=1)
+        fits = (dims <= device_ints(canvas_s, box.device)).all(dim=1)
         return {
             "mask_small": plan_windows(box, valid & fits, pad_shape, canvas_s, self.cfg.TPU_FUSED_MAX_DETECTIONS,
                                        single_window=True),
@@ -599,15 +628,19 @@ class SceneInference:
                                      shift_world_to_grid(prep["world_to_grid"], s), canvas, zero_floor=floor))
         return torch.stack(vols)
 
-    def _fused(self, scene_dev: torch.Tensor, origins: torch.Tensor, extent, prep: dict | None = None) -> dict:
-        """The whole fused program on the device, enqueued without a host
-        sync; a color prep holds the resident volume the tiles crop, and
-        under ``MASK_USE_IMAGES`` the mask windows too."""
-        with tracing.span("si.tiles", tiles=int(origins.shape[0])):
-            tiles = self._tile_outputs(scene_dev, origins, prep)
+    def _chain(self, tiles: dict, origins: torch.Tensor, scene_dev: torch.Tensor, extent: torch.Tensor,
+               color: torch.Tensor | None = None) -> dict:
+        """The fused program after the tiles, on the first device, with no
+        host sync and no value from the host that varies by room: the
+        stitch, the window plans and each queue's mask FCN -> the served
+        dict. Inputs: the tiles' stitch outputs {key: (T, R, ...)}, their
+        origins, the padded device scene, the room's true (3,) float32
+        extent and, under ``MASK_USE_IMAGES``, the resident color volume the
+        windows crop. Its constants from the host are made once
+        (``device_ints``), on the eager run before any capture. The eager
+        path and a graph's capture both run it."""
         with tracing.span("si.stitch"):
             out = self._stitch(tiles, origins, extent)
-        color = prep["color"] if self._mask_color and prep is not None else None
         with tracing.span("si.plan"):
             plans = self._plan_queues(out, scene_dev.shape[:3])
         with tracing.span("si.masks"):
@@ -621,6 +654,95 @@ class SceneInference:
                 del plan["locals6"]
                 out[name] = plan
         return out
+
+    def _fused(self, scene_dev: torch.Tensor, origins: torch.Tensor, extent, prep: dict | None = None) -> dict:
+        """The whole fused program on the device, enqueued without a host
+        sync: the tiles, then the chain after them (``_chain``), replayed
+        from the bucket's CUDA graph where the instance takes graphs;
+        ``extent`` is the room's true (X, Y, Z). A color prep holds the
+        resident volume the tiles crop, and under ``MASK_USE_IMAGES`` the
+        mask windows too."""
+        with tracing.span("si.tiles", tiles=int(origins.shape[0])):
+            tiles = self._tile_outputs(scene_dev, origins, prep)
+        extent = torch.tensor(tuple(extent)[:3], dtype=torch.float32).to(self.device, non_blocking=True)
+        if self._graphs:
+            return self._replay(self._bucket(scene_dev.shape[:3]), tiles, origins, scene_dev, extent)
+        color = prep["color"] if self._mask_color and prep is not None else None
+        return self._chain(tiles, origins, scene_dev, extent, color)
+
+    # --- a bucket's origins and its captured chain -------------------------------
+    def _bucket(self, pad_shape) -> dict:
+        """A bucket's entry: ``origins`` its tile origins on the device, made
+        once (a copy from the host cannot sit in a captured graph, and once
+        is cheaper eagerly too), ``eager`` the rooms whose chain ran eagerly
+        where the instance takes graphs, and ``graph`` once its chain is
+        captured. The last ``GRAPH_BUCKETS`` buckets used are kept."""
+        key = tuple(int(d) for d in pad_shape)
+        entry = self._buckets.pop(key, None)
+        if entry is None:
+            entry = {"origins": self._origins(key), "eager": 0}
+        self._buckets[key] = entry  # the most recently used last
+        while len(self._buckets) > GRAPH_BUCKETS:
+            self._buckets.pop(next(iter(self._buckets)))
+        return entry
+
+    def _replay(self, entry: dict, tiles: dict, origins: torch.Tensor, scene_dev: torch.Tensor,
+                extent: torch.Tensor) -> dict:
+        """The chain through the bucket's CUDA graph: its static inputs
+        (the tiles' outputs, the origins, which are the bucket's own, the
+        padded scene, the extent) filled on the current stream, then one
+        replay there; returns the graph's static outputs, which the next
+        replay of any bucket overwrites (``_to_host`` reads them first: its
+        sync comes before the next room). A bucket without a graph runs the
+        chain eagerly for this room, and on its second room captures it
+        after that (``_capture``): a bucket seen once pays no capture."""
+        graph = entry.get("graph")
+        if graph is None:
+            out = self._chain(tiles, origins, scene_dev, extent)
+            entry["eager"] += 1
+            if entry["eager"] > 1:
+                with tracing.span("si.capture"):
+                    entry["graph"] = self._capture(entry, tiles, scene_dev, extent)
+            return out
+        with tracing.span("si.replay"):
+            ins = graph["inputs"]
+            for k, v in tiles.items():
+                ins["tiles"][k].copy_(v)
+            for k, v in (("origins", origins), ("scene", scene_dev), ("extent", extent)):
+                ins[k].copy_(v)
+            graph["graph"].replay()
+            return graph["outputs"]
+
+    def _capture(self, entry: dict, tiles: dict, scene_dev: torch.Tensor, extent: torch.Tensor) -> dict:
+        """Capture the bucket's chain, after the eager runs that warmed its
+        kernels (cuDNN's and cuBLAS's choices, K2's library) and made its
+        constants: {graph, inputs, outputs}. The static inputs come from the
+        ordinary allocator; whatever the chain allocates comes from one pool
+        that every bucket's graph shares, so memory grows with the largest
+        chain and not with the buckets (the replays run one at a time on
+        one stream, and each one's outputs are read before the next). The
+        capture is thread-local (``capture_error_mode="thread_local"``): the
+        upload thread may prepare the next room on its own stream meanwhile,
+        since only this thread's calls are bound by the capture. It runs on
+        a side stream, begun and ended by hand: ``torch.cuda.graph`` would
+        first wait for the whole card, the upload thread's work included,
+        and empty the caching allocators, the pinned blocks that the upload
+        thread reuses among them."""
+        ins = {"tiles": {k: torch.empty_like(v) for k, v in tiles.items()}, "origins": entry["origins"],
+               "scene": torch.empty_like(scene_dev), "extent": torch.empty_like(extent)}
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(self.device)
+        graph, stream = torch.cuda.CUDAGraph(), self._graph_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(self._graph_pool, capture_error_mode="thread_local")
+            try:
+                outs = self._chain(ins["tiles"], ins["origins"], ins["scene"], ins["extent"])
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        return {"graph": graph, "inputs": ins, "outputs": outs}
 
     # --- the served path -------------------------------------------------------
     @torch.inference_mode()
@@ -647,7 +769,7 @@ class SceneInference:
         prep = None if frames is None else self._device_color(frames, scene_data.shape[:3])
         data, scene_dev = self._device_scene(scene_data)
         with tracing.span("si.fused"):
-            origins = self._origins(data.shape[:3])
+            origins = self._bucket(data.shape[:3])["origins"]
             sp.set(tiles=int(origins.shape[0]))
             fused = self._fused(scene_dev, origins, scene_data.shape[:3], prep)
         with tracing.span("si.to_host"):
@@ -854,7 +976,7 @@ class SceneInference:
             if "color" not in prep:
                 raise ValueError("device_seconds times the fused program, which needs the resident color volume")
         data, scene_dev = self._device_scene(scene_data)
-        origins = self._origins(data.shape[:3])
+        origins = self._bucket(data.shape[:3])["origins"]
         extent = scene_data.shape[:3]
 
         def run():

@@ -11,7 +11,8 @@ larger roi is cut, per axis, into ``ceil(b / s)`` windows of interior stride
 (clamped to the scene), so every owned voxel is exact.
 
 ``plan_windows`` is the fixed-capacity planner on tensors (the fused scene
-path); ``windows_per_axis`` and ``plan_windows_np`` are the port's own copies
+path), its host constants made once per device (``device_ints``);
+``windows_per_axis`` and ``plan_windows_np`` are the port's own copies
 of the JAX package's numpy helpers (the host-planned path), so that nothing
 here imports the JAX package.
 """
@@ -23,6 +24,8 @@ import torch
 
 HALO = 6  # receptive-field radius of the mask FCN (5 conv3 + combine)
 
+_DEVICE_INTS = {}  # (device, values) -> their int32 tensor there (device_ints)
+
 
 def windows_per_axis(scene: int, canvas: int, halo: int = HALO) -> int:
     """Static upper bound on per-axis window count for any roi in `scene`."""
@@ -32,6 +35,24 @@ def windows_per_axis(scene: int, canvas: int, halo: int = HALO) -> int:
     if s <= 0:
         raise ValueError(f"mask canvas {canvas} too small for halo {halo} windowing")
     return -(-scene // s)
+
+
+def device_ints(values, device) -> torch.Tensor:
+    """``values`` as an int32 tensor on ``device``, made on the first call
+    for (device, values) and kept: a copy from the host costs a launch on
+    every call, and cannot sit in a captured CUDA graph at all (the fused
+    scene program's chain, ``infer/tiling.py``, whose eager runs before a
+    capture make its constants). Made outside inference mode, so that the
+    training step may take the same tensor."""
+    key = (torch.device(device), tuple(int(v) for v in values))
+    t = _DEVICE_INTS.get(key)
+    if t is None:
+        # up without a sync (a blocking copy would stall the host behind the
+        # device in the middle of the fused scene program)
+        with torch.inference_mode(False):
+            t = torch.tensor(key[1], dtype=torch.int32).to(key[0], non_blocking=True)
+        t = _DEVICE_INTS.setdefault(key, t)
+    return t
 
 
 def plan_windows(rois: torch.Tensor, roi_valid: torch.Tensor, scene_shape, canvas, capacity: int,
@@ -58,10 +79,8 @@ def plan_windows(rois: torch.Tensor, roi_valid: torch.Tensor, scene_shape, canva
     k_total = ks[0] * ks[1] * ks[2]
     capacity = min(capacity, m * k_total)
 
-    # the constants go up without a sync (a blocking copy would stall the
-    # host behind the device in the middle of the fused scene program)
     dev = rois.device
-    s_dev, c_dev = (torch.tensor(t, dtype=torch.int32).to(dev, non_blocking=True) for t in (scene_t, canvas_t))
+    s_dev, c_dev = device_ints(scene_t, dev), device_ints(canvas_t, dev)
     stride = torch.clamp(c_dev - 2 * halo, min=1)
 
     r = torch.round(rois).to(torch.int32)  # half to even, as jnp.round
