@@ -34,13 +34,19 @@ SERVE_KERNELS = [(100, 300), (600, 800)]  # idle: [0, 100], [300, 600], [800, 10
 
 TRAIN_MAIN = [
     ("train.step", 10, 400, [
-        ("train.forward", 10, 250, [("train.targets", 50, 80, []), ("train.wait.card", 100, 140, [])]),
+        ("train.forward", 10, 250, [("train.color", 12, 48, [("train.enet", 14, 30, []), ("train.fuse", 32, 46, [])]),
+                                    ("train.targets", 50, 80, []), ("train.wait.card", 100, 140, [])]),
         ("train.backward", 250, 380, []),
         ("train.update", 380, 400, []),
     ]),
-    ("train.step", 450, 900, [("train.forward", 450, 700, [("train.wait.card", 500, 560, [])]),
+    ("train.step", 450, 900, [("train.forward", 450, 700, [("train.color", 452, 480, [("train.enet", 455, 470, []),
+                                                                                       ("train.fuse", 470, 478, [])]),
+                                                           ("train.wait.card", 500, 560, [])]),
                               ("train.backward", 700, 880, []), ("train.update", 880, 900, [])]),
 ]
+# the backward's spans on the card: autograd's device thread
+TRAIN_AUTOGRAD = [("train.fuse_bwd", 260, 270, []), ("train.enet_bwd", 270, 330, []),
+                  ("train.fuse_bwd", 710, 716, []), ("train.enet_bwd", 716, 766, [])]
 TRAIN_KERNELS = [(0, 300), (500, 850)]  # idle: [300, 500], [850, 1000]
 
 # by hand, from the spans above; rooms 2, steps 2
@@ -60,6 +66,8 @@ EXPECTED = {
     "card_wait_ms.train": (40 + 60) / 1e3 / 2,
     # of 350 us idle the training thread is out of the port in [400, 450] and [900, 1000]
     "idle_outside_port.train": 100.0 * 150 / 350,
+    "enet_ms.train": (16 + 15) / 1e3 / 2,
+    "enet_bwd_ms.train": (60 + 50) / 1e3 / 2,
 }
 
 
@@ -78,14 +86,14 @@ def _record(clock, tree, request=None):
             clock.now_ns = (BASE_US + end) * 1000
 
 
-def _ctx(main, upload, kernels, counters, monkeypatch):
+def _ctx(main, upload, kernels, counters, monkeypatch, thread="scene-upload_0"):
     clock = Clock()
     monkeypatch.setattr(tracing, "time_ns", clock)
     tracing.clear()
     with tracing.recording():
         _record(clock, main, request=1)
         if upload:
-            t = threading.Thread(target=_record, args=(clock, upload, 2), name="scene-upload_0")
+            t = threading.Thread(target=_record, args=(clock, upload, 2), name=thread)
             t.start()
             t.join(timeout=60)
             assert not t.is_alive()
@@ -106,7 +114,7 @@ def _served(monkeypatch):
 
 
 def _trained(monkeypatch):
-    return _ctx(TRAIN_MAIN, None, TRAIN_KERNELS, {"steps": 2}, monkeypatch)
+    return _ctx(TRAIN_MAIN, TRAIN_AUTOGRAD, TRAIN_KERNELS, {"steps": 2}, monkeypatch, thread="autograd")
 
 
 @pytest.mark.parametrize("name", sorted(EXPECTED))

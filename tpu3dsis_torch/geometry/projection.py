@@ -39,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from tpu3dsis_torch import _build
+from tpu3dsis_torch.utils import tracing
 
 
 def view_matrices(poses, world_to_grid) -> torch.Tensor:
@@ -529,11 +530,12 @@ class _FuseViewsBatch(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         (feats2d,) = ctx.saved_tensors
-        if feats2d.is_cuda:
-            d = fuse_views_backward_cuda(grad.contiguous(), feats2d, *ctx.args, view_valid=ctx.view_valid,
-                                         mats=ctx.mats, rank=ctx.rank, margins=ctx.margins)
-        else:
-            d = fuse_views_backward_batch_plain(grad, feats2d, *ctx.args, view_valid=ctx.view_valid)
+        with tracing.span("train.fuse_bwd"):
+            if feats2d.is_cuda:
+                d = fuse_views_backward_cuda(grad.contiguous(), feats2d, *ctx.args, view_valid=ctx.view_valid,
+                                             mats=ctx.mats, rank=ctx.rank, margins=ctx.margins)
+            else:
+                d = fuse_views_backward_batch_plain(grad, feats2d, *ctx.args, view_valid=ctx.view_valid)
         return (d,) + (None,) * 9
 
 

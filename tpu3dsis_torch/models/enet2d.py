@@ -168,3 +168,8 @@ class ENet2D(nn.Module):
         return y.permute(0, 2, 3, 1)
 
     forward = features_for_3d
+
+    def first_params(self) -> list:
+        """The parameters of ``features_for_3d``'s first op: every later op
+        reads its output, so a backward pass takes their gradients last."""
+        return list(self._modules["0"].parameters())

@@ -60,7 +60,8 @@ class StageTimer:
     """Milliseconds by stage of a step: CUDA events on the card (read after
     a sync), the host clock on the CPU. ``with timer("targets"):`` adds the
     block's time to its stage and, as every stage does without a timer,
-    opens the recorder's span ``train.targets`` (``utils/tracing.py``)."""
+    opens the recorder's span ``train.targets`` (``utils/tracing.py``),
+    which it yields."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
@@ -72,16 +73,16 @@ class StageTimer:
 
     @contextlib.contextmanager
     def __call__(self, stage: str):
-        with _no_timer(stage):
+        with _no_timer(stage) as sp:
             if self.cuda:
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 start.record()
-                yield
+                yield sp
                 end.record()
                 self._events.append((stage, start, end))
             else:
                 t0 = time.perf_counter()
-                yield
+                yield sp
                 self._add(stage, 1e3 * (time.perf_counter() - t0))
 
     def ms(self) -> dict:
@@ -253,6 +254,10 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
     train_enet = use_images and not bool(cfg.FIX_ENET) and detector.enet is not None
     # the mask FCN's color branch crops the color volume (JAX trainstep.py:310-314)
     mask_use_images = use_mask and bool(cfg.MASK_USE_IMAGES)
+    # the ENet's backward span closes on its first parameters' gradients: only where a
+    # trained loss reaches its features (the RPN's and the classifier's exist where they train)
+    enet_grad = train_enet and (not fix_rpn or not fix_class or mask_use_images)
+    enet_first = detector.enet.first_params() if enet_grad else []
     if mask_use_images and not use_images:
         raise ValueError("MASK_USE_IMAGES needs USE_IMAGES: the mask FCN's color branch reads the color volume")
 
@@ -275,14 +280,17 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
             with torch.set_grad_enabled(train_enet), timer("color"):
                 proj = detector.color_projector
                 images = to_dev(batch["images"])
-                feats2d = proj.image_features(images.reshape(-1, *images.shape[2:]))
+                with tracing.span("train.enet"):
+                    feats2d = proj.image_features(images.reshape(-1, *images.shape[2:]))
+                tracing.backward_span("train.enet_bwd", feats2d, enet_first)
                 if not train_enet:
                     feats2d = feats2d.to(detector.compute_dtype)
                 feats2d = feats2d.reshape(*images.shape[:2], *feats2d.shape[1:])
                 depths = to_dev(batch["depths"], torch.float32)
                 view_valid = to_dev(batch["view_valid"], torch.bool)
-                imageft = proj.project_batch(feats2d, depths, batch["poses"], batch["world_to_grid"], shape,
-                                             view_valid=view_valid).to(detector.compute_dtype)
+                with tracing.span("train.fuse"):
+                    imageft = proj.project_batch(feats2d, depths, batch["poses"], batch["world_to_grid"], shape,
+                                                 view_valid=view_valid).to(detector.compute_dtype)
         feats = detector.features(data, imageft)
         per_sample = {}
         rpn_out = detector.rpn_forward(feats) if use_rpn else None
@@ -454,7 +462,8 @@ def build_train_step(detector: Detector, cfg, scene_shape, group=None):
             if group is not None:
                 with t("all_reduce"):
                     grads, metrics = all_reduce_mean(grads, params, metrics, group)
-            with t("update"):
+            with t("update") as sp:
+                sp.set(tensors=sum(map(len, opt.buckets.values())))  # the tensors the update moves
                 return apply_step_update(opt, dict(zip(names, grads)), metrics)
 
     return opt_init, step

@@ -24,6 +24,9 @@ room or the step: given, else its parent's) and its attributes (the counts
 at that boundary). On the thread that runs the profiler it also enters a
 ``record_function`` of its name, so the profiler's own trace carries it.
 
+``backward_span`` records a span over part of a backward pass, from
+autograd hooks on the thread that runs it.
+
 Finished spans go to one in-memory list per thread; ``spans()`` returns a
 snapshot of all of them, ``clear()`` empties them and ``chrome_events``
 writes them as Chrome trace events (``utils/profiling.py::trace`` adds them
@@ -48,6 +51,7 @@ _forced = 0  # recording() blocks open, on any thread
 _threads = []  # each thread's _Thread that has recorded, in order of its first span
 _local = threading.local()
 _requests = itertools.count(1)
+_pending = {}  # backward_span's name: the hooks of its last call
 
 
 class _Thread:
@@ -142,6 +146,50 @@ def span(name: str, request=None, **attrs):
     if not (_forced or _autograd_profiler._is_profiler_enabled):
         return _OFF
     return Span(name, request, attrs)
+
+
+def backward_span(name: str, output: torch.Tensor, last) -> None:
+    """Record ``name`` over a part of the coming backward pass: from the
+    moment ``output``'s gradient is whole to the moment the gradients of
+    the leaves ``last`` are (those the part's backward takes last: the
+    inputs of its first op), on the thread autograd runs them on (on the
+    card its device thread), with the request of the caller's innermost
+    open span. The span enters no thread's stack and no profiler range: it
+    is written finished, once every leaf has its gradient. Each call first
+    removes the hooks of the last call of ``name``, whose pass may have
+    left a leaf without a gradient. Off, or where ``output`` takes no
+    gradient, it registers nothing."""
+    for h in _pending.pop(name, ()):
+        h.remove()
+    if not (_forced or _autograd_profiler._is_profiler_enabled) or not output.requires_grad:
+        return
+    leaves = [t for t in last if t.requires_grad]
+    if not leaves:
+        return
+    caller = getattr(_local, "state", None)
+    sp = Span(name, caller.stack[-1].request if caller is not None and caller.stack else None, {})
+    handles, left = [], [len(leaves)]
+
+    def opened(grad):
+        t = sp._owner = _this_thread()
+        sp.thread, sp.tid = t.name, t.tid
+        if t.stack:
+            sp.parent = t.stack[-1]
+            if sp.request is None:
+                sp.request = sp.parent.request
+        sp.start_ns = time_ns()
+
+    def taken(grad):
+        left[0] -= 1
+        if left[0] == 0 and sp.start_ns:
+            sp.end_ns = time_ns()
+            sp._owner.done.append(sp)
+            for h in handles:
+                h.remove()
+
+    handles.append(output.register_hook(opened))
+    handles += [t.register_hook(taken) for t in leaves]
+    _pending[name] = handles
 
 
 @contextlib.contextmanager
