@@ -39,8 +39,8 @@ TRAIN_MAIN = [
         ("train.backward", 250, 380, []),
         ("train.update", 380, 400, []),
     ]),
-    ("train.step", 450, 900, [("train.forward", 450, 700, [("train.color", 452, 480, [("train.enet", 455, 470, []),
-                                                                                       ("train.fuse", 470, 478, [])]),
+    ("train.step", 450, 900, [("train.forward", 450, 700, [("train.color", 452, 480, [("train.enet", 455, 470, [
+        ("train.enet_replay", 456, 469, [])]), ("train.fuse", 470, 478, [])]),
                                                            ("train.wait.card", 500, 560, [])]),
                               ("train.backward", 700, 880, []), ("train.update", 880, 900, [])]),
 ]
@@ -68,6 +68,8 @@ EXPECTED = {
     "idle_outside_port.train": 100.0 * 150 / 350,
     "enet_ms.train": (16 + 15) / 1e3 / 2,
     "enet_bwd_ms.train": (60 + 50) / 1e3 / 2,
+    # step 2's train.enet holds a train.enet_replay, step 1's ran the ENet eagerly
+    "enet_graph_share.train": 50.0,
 }
 
 
@@ -160,3 +162,34 @@ def test_graph_share_counts_the_rooms_whole_in_the_window(monkeypatch):
                                                                           ("si.replay", 1020, 1050, [])])])]
     ctx = _ctx(cut, SERVE_UPLOAD, SERVE_KERNELS, {"rooms": 3, "host_path_scenes": 0}, monkeypatch)
     assert harness.reader("graph_share.serve")(ctx) == pytest.approx(50.0, rel=1e-9)
+
+
+def _renamed(tree, old, new):
+    """The span tree with every span named ``old`` named ``new`` (its
+    subtree dropped where ``new`` is None)."""
+    return [(new if name == old else name, a, b, _renamed(kids, old, new)) for name, a, b, kids in tree
+            if name != old or new is not None]
+
+
+def test_enet_graph_share_finds_nothing_without_a_replay(monkeypatch):
+    """A program that replays no ENet (its ``train.enet`` spans hold no
+    ``train.enet_replay``, as before graphs, or a capture alone) reads
+    None, not 0."""
+    read = harness.reader("enet_graph_share.train")
+    for new in (None, "train.enet_capture"):
+        tree = _renamed(TRAIN_MAIN, "train.enet_replay", new)
+        ctx = _ctx(tree, TRAIN_AUTOGRAD, TRAIN_KERNELS, {"steps": 2}, monkeypatch, thread="autograd")
+        assert harness.reader("enet_ms.train")(ctx) is not None and read(ctx) is None
+
+
+def test_enet_graph_share_counts_the_steps_whole_in_the_window(monkeypatch):
+    """A third step whose ``train.enet`` the window's end cuts, before its
+    ``train.enet_replay``, is left out, and so is a first one that its
+    start cuts: of the whole ``train.enet`` spans, step 2's replays."""
+    cut = TRAIN_MAIN + [("train.step", 950, 1100, [("train.forward", 950, 1100, [
+        ("train.color", 960, 1060, [("train.enet", 970, 1040, [("train.enet_replay", 1010, 1030, [])])])])])]
+    ctx = _ctx(cut, TRAIN_AUTOGRAD, TRAIN_KERNELS, {"steps": 3}, monkeypatch, thread="autograd")
+    read = harness.reader("enet_graph_share.train")
+    assert read(ctx) == pytest.approx(50.0, rel=1e-9)
+    ctx["trace"]["window"] = (BASE_US + 20, BASE_US + 1000)  # step 1's train.enet starts before the window
+    assert read(ctx) == pytest.approx(100.0, rel=1e-9)

@@ -272,6 +272,15 @@ def test_the_step_records_the_enet_fusion_and_update_spans(runs):
     assert sum("enet" in k for k in trainable) > 400
 
 
+def test_on_the_cpu_the_step_never_captures_its_enet(runs):
+    """The CPU step runs its ENet eagerly every step: a ``train.enet`` a
+    step, none holding a ``train.enet_replay`` or ``train.enet_capture``
+    (``train/enet_graph.py``)."""
+    names = [s.name for s in runs["spans"]]
+    assert names.count("train.enet") == STEPS
+    assert not {"train.enet_replay", "train.enet_capture"} & set(names)
+
+
 def test_off_the_enet_backward_span_registers_no_hook():
     feats = torch.ones(3, requires_grad=True) * 2
     w = torch.ones(2, requires_grad=True)

@@ -34,19 +34,22 @@ class ColorProjector:
         self.color_mean = torch.tensor(cfg.COLOR_MEAN, dtype=torch.float32)
         self.color_std = torch.tensor(cfg.COLOR_STD, dtype=torch.float32)
 
-    def image_features(self, images: torch.Tensor) -> torch.Tensor:
+    def image_features(self, images: torch.Tensor, stats=None) -> torch.Tensor:
         """(V, H, W, C_in) -> (V, Hd, Wd, C_feat), on the images' device.
 
         ``uint8`` images are normalised there with the fp32 ops of
-        ``frames.load_color`` (/255, -mean, /std; ``models/color.py:49-52``);
-        float images are taken as already normalised. Without an ENet the
-        images pass through as the features. Under autograd the features
-        keep their gradient to the ENet's parameters (``FIX_ENET: False``).
+        ``frames.load_color`` (/255, -mean, /std; ``models/color.py:49-52``),
+        the mean and std copied from the host, or ``stats`` = (mean, std)
+        already on the images' device (a captured graph cannot take the
+        copy); float images are taken as already normalised. Without an
+        ENet the images pass through as the features. Under autograd the
+        features keep their gradient to the ENet's parameters
+        (``FIX_ENET: False``).
         """
         if self.enet is None:
             return images
         if images.dtype == torch.uint8:
-            mean, std = self.color_mean.to(images.device), self.color_std.to(images.device)
+            mean, std = stats or (self.color_mean.to(images.device), self.color_std.to(images.device))
             images = (images.to(torch.float32) / 255.0 - mean) / std
         return self.enet.features_for_3d(images)
 

@@ -94,7 +94,7 @@ def mask_loss_window_groups(groups, labels, roi_valid, class_weights, num_rois: 
     labels = labels.reshape(-1).long()
     roi_valid = roi_valid.reshape(-1)
     cw = class_weights.clone()
-    cw[0] = 0.0
+    cw[:1].zero_()  # a fill: assigning a Python number would be a blocking copy, a host sync
     dev = labels.device
     roi_sum = torch.zeros((total_rois,), dtype=torch.float32, device=dev)
     roi_cnt = torch.zeros((total_rois,), dtype=torch.float32, device=dev)

@@ -33,8 +33,10 @@ def _rank_select(draws: torch.Tensor, member_mask: torch.Tensor, quota) -> torch
     n = member_mask.shape[-1]
     ar = torch.arange(n, device=order.device).expand_as(order)
     rank = torch.empty_like(order).scatter_(-1, order, ar)
-    quota = torch.as_tensor(quota, device=rank.device)
-    return member_mask & (rank < (quota[..., None] if quota.dim() else quota))
+    if torch.is_tensor(quota) and quota.dim():
+        quota = quota[..., None]
+    # an int quota is compared as it is: uploading it would be a blocking copy, a host sync
+    return member_mask & (rank < quota)
 
 
 def _ranked_indices(draws: torch.Tensor, member: torch.Tensor) -> torch.Tensor:

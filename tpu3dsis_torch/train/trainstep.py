@@ -17,7 +17,10 @@ then cast to the compute dtype, as in the JAX package; a cast before the
 fusion would give the same forward values but ties in the backward that
 float32 does not have. Under ``MASK_USE_IMAGES`` the mask FCN's windows
 also crop that volume, so its cotangent is the sum of the backbone's and
-the mask branch's, and one K3b launch still takes it to the ENet.
+the mask branch's, and one K3b launch still takes it to the ENet. On the
+card the ENet over the batch's views replays from captured CUDA graphs,
+its backward too where it trains (``train/enet_graph.py``); on the CPU it
+runs eagerly.
 
 The random subsampling of the targets takes uniform draws (``make_draws``):
 the step makes them with a ``torch.Generator`` on the parameters' device
@@ -52,6 +55,7 @@ from tpu3dsis_torch.models.rpn import select_proposals
 from tpu3dsis_torch.ops.mask_windows import plan_windows
 from tpu3dsis_torch.train import losses as L
 from tpu3dsis_torch.train import targets as T
+from tpu3dsis_torch.train.enet_graph import EnetFeatures
 from tpu3dsis_torch.train.solver import SGD
 from tpu3dsis_torch.utils import tracing
 
@@ -258,6 +262,8 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
     # trained loss reaches its features (the RPN's and the classifier's exist where they train)
     enet_grad = train_enet and (not fix_rpn or not fix_class or mask_use_images)
     enet_first = detector.enet.first_params() if enet_grad else []
+    # the ENet over the batch's views: replayed from captured graphs on the card (train/enet_graph.py)
+    enet_features = EnetFeatures(detector.color_projector, detector.compute_dtype) if use_images else None
     if mask_use_images and not use_images:
         raise ValueError("MASK_USE_IMAGES needs USE_IMAGES: the mask FCN's color branch reads the color volume")
 
@@ -271,20 +277,20 @@ def build_loss_fn(detector: Detector, cfg, scene_shape):
         b = data.shape[0]
         imageft = None
         if use_images:
-            # The ENet takes every view of the batch in one call; K3 fuses
-            # each chunk's views into its volume, on matrices made once for
-            # the batch. A frozen ENet (every shipped config) runs without a
-            # gradient, its features cast to the compute dtype before K3; a
-            # trained one keeps them float32 through the fusion (one K3b
-            # launch for the batch in the backward), and the volume is cast.
+            # The ENet takes every view of the batch in one call (on the
+            # card a replay of its captured graphs from the third step of a
+            # batch shape on); K3 fuses each chunk's views into its volume,
+            # on matrices made once for the batch. A frozen ENet (every
+            # shipped config) runs without a gradient, its features cast to
+            # the compute dtype before K3; a trained one keeps them float32
+            # through the fusion (one K3b launch for the batch in the
+            # backward), and the volume is cast.
             with torch.set_grad_enabled(train_enet), timer("color"):
                 proj = detector.color_projector
                 images = to_dev(batch["images"])
                 with tracing.span("train.enet"):
-                    feats2d = proj.image_features(images.reshape(-1, *images.shape[2:]))
+                    feats2d = enet_features(images.reshape(-1, *images.shape[2:]))
                 tracing.backward_span("train.enet_bwd", feats2d, enet_first)
-                if not train_enet:
-                    feats2d = feats2d.to(detector.compute_dtype)
                 feats2d = feats2d.reshape(*images.shape[:2], *feats2d.shape[1:])
                 depths = to_dev(batch["depths"], torch.float32)
                 view_valid = to_dev(batch["view_valid"], torch.bool)
